@@ -5,9 +5,10 @@ PyTorch tensors; the JAX package's Pallas kernels become hand-written CUDA
 kernels for Hopper (``ipoc_tpu_torch/csrc``), built with ``nvcc`` at first
 use on a card.  This package never imports jax.
 
-Ported so far: the single-grid scenario stream with the sequential Newton
-step (``solve_stream`` with ``newton_impl="seq"``), its models, derivatives
-and two kernels.  ROADMAP.md lists what is still to port.
+Ported so far: the single-grid scenario stream, ``solve_stream``, under
+``BATCH_CONFIG`` (the packed fused stream, four kernels with per-stage code
+generated from the model) and with ``newton_impl="seq"`` (two kernels), its
+models and derivatives.  ROADMAP.md lists what is still to port.
 """
 
 from ipoc_tpu_torch.config import (

@@ -28,87 +28,20 @@
 // 32 threads so that B=4096 scenarios spread over 128 of the 132 SMs.
 //
 // Semantics follow the JAX kernel exactly (seq_newton_kernel.py:172-252):
-// symmetric updates computed on the upper triangle and mirrored, one
-// unpivoted elimination for [k | K] with the interleaved RHS layout, the
-// minimum pivot over Quu and the regularized R (NaN-propagating, like
-// jnp.minimum), ok = isfinite(piv) & (piv > 0) & isfinite(pred), dx0 = 0.
+// the backward step is riccati.cuh's riccati_step, shared with the fused
+// kernels; ok = isfinite(piv) & (piv > 0) & isfinite(pred), dx0 = 0.
 // Generic in dtype (float, double), templated on (NX, NU).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "riccati.cuh"
+
 namespace {
 
+using ipoc::riccati_step;
+
 constexpr int kThreads = 32;
-
-template <typename scalar_t>
-__device__ __forceinline__ scalar_t nan_min(scalar_t a, scalar_t b) {
-  // jnp.minimum / torch.minimum semantics: a NaN operand wins (fmin would
-  // drop it and could let a NaN pivot pass the PD test).
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
-  return a < b ? a : b;
-}
-
-// Unpivoted elimination on an (N x N) matrix `a` with an (N x MC) RHS `b`,
-// both row-major, in place; returns the minimum pivot (_solve_track).
-template <typename scalar_t, int N, int MC>
-__device__ __forceinline__ scalar_t solve_track(scalar_t* a, scalar_t* b) {
-  scalar_t minpiv = a[0];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const scalar_t piv = a[k * N + k];
-    if (k > 0) minpiv = nan_min(minpiv, piv);
-    const scalar_t inv_p = scalar_t(1) / piv;
-#pragma unroll
-    for (int j = k + 1; j < N; ++j) a[k * N + j] = a[k * N + j] * inv_p;
-#pragma unroll
-    for (int j = 0; j < MC; ++j) b[k * MC + j] = b[k * MC + j] * inv_p;
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const scalar_t f = a[i * N + k];
-#pragma unroll
-      for (int j = k + 1; j < N; ++j) a[i * N + j] = a[i * N + j] - f * a[k * N + j];
-#pragma unroll
-      for (int j = 0; j < MC; ++j) b[i * MC + j] = b[i * MC + j] - f * b[k * MC + j];
-    }
-  }
-#pragma unroll
-  for (int i = N - 2; i >= 0; --i) {
-#pragma unroll
-    for (int l = i + 1; l < N; ++l) {
-      const scalar_t f = a[i * N + l];
-#pragma unroll
-      for (int j = 0; j < MC; ++j) b[i * MC + j] = b[i * MC + j] - f * b[l * MC + j];
-    }
-  }
-  return minpiv;
-}
-
-// Minimum leading pivot of an unpivoted elimination (_pivots_only).
-template <typename scalar_t, int N>
-__device__ __forceinline__ scalar_t pivots_only(const scalar_t* A) {
-  if (N == 1) return A[0];
-  scalar_t a[N * N];
-#pragma unroll
-  for (int r = 0; r < N * N; ++r) a[r] = A[r];
-  scalar_t minpiv = a[0];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const scalar_t piv = a[k * N + k];
-    if (k > 0) minpiv = nan_min(minpiv, piv);
-    const scalar_t inv_p = scalar_t(1) / piv;
-#pragma unroll
-    for (int j = k + 1; j < N; ++j) a[k * N + j] = a[k * N + j] * inv_p;
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const scalar_t f = a[i * N + k];
-#pragma unroll
-      for (int j = k + 1; j < N; ++j) a[i * N + j] = a[i * N + j] - f * a[k * N + j];
-    }
-  }
-  return minpiv;
-}
 
 template <typename scalar_t, int NX, int NU>
 __global__ void __launch_bounds__(kThreads)
@@ -128,7 +61,6 @@ seq_trial_kernel(const scalar_t* __restrict__ ru,  // (B, T, NU)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   constexpr int NG = (1 + NX) * NU;
-  constexpr int MC = 1 + NX;
 
   scalar_t Vxx[NX * NX], Vx[NX];
 #pragma unroll
@@ -155,133 +87,14 @@ seq_trial_kernel(const scalar_t* __restrict__ ru,  // (B, T, NU)
 #pragma unroll
     for (int r = 0; r < NX * NU; ++r) fu_t[r] = fu[s * NX * NU + r];
 
-    // Vfx = Vxx fx, Vfu = Vxx fu.
-    scalar_t Vfx[NX * NX], Vfu[NX * NU];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        scalar_t acc = Vxx[i * NX] * fx_t[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) acc = acc + Vxx[i * NX + l] * fx_t[l * NX + j];
-        Vfx[i * NX + j] = acc;
-      }
-#pragma unroll
-      for (int j = 0; j < NU; ++j) {
-        scalar_t acc = Vxx[i * NX] * fu_t[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) acc = acc + Vxx[i * NX + l] * fu_t[l * NU + j];
-        Vfu[i * NU + j] = acc;
-      }
-    }
-    // Qxx = Q + fx' Vfx and Quu = R + fu' Vfu: upper triangle, mirrored.
-    scalar_t Qxx[NX * NX], Quu[NU * NU];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = i; j < NX; ++j) {
-        scalar_t acc = Q_t[i * NX + j] + fx_t[i] * Vfx[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) acc = acc + fx_t[l * NX + i] * Vfx[l * NX + j];
-        Qxx[i * NX + j] = acc;
-        Qxx[j * NX + i] = acc;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-#pragma unroll
-      for (int j = i; j < NU; ++j) {
-        scalar_t acc = R_t[i * NU + j] + fu_t[i] * Vfu[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) acc = acc + fu_t[l * NU + i] * Vfu[l * NU + j];
-        Quu[i * NU + j] = acc;
-        Quu[j * NU + i] = acc;
-      }
-    }
-    // Qxu = M + fx' Vfu;  Qu = ru + fu' Vx;  Qx = fx' Vx.
-    scalar_t Qxu[NX * NU], Qu[NU], Qx[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NU; ++j) {
-        scalar_t acc = fx_t[i] * Vfu[j];
-#pragma unroll
-        for (int l = 1; l < NX; ++l) acc = acc + fx_t[l * NX + i] * Vfu[l * NU + j];
-        Qxu[i * NU + j] = M_t[i * NU + j] + acc;
-      }
-      scalar_t acc = fx_t[i] * Vx[0];
-#pragma unroll
-      for (int l = 1; l < NX; ++l) acc = acc + fx_t[l * NX + i] * Vx[l];
-      Qx[i] = acc;
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      scalar_t acc = fu_t[i] * Vx[0];
-#pragma unroll
-      for (int l = 1; l < NX; ++l) acc = acc + fu_t[l * NU + i] * Vx[l];
-      Qu[i] = ru_t[i] + acc;
-    }
-
-    // Quu [k | K] = -[Qu | Qxu'] in one elimination; the RHS row i holds
-    // (Qu_i, Qxu'_i0, ..., Qxu'_i,nx-1) (interleaved layout, _gain_rhs).
-    scalar_t a[NU * NU], sol[NU * MC];
-#pragma unroll
-    for (int r = 0; r < NU * NU; ++r) a[r] = Quu[r];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      sol[i * MC] = Qu[i];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) sol[i * MC + 1 + j] = Qxu[j * NU + i];
-    }
-    scalar_t piv = solve_track<scalar_t, NU, MC>(a, sol);
-    piv = nan_min(piv, pivots_only<scalar_t, NU>(R_t));
-
     scalar_t k[NU], K[NU * NX];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      k[i] = -sol[i * MC];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) K[i * NX + j] = -sol[i * MC + 1 + j];
-    }
+    riccati_step<scalar_t, NX, NU>(ru_t, Q_t, R_t, M_t, fx_t, fu_t, Vxx, Vx,
+                                   k, K, dv, minpiv);
     scalar_t* g = gains + (size_t)t * NG * B + b;
 #pragma unroll
     for (int i = 0; i < NU; ++i) g[(size_t)i * B] = k[i];
 #pragma unroll
     for (int r = 0; r < NU * NX; ++r) g[(size_t)(NU + r) * B] = K[r];
-
-    // Vx <- Qx + Qxu k;  Vxx <- Qxx + Qxu K (upper triangle, mirrored).
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      scalar_t acc = Qxu[i * NU] * k[0];
-#pragma unroll
-      for (int j = 1; j < NU; ++j) acc = acc + Qxu[i * NU + j] * k[j];
-      Vx[i] = Qx[i] + acc;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = i; j < NX; ++j) {
-        scalar_t acc = Qxx[i * NX + j] + Qxu[i * NU] * K[j];
-#pragma unroll
-        for (int l = 1; l < NU; ++l) acc = acc + Qxu[i * NU + l] * K[l * NX + j];
-        Vxx[i * NX + j] = acc;
-        Vxx[j * NX + i] = acc;
-      }
-    }
-    // dV += k'Qu + 1/2 k'Quu k.
-    scalar_t kQu = k[0] * Qu[0];
-#pragma unroll
-    for (int i = 1; i < NU; ++i) kQu = kQu + k[i] * Qu[i];
-    scalar_t kQk = scalar_t(0);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      scalar_t acc = Quu[i * NU] * k[0];
-#pragma unroll
-      for (int j = 1; j < NU; ++j) acc = acc + Quu[i * NU + j] * k[j];
-      kQk = (i == 0) ? k[0] * acc : kQk + k[i] * acc;
-    }
-    dv = dv + kQu + scalar_t(0.5) * kQk;
-    minpiv = nan_min(minpiv, piv);
   }
   pred[b] = dv;
   ok[b] = isfinite(minpiv) && (minpiv > scalar_t(0)) && isfinite(dv);

@@ -1,14 +1,19 @@
 """Hand-written CUDA kernels: build, load and count.
 
-The kernels' sources live in ``ipoc_tpu_torch/csrc``.  At the first call on a
-CUDA tensor :func:`library` compiles them with ``nvcc`` for ``sm_90a`` into a
-plain-C shared library under ``build/ipoc_tpu_torch/<hash>/`` at the root of
-the checkout, the directory keyed by a hash of the sources and the flags,
-and loads it with ``ctypes``.  Importing this package builds nothing and
-needs no ``nvcc``, so the CPU tests import every module.
+The kernels' sources live in ``ipoc_tpu_torch/csrc``.  A library is built
+from static ``csrc`` files plus, for the fused kernels, text generated from
+a model (``ops/fused_iter.py``): :func:`build_all` compiles each library
+with one ``nvcc`` call for ``sm_90a`` (float32 and float64 instantiated in
+it) into ``build/ipoc_tpu_torch/<hash>/`` at the root of the checkout, the
+directory keyed by a hash of every ``csrc`` file, the generated text and
+the flags.  The generated ``.cu`` is written into that directory next to
+the ``.so``, so it can be inspected.  Libraries are plain-C shared objects
+loaded with ``ctypes``.  Several libraries build in parallel, one ``nvcc``
+each.  Importing this package builds nothing and needs no ``nvcc``, so the
+CPU tests import every module.
 
-There is no fallback: a build that fails, or a launch that CUDA
-refuses, raises.  Each wrapper counts its launches in :data:`launches`.
+There is no fallback: a build that fails, or a launch that CUDA refuses,
+raises.  Each wrapper counts its launches in :data:`launches`.
 """
 
 from __future__ import annotations
@@ -20,20 +25,33 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCES = (_PKG / "csrc" / "seq_newton.cu",)
+CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "ipoc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # Launch count per kernel: each wrapper adds one where it launches, nowhere
 # else.  Plain integers; reset with :func:`reset_launches`.
-launches = {"seq_newton_trial": 0, "seq_costates": 0}
+launches = {"seq_newton_trial": 0, "seq_costates": 0, "fused_bwd": 0,
+            "fused_fwd": 0, "rollout_cost": 0, "transition": 0}
 
 _lib = None
+
+
+class LibSpec(NamedTuple):
+    """What one shared library is compiled from."""
+
+    name: str                               # lib<name>.so
+    sources: tuple = ()                     # static .cu files under csrc
+    generated: tuple = ()                   # ((file name, text), ...)
+
+
+SEQ_NEWTON = LibSpec("seq_newton", (CSRC / "seq_newton.cu",))
 
 
 def reset_launches() -> None:
@@ -52,36 +70,67 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernels' sources into the shared library (once per
-    content hash) and return its path."""
+def lib_path(spec: LibSpec) -> Path:
+    """Where ``spec``'s library is (or will be) built: keyed by a hash of the
+    flags, every file of ``csrc`` (sources and headers) and the generated
+    text."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib_path = out_dir / "libseq_newton.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # Write under a temporary name, then rename: a reader never sees half a
-    # library, and concurrent builds each finish their own file.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
+    for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    for src in spec.sources:
+        h.update(b"src\0" + src.name.encode())
+    for name, text in spec.generated:
+        h.update(name.encode() + b"\0" + text.encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{spec.name}.so"
+
+
+def build_all(specs) -> list:
+    """Compile every library of ``specs`` not built yet, one ``nvcc`` per
+    library, all started together; return their paths.  Raises if any
+    build fails."""
+    paths = [lib_path(s) for s in specs]
+    jobs = []
+    for spec, path in zip(specs, paths):
+        if path.exists():
+            continue
+        path.parent.mkdir(parents=True, exist_ok=True)
+        gen = []
+        for name, text in spec.generated:
+            (path.parent / name).write_text(text)
+            gen.append(path.parent / name)
+        # Write under a temporary name, then rename: a reader never sees
+        # half a library, and concurrent builds each finish their own file.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+               *map(str, spec.sources), *map(str, gen)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((proc, cmd, tmp, path))
+    errors = []
+    for proc, cmd, tmp, path in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+        else:
+            os.replace(tmp, path)
+    if errors:
+        raise RuntimeError("\n\n".join(errors))
+    return paths
+
+
+def build(spec: LibSpec = SEQ_NEWTON) -> Path:
+    """Compile one library (once per content hash) and return its path."""
+    return build_all([spec])[0]
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded seq-Newton kernel library, built at first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(SEQ_NEWTON)))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ipoc_seq_trial.argtypes = [i, i, i] + [p] * 12 + [i, i, p]
         lib.ipoc_seq_trial.restype = i
@@ -115,3 +164,30 @@ def check(status: int, kernel: str) -> None:
         raise NotImplementedError(f"{kernel}: no instantiation for this shape")
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA error {status} at launch")
+
+
+def on_cpu(name: str, *tensors) -> bool:
+    """True for tensors all on the CPU (plain version), False for tensors
+    all on one card (kernel); raises for a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"{name}: tensors on {sorted(kinds)}; expected all on "
+                     "the CPU (plain version) or all on one card (kernel)")
+
+
+def check_inputs(name: str, tensors, shapes) -> int:
+    """Check a kernel's inputs (one device and dtype, the expected shapes,
+    contiguous) and return the dtype code."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    for t, shape in zip(tensors, shapes):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: inputs must share one device and dtype")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return dtype_code(dtype)

@@ -72,6 +72,14 @@ def _pivots_only(A):
 def seq_newton_trial_plain(ru, Q, R, M, fx, fu, XT):
     """Plain version of the trial kernel (same contract as
     :func:`seq_newton_trial_batched`)."""
+    du, dx, dv, minpiv = seq_trial_pivot_plain(ru, Q, R, M, fx, fu, XT)
+    ok = torch.isfinite(minpiv) & (minpiv > 0) & torch.isfinite(dv)
+    return du, dx, dv, ok
+
+
+def seq_trial_pivot_plain(ru, Q, R, M, fx, fu, XT):
+    """The plain trial with its minimum tracked pivot in place of ``ok``:
+    ``(du, dx, pred, minpiv)`` (the fused kernels report the pivot)."""
     T, nx, nu = fu.shape[-3:]
     Vxx = XT
     Vx = torch.zeros_like(XT[..., 0])
@@ -105,8 +113,7 @@ def seq_newton_trial_plain(ru, Q, R, M, fx, fu, XT):
         k, K = gains[t]
         du.append(k + _mv(K, dx[-1]))
         dx.append(_mv(fx[..., t, :, :], dx[-1]) + _mv(fu[..., t, :, :], du[-1]))
-    ok = torch.isfinite(minpiv) & (minpiv > 0) & torch.isfinite(dv)
-    return torch.stack(du, dim=-2), torch.stack(dx, dim=-2), dv, ok
+    return torch.stack(du, dim=-2), torch.stack(dx, dim=-2), dv, minpiv
 
 
 def seq_costates_plain(cx, fx, lam_T):
@@ -125,29 +132,6 @@ def seq_costates_plain(cx, fx, lam_T):
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(name, tensors, shapes):
-    dev, dtype = tensors[0].device, tensors[0].dtype
-    for t, shape in zip(tensors, shapes):
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name}: inputs must share one device and dtype")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-    return cuda.dtype_code(dtype)
-
-
-def _on_cpu(name, *tensors) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"}:
-        return False
-    raise ValueError(f"{name}: tensors on {sorted(kinds)}; expected all on "
-                     "the CPU (plain version) or all on one card (kernel)")
-
-
 def seq_newton_trial_batched(ru, Q, R, M, fx, fu, XT):
     """One sequential Newton trial per scenario.
 
@@ -157,14 +141,14 @@ def seq_newton_trial_batched(ru, Q, R, M, fx, fu, XT):
     CPU tensors take the plain version; CUDA tensors the kernel.
     """
     args = (ru, Q, R, M, fx, fu, XT)
-    if _on_cpu("seq_newton_trial", *args):
+    if cuda.on_cpu("seq_newton_trial", *args):
         return seq_newton_trial_plain(*args)
     B, T, nx, nu = fu.shape
     if (nx, nu) not in TRIAL_SHAPES:
         raise NotImplementedError(
             f"seq_newton_trial: no kernel for (nx, nu) = ({nx}, {nu}); "
             f"instantiated: {TRIAL_SHAPES}")
-    code = _check_cuda("seq_newton_trial", args, (
+    code = cuda.check_inputs("seq_newton_trial", args, (
         (B, T, nu), (B, T, nx, nx), (B, T, nu, nu), (B, T, nx, nu),
         (B, T, nx, nx), (B, T, nx, nu), (B, nx, nx)))
     kw = dict(dtype=fu.dtype, device=fu.device)
@@ -193,14 +177,14 @@ def seq_costates_batched(cx, fx, lam_T):
     Shapes: cx (B,T,nx), fx (B,T,nx,nx), lam_T (B,nx) -> lam (B,T+1,nx).
     CPU tensors take the plain version; CUDA tensors the kernel.
     """
-    if _on_cpu("seq_costates", cx, fx, lam_T):
+    if cuda.on_cpu("seq_costates", cx, fx, lam_T):
         return seq_costates_plain(cx, fx, lam_T)
     B, T, nx = cx.shape
     if nx not in COSTATE_NX:
         raise NotImplementedError(
             f"seq_costates: no kernel for nx = {nx}; instantiated: "
             f"{COSTATE_NX}")
-    code = _check_cuda("seq_costates", (cx, fx, lam_T),
+    code = cuda.check_inputs("seq_costates", (cx, fx, lam_T),
                        ((B, T, nx), (B, T, nx, nx), (B, nx)))
     lam = torch.empty((B, T + 1, nx), dtype=cx.dtype, device=cx.device)
     if B == 0:

@@ -1,0 +1,424 @@
+"""The fused Newton iteration and the packed rollout kernels: stage
+programs, plain versions and wrappers (counterpart of
+``ipoc_tpu/ops/pallas/fused_iter_kernel.py``, its packed-stream part).
+
+Four hand-written CUDA kernels (``csrc/fused_iter.cuh``) carry the packed
+stream on a card:
+
+* ``fused_bwd`` and ``fused_fwd`` -- one Newton trial from the iterate
+  ``(x, u)`` and the per-lane ``(bp, reg)``: in-kernel stage derivatives,
+  costates, Riccati gains, the current cost, dV, the minimum pivot and
+  max|ru|; then the deviation rollout with the trial's cost, its maximum
+  constraint value and its sum ||cu||^2;
+* ``rollout_cost`` -- rollout, barrier cost and sum ||cu||^2 (lane open and
+  refill);
+* ``transition`` -- both stage-transition candidates, ``u`` and the
+  central-path prediction, with their costs and sums ||cu||^2.
+
+Their per-stage code is generated from the model: the stage programs below
+are written with ``torch.func`` on one element (shapes ``(nx,)``, ``(nu,)``,
+``()``), and ``ops/codegen/scalarize.py`` lowers each to a straight-line
+function of a generated ``Model`` struct.  One library per model is built
+from that text (:func:`model_spec`), with one ``nvcc`` call.
+
+Layout (the packed stream's, batch-last): stage arrays ``(T, rows, B)``,
+terminal and initial states ``(nx, B)``, per-lane scalars ``(B,)``.  Each
+wrapper takes the plain version for tensors on the CPU and launches its
+kernel for tensors on a card; anything else raises, and nothing falls back
+from the kernel to the plain version.  The plain versions are the unfused
+compositions of the port's derivative engine, trial and rollout, on
+``(B, ...)`` tensors; on a card they are what the kernels are held against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.func import grad, vjp
+
+from ipoc_tpu_torch.ops import cuda
+from ipoc_tpu_torch.ops.codegen.scalarize import scalarize
+from ipoc_tpu_torch.ops.cuda.seq_newton import (
+    seq_costates_plain,
+    seq_trial_pivot_plain,
+)
+from ipoc_tpu_torch.ops.derivatives import (
+    compute_first_order,
+    compute_hamiltonian_lqr,
+    final_gradient,
+    final_hessian,
+    over_leading,
+    stage_barrier,
+)
+from ipoc_tpu_torch.problem import OCP
+from ipoc_tpu_torch.utils.integrators import rollout
+
+# ---------------------------------------------------------------------------
+# Stage programs (one element; traced and scalarized for the kernels)
+# ---------------------------------------------------------------------------
+
+
+def _jacobian_rows(fn, args, n_out):
+    """Rows of the Jacobian of ``fn`` (one vector output of size
+    ``n_out``) with respect to each of ``args``: one reverse-mode product
+    per row, no ``vmap``, so the trace is the same on every torch version.
+    Returns ``(value, rows)`` with ``rows[i]`` a tuple of d fn_i / d arg."""
+    value, pullback = vjp(fn, *args)
+    basis = torch.eye(n_out, dtype=value.dtype, device=value.device)
+    return value, [pullback(basis[i]) for i in range(n_out)]
+
+
+def _stage_bwd_fn(ocp: OCP, nx: int, nu: int):
+    """Backward stage data from one linearization point (JAX
+    ``_stage_bwd_fn``): ``(ru, Q, R, M, fx, fu, lam_new, cost)``, matrices
+    row-major flattened.  ``(lam_new, ru)`` is the Hamiltonian gradient;
+    its Jacobian rows give the Hessian blocks, of which Q and R keep the
+    upper triangle and mirror it, so the lower-triangle nodes are dead code
+    in the generated program."""
+
+    def stage(x, u, bp, lam_next):
+        def ham(xx, uu):
+            return (ocp.stage_cost(xx, uu, bp)
+                    + (lam_next * ocp.dynamics(xx, uu)).sum(-1))
+
+        def gradient(xx, uu):
+            return torch.cat(grad(ham, argnums=(0, 1))(xx, uu))
+
+        g, hrows = _jacobian_rows(gradient, (x, u), nx + nu)
+        _, frows = _jacobian_rows(ocp.dynamics, (x, u), nx)
+        Q = torch.stack([hrows[min(i, j)][0][max(i, j)]
+                         for i in range(nx) for j in range(nx)])
+        R = torch.stack([hrows[nx + min(i, j)][1][max(i, j)]
+                         for i in range(nu) for j in range(nu)])
+        M = torch.stack([hrows[i][1][j] for i in range(nx)
+                         for j in range(nu)])
+        fx = torch.cat([r[0] for r in frows])
+        fu = torch.cat([r[1] for r in frows])
+        return (g[nx:], Q, R, M, fx, fu, g[:nx], ocp.stage_cost(x, u, bp))
+
+    return stage
+
+
+def _term_fn(ocp: OCP, nx: int):
+    """Terminal costate, Hessian and cost (JAX ``_term_fn``)."""
+
+    def term(xT):
+        lamT, rows = _jacobian_rows(grad(ocp.final_cost), (xT,), nx)
+        return lamT, torch.cat([r[0] for r in rows]), ocp.final_cost(xT)
+
+    return term
+
+
+def _stage_fwd_fn(ocp: OCP, nx: int, nu: int):
+    """Forward stage (JAX ``_stage_fwd_fn(with_cu=True)``): gains -> trial
+    point -> ``(tu, tx, dx_next, cost, max constraint, sum cu^2)``.  The
+    deviation step is the Jacobian-vector product ``fx dx + fu du`` (the
+    Jacobian's rows contracted with the deviation); ``sum cu^2`` at the
+    trial point is the next iterate's Levenberg scale if the trial is
+    accepted."""
+
+    def stage(x, u, bp, dx, Kk):
+        k = Kk[:nu]
+        K = Kk[nu:].reshape(nu, nx)
+        du = k + (K * dx).sum(-1)
+        tu = u + du
+        tx = x + dx
+        _, rows = _jacobian_rows(ocp.dynamics, (x, u), nx)
+        dxn = torch.stack([(rx * dx).sum(-1) + (ru * du).sum(-1)
+                           for rx, ru in rows])
+        cu = grad(ocp.stage_cost, argnums=1)(tx, tu, bp)
+        return (tu, tx, dxn, ocp.stage_cost(tx, tu, bp),
+                ocp.constraints(tx, tu).amax(-1), (cu * cu).sum(-1))
+
+    return stage
+
+
+def _term_fwd_fn(ocp: OCP):
+    def term(xT, dxT):
+        txT = xT + dxT
+        return txT, ocp.final_cost(txT)
+
+    return term
+
+
+def _stage_roll_cost_cu_fn(ocp: OCP):
+    """Rollout step with the stage cost and sum cu^2 (JAX
+    ``_stage_roll_cost_cu_fn``)."""
+
+    def stage(x, u, bp):
+        cu = grad(ocp.stage_cost, argnums=1)(x, u, bp)
+        return (ocp.dynamics(x, u), ocp.stage_cost(x, u, bp),
+                (cu * cu).sum(-1))
+
+    return stage
+
+
+def _stage_transition_fn(ocp: OCP):
+    """Both transition candidates' steps, costs and sums cu^2 (JAX
+    ``_stage_transition_fn(with_cu=True)``)."""
+
+    def stage(xa, xb, u, up, bp):
+        cua = grad(ocp.stage_cost, argnums=1)(xa, u, bp)
+        cub = grad(ocp.stage_cost, argnums=1)(xb, up, bp)
+        return (ocp.dynamics(xa, u), ocp.dynamics(xb, up),
+                ocp.stage_cost(xa, u, bp), ocp.stage_cost(xb, up, bp),
+                (cua * cua).sum(-1), (cub * cub).sum(-1))
+
+    return stage
+
+
+def stage_programs(ocp: OCP, nx: int, nu: int) -> dict:
+    """The model's stage programs as ``name -> (fn, input shapes)``; the
+    names are the generated C functions'."""
+    ng = (1 + nx) * nu
+    return {
+        "stage_bwd": (_stage_bwd_fn(ocp, nx, nu), [(nx,), (nu,), (), (nx,)]),
+        "term": (_term_fn(ocp, nx), [(nx,)]),
+        "stage_fwd": (_stage_fwd_fn(ocp, nx, nu),
+                      [(nx,), (nu,), (), (nx,), (ng,)]),
+        "term_fwd": (_term_fwd_fn(ocp), [(nx,), (nx,)]),
+        "roll_cost": (_stage_roll_cost_cu_fn(ocp), [(nx,), (nu,), ()]),
+        "transition": (_stage_transition_fn(ocp),
+                       [(nx,), (nx,), (nu,), (nu,), ()]),
+        "final_cost": (ocp.final_cost, [(nx,)]),
+    }
+
+
+_PROGRAMS: dict = {}
+
+
+def scalar_programs(ocp: OCP, nx: int, nu: int) -> dict:
+    """The scalarized stage programs (traced once per model and shape)."""
+    key = (ocp, nx, nu)
+    if key not in _PROGRAMS:
+        _PROGRAMS[key] = {name: scalarize(fn, shapes, name)
+                          for name, (fn, shapes)
+                          in stage_programs(ocp, nx, nu).items()}
+    return _PROGRAMS[key]
+
+
+def model_source(ocp: OCP, nx: int, nu: int) -> str:
+    """The generated ``.cu`` of one model's fused-kernel library."""
+    body = "\n\n".join(p.c_source(indent="  ")
+                       for p in scalar_programs(ocp, nx, nu).values())
+    return (
+        "// Generated by ipoc_tpu_torch/ops/codegen/scalarize.py from the\n"
+        "// model's stage programs (ipoc_tpu_torch/ops/fused_iter.py).\n"
+        '#include "fused_iter.cuh"\n\n'
+        "struct Model {\n"
+        f"  static constexpr int NX = {nx};\n"
+        f"  static constexpr int NU = {nu};\n\n"
+        f"{body}\n"
+        "};\n\n"
+        "IPOC_FUSED_ENTRY_POINTS(Model)\n")
+
+
+def model_spec(ocp: OCP, nx: int, nu: int) -> cuda.LibSpec:
+    """The fused-kernel library of one model: ``fused_iter.cuh`` with the
+    generated stage code, both dtypes, one ``nvcc`` call."""
+    tag = f"fused_nx{nx}_nu{nu}"
+    return cuda.LibSpec(tag, (), ((f"{tag}.cu",
+                                   model_source(ocp, nx, nu)),))
+
+
+_LIBS: dict = {}
+KERNELS = ("fused_bwd", "fused_fwd", "rollout_cost", "transition")
+
+
+def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
+    """One model's loaded fused-kernel library, generated and built at
+    first use (then cached per model and shape)."""
+    key = (ocp, nx, nu)
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(cuda.build(model_spec(ocp, nx, nu))))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name in KERNELS:
+            fn = getattr(lib, f"ipoc_{name}")
+            fn.argtypes = [i, p, p, i, i, p]
+            fn.restype = i
+        _LIBS[key] = lib
+    return _LIBS[key]
+
+
+def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu):
+    """Check the inputs, allocate the outputs and launch kernel ``name``;
+    ``ins[0]`` is a stage array ``(T, rows, B)``."""
+    code = cuda.check_inputs(name, ins, in_shapes)
+    if ins[0].device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes tensors on a card")
+    kw = dict(dtype=ins[0].dtype, device=ins[0].device)
+    outs = [torch.empty(s, **kw) for s in out_shapes]
+    T, B = ins[0].shape[0], ins[0].shape[-1]
+    if B == 0:
+        return tuple(outs)
+    lib = library(ocp, nx, nu)
+    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+    out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+    with torch.cuda.device(ins[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, f"ipoc_{name}")(code, in_ptrs, out_ptrs, B, T,
+                                              stream)
+    cuda.check(status, name)
+    cuda.launches[name] += 1
+    return tuple(outs)
+
+
+def fused_bwd_launch(ocp: OCP, xs, xT, u, bp, reg):
+    """The backward launch of the fused trial, on a card's tensors: ``(Kk
+    (T, (1+nx)*nu, B) gains [k | K], cost, dv, piv, hu)``."""
+    T, nx, B = xs.shape
+    nu = u.shape[1]
+    return _launch(ocp, "fused_bwd", (xs, u, xT, bp, reg),
+                   [(T, nx, B), (T, nu, B), (nx, B), (B,), (B,)],
+                   [(T, (1 + nx) * nu, B), (B,), (B,), (B,), (B,)], nx, nu)
+
+
+def fused_fwd_launch(ocp: OCP, xs, xT, u, bp, Kk):
+    """The forward launch of the fused trial, on a card's tensors: ``(tu,
+    tx, txT, new_cost_raw, max_c, cun)``."""
+    T, nx, B = xs.shape
+    nu = u.shape[1]
+    return _launch(ocp, "fused_fwd", (xs, u, xT, bp, Kk),
+                   [(T, nx, B), (T, nu, B), (nx, B), (B,),
+                    (T, (1 + nx) * nu, B)],
+                   [(T, nu, B), (T, nx, B), (nx, B), (B,), (B,), (B,)],
+                   nx, nu)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _cu_sq(ocp: OCP, x, u, bp):
+    """``sum ||cu||^2`` over each trajectory's stages: ``x (B, T+1, nx)``,
+    ``u (B, T, nu)``, ``bp (B,)`` -> ``(B,)``."""
+    lead = u.shape[:-1]
+    cu = over_leading(grad(ocp.stage_cost, argnums=1), lead, x[..., :-1, :],
+                      u, stage_barrier(bp, lead, u))
+    return (cu * cu).sum((-2, -1))
+
+
+def _fused_reference(ocp: OCP, x, u, bp, reg):
+    """The unfused composition of one fused Newton iteration on ``(B, ...)``
+    tensors (JAX ``_fused_reference``, batched): first-order derivatives ->
+    sequential costates -> Hamiltonian LQR -> regularized sequential trial
+    -> trial evaluation.
+
+    ``x (B, T+1, nx)``, ``u (B, T, nu)``, ``bp``/``reg (B,)``.  Returns
+    ``(temp_x, temp_u, cost, new_cost_raw, max_c, pred, ok, hu, piv,
+    cun)``: the JAX function's eight outputs, then the minimum pivot and
+    ``sum ||cu||^2`` at the trial point."""
+    d = compute_first_order(ocp, x, u, bp)
+    lam = seq_costates_plain(d.cx, d.fx, final_gradient(ocp, x[:, -1]))
+    lin = compute_hamiltonian_lqr(ocp, x, u, lam, bp)
+    eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+    R = lin.R + reg[:, None, None, None] * eye
+    du, dx, pred, piv = seq_trial_pivot_plain(
+        lin.r, lin.Q, R, lin.M, d.fx, d.fu, final_hessian(ocp, x[:, -1]))
+    ok = torch.isfinite(piv) & (piv > 0) & torch.isfinite(pred)
+    temp_x = x + dx
+    temp_u = u + du
+    cost = ocp.total_cost(x, u, bp)
+    new_cost = ocp.total_cost(temp_x, temp_u, bp)
+    max_c = ocp.constraints(temp_x[:, :-1], temp_u).flatten(1).amax(1)
+    hu = lin.r.abs().flatten(1).amax(1)
+    cun = _cu_sq(ocp, temp_x, temp_u, bp)
+    return temp_x, temp_u, cost, new_cost, max_c, pred, ok, hu, piv, cun
+
+
+def _lanes_first(xs, xT):
+    """Batch-last stages ``(T, nx, B)`` and terminal ``(nx, B)`` ->
+    ``(B, T+1, nx)``."""
+    return torch.cat([xs, xT[None]], 0).permute(2, 0, 1)
+
+
+def _lanes_last(x):
+    """``(B, T+1, nx)`` -> batch-last stages and terminal state."""
+    return (x[:, :-1].permute(1, 2, 0).contiguous(),
+            x[:, -1].T.contiguous())
+
+
+def fused_newton_iter_plain(ocp: OCP, xs, xT, u, bp, reg):
+    """Plain version of the two fused launches (same contract as
+    :func:`fused_newton_iter_packed`)."""
+    temp_x, temp_u, cost, nc, mc, pred, _, hu, piv, cun = _fused_reference(
+        ocp, _lanes_first(xs, xT), u.permute(2, 0, 1), bp, reg)
+    tx, txT = _lanes_last(temp_x)
+    return (temp_u.permute(1, 2, 0).contiguous(), tx, txT, cost, nc, mc,
+            pred, piv, hu, cun)
+
+
+def rollout_cost_plain(ocp: OCP, u, x0, bp):
+    """Plain version of the rollout-cost kernel (same contract as
+    :func:`rollout_cost_packed`)."""
+    ub = u.permute(2, 0, 1)
+    x = rollout(ocp.dynamics, ub, x0.T)
+    xs, xT = _lanes_last(x)
+    return xs, xT, ocp.total_cost(x, ub, bp), _cu_sq(ocp, x, ub, bp)
+
+
+def transition_plain(ocp: OCP, u, up, x0, bp):
+    """Plain version of the transition kernel (same contract as
+    :func:`transition_packed`): the two candidates' rollouts and costs."""
+    xa, xaT, ca, cua = rollout_cost_plain(ocp, u, x0, bp)
+    xb, xbT, cb, cub = rollout_cost_plain(ocp, up, x0, bp)
+    return xa, xb, xaT, xbT, ca, cb, cua, cub
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def fused_newton_iter_packed(ocp: OCP, xs, xT, u, bp, reg):
+    """One fused Newton trial per lane, two launches (JAX
+    ``fused_newton_iter_packed(..., with_cu=True)``, two-launch arm).
+
+    Shapes: ``xs (T, nx, B)`` stages 0..T-1, ``xT (nx, B)``,
+    ``u (T, nu, B)``, ``bp (B,)``, ``reg (B,)`` (the Levenberg parameter,
+    already scaled by ``max(||cu||_F, floor)``).  Returns ``(tu (T, nu, B),
+    tx (T, nx, B), txT (nx, B), cost, new_cost_raw, max_c, pred, piv, hu,
+    cun)``, the last seven ``(B,)``; ``cun`` is ``sum ||cu||^2`` at the
+    trial point and the trial is feasible iff ``max_c <= 0``.
+    """
+    if cuda.on_cpu("fused_newton_iter", xs, u, xT, bp, reg):
+        return fused_newton_iter_plain(ocp, xs, xT, u, bp, reg)
+    Kk, cost, dv, piv, hu = fused_bwd_launch(ocp, xs, xT, u, bp, reg)
+    tu, tx, txT, nc, mc, cun = fused_fwd_launch(ocp, xs, xT, u, bp, Kk)
+    return tu, tx, txT, cost, nc, mc, dv, piv, hu, cun
+
+
+def rollout_cost_packed(ocp: OCP, u, x0, bp):
+    """Rollout + barrier cost + ``sum ||cu||^2``, one launch (JAX
+    ``rollout_cost_packed``).
+
+    Shapes: ``u (T, nu, B)``, ``x0 (nx, B)``, ``bp (B,)`` -> ``(xs
+    (T, nx, B) stages 0..T-1, xT (nx, B), cost (B,), cun (B,))``.
+    """
+    if cuda.on_cpu("rollout_cost", u, x0, bp):
+        return rollout_cost_plain(ocp, u, x0, bp)
+    T, nu, B = u.shape
+    nx = x0.shape[0]
+    return _launch(ocp, "rollout_cost", (u, x0, bp),
+                   [(T, nu, B), (nx, B), (B,)],
+                   [(T, nx, B), (nx, B), (B,), (B,)], nx, nu)
+
+
+def transition_packed(ocp: OCP, u, up, x0, bp):
+    """Both stage-transition candidates, one launch (JAX
+    ``transition_packed``).
+
+    Shapes: ``u``/``up (T, nu, B)``, ``x0 (nx, B)``, ``bp (B,)`` (the new
+    barrier parameter) -> ``(xa, xb (T, nx, B), xaT, xbT (nx, B), ca, cb,
+    cua, cub (B,))`` with ``cu* = sum ||cu||^2`` along each candidate.
+    """
+    if cuda.on_cpu("transition", u, up, x0, bp):
+        return transition_plain(ocp, u, up, x0, bp)
+    T, nu, B = u.shape
+    nx = x0.shape[0]
+    return _launch(ocp, "transition", (u, up, x0, bp),
+                   [(T, nu, B), (T, nu, B), (nx, B), (B,)],
+                   [(T, nx, B), (T, nx, B), (nx, B), (nx, B), (B,), (B,),
+                    (B,), (B,)], nx, nu)

@@ -1,6 +1,7 @@
 """Interior-point Newton lanes (counterpart of
-``ipoc_tpu/solvers/ip_newton.py``): the subset the single-grid stream runs
-with ``newton_impl="seq"``.
+``ipoc_tpu/solvers/ip_newton.py``): the subset the unpacked single-grid
+stream runs with ``newton_impl="seq"``.  (``"fused"`` runs through the
+packed stream, ``solvers/packed_stream.py``.)
 
 Everything is batched by hand over a leading lane axis B: a lane is one
 scenario's flat-mode solve, and what JAX wrote per lane under ``vmap`` is
@@ -33,23 +34,30 @@ from ipoc_tpu_torch.solvers.barrier import n_barrier_stages
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
 from ipoc_tpu_torch.utils.integrators import rollout
 
-# Step evaluators of the JAX package that the port does not run yet, and
-# the ROADMAP.md item ("Modules to port") that will port each.
+# Step evaluators of the JAX package that these flat lanes do not run, and
+# the ROADMAP.md item ("Modules to port") that will port each.  "fused"
+# runs through the packed stream (solvers/packed_stream.py, reached from
+# solve_stream); its unpacked lane evaluator (the fused arm of _trial_eval)
+# is not ported.
 _NOT_PORTED = {
     "par": "The parallel-in-time single-solve path",
-    "fused": "The packed stream on Hopper kernels",
+    "fused": "The unpacked fused lane evaluator",
     "ddp": "DDP and multigrid",
 }
 
 
 def check_newton_impl(cfg: SolverConfig) -> None:
-    """Only ``newton_impl="seq"`` is ported; nothing else is substituted."""
+    """The flat lanes run ``newton_impl="seq"`` only; nothing else is
+    substituted."""
     if cfg.newton_impl == "seq":
         return
     if cfg.newton_impl in _NOT_PORTED:
+        hint = ("; solve_stream runs it through the packed stream"
+                if cfg.newton_impl == "fused" else "")
         raise ValueError(
-            f"newton_impl={cfg.newton_impl!r} is not ported yet (ROADMAP.md, "
-            f"modules to port: {_NOT_PORTED[cfg.newton_impl]!r}); use "
+            f"newton_impl={cfg.newton_impl!r} is not ported for the flat "
+            f"lanes (ROADMAP.md, modules to port: "
+            f"{_NOT_PORTED[cfg.newton_impl]!r}){hint}; use "
             "newton_impl='seq'")
     raise ValueError(f"unknown newton_impl {cfg.newton_impl!r}")
 

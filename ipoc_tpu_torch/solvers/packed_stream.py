@@ -1,0 +1,259 @@
+"""The packed streaming executor (counterpart of
+``ipoc_tpu/solvers/packed_stream.py``, its two-launch arm).
+
+The stream of ``solvers/stream.py`` with the lane state kept in the fused
+kernels' layout across iterations, so no iteration relayouts it:
+
+* the layout is batch-last: stage arrays ``(T, rows, B)`` (the trajectory's
+  stages 0..T-1 and the controls), terminal and initial states ``(nx, B)``,
+  per-lane scalars ``(B,)``; one scenario per column, so a kernel's
+  neighbouring threads read neighbouring addresses;
+* each lane iteration is three launches on a card (``ops/fused_iter.py``):
+  the fused backward and forward sweeps of one Newton trial, and the
+  stage-transition kernel, which runs on every lane every iteration (as in
+  JAX): which lanes roll over is never read on the host, so an iteration
+  has no host sync of its own;
+* the Levenberg scale ``||cu||_F`` is carried per lane (``cun``), summed in
+  the kernels at the trial point and at the transition candidates, instead
+  of a gradient pass per iteration;
+* lanes are packed and unpacked only at capture and refill, once per
+  ``refill_every`` iterations; opening and refilling lanes is one
+  rollout-cost launch per round.
+
+Per-lane semantics are those of ``flat_lane_iter`` with the fused
+evaluator; the one numerical difference is the summation order of
+``||cu||_F``, which can flip an accept decision within rounding
+(converged solutions agree to solver tolerance).  On the CPU every kernel
+is its plain version.  The JAX package's TPU machinery is not ported: the
+sublane, VMEM, mega-kernel and merged-kernel gates and their environment
+switches.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ipoc_tpu_torch.config import SolverConfig
+from ipoc_tpu_torch.ops import cuda
+from ipoc_tpu_torch.ops.fused_iter import (
+    fused_newton_iter_packed,
+    rollout_cost_packed,
+    transition_packed,
+)
+from ipoc_tpu_torch.problem import OCP
+from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
+from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
+
+
+class PackedLane(NamedTuple):
+    """Flat-mode lane state, batch-last (one scenario per column)."""
+
+    x0: torch.Tensor        # (nx, B) scenario initial states
+    xs: torch.Tensor        # (T, nx, B) trajectory stages 0..T-1
+    xT: torch.Tensor        # (nx, B) terminal states
+    u: torch.Tensor         # (T, nu, B) controls
+    u_prev: torch.Tensor    # (T, nu, B) previous stage's controls
+    cun: torch.Tensor       # (B,) ||cu||_F at the current iterate
+    it: torch.Tensor        # (B,) int32 total Newton iterations
+    stage_it: torch.Tensor  # (B,) int32 iterations in the current stage
+    rp: torch.Tensor        # (B,) LM regularization
+    r_inc: torch.Tensor     # (B,) LM growth factor
+    bp: torch.Tensor        # (B,) barrier parameter
+    bp0: torch.Tensor       # (B,) the lane's starting barrier parameter
+    done: torch.Tensor      # (B,) bool: solve complete
+
+
+def packed_lane_init(ocp: OCP, u, x0, bp0, rp0,
+                     cfg: SolverConfig) -> PackedLane:
+    """Open packed lanes: one rollout-cost launch.
+
+    ``u (T, nu, B)``, ``x0 (nx, B)``, ``bp0``/``rp0 (B,)``.  A lane whose
+    warm-start barrier cost is non-finite opens with ``done=True`` (it=0).
+    """
+    xs, xT, cost, cunsq = rollout_cost_packed(ocp, u, x0, bp0)
+    B = u.shape[-1]
+    zi = torch.zeros((B,), dtype=torch.int32, device=u.device)
+    return PackedLane(
+        x0=x0, xs=xs, xT=xT, u=u, u_prev=u, cun=torch.sqrt(cunsq), it=zi,
+        stage_it=zi, rp=rp0, r_inc=torch.full_like(rp0, cfg.reg_inc_init),
+        bp=bp0, bp0=bp0, done=~torch.isfinite(cost))
+
+
+def packed_lane_iter(ocp: OCP, lane: PackedLane, cfg: SolverConfig,
+                     adv) -> PackedLane:
+    """One Newton iteration and stage-transition step on packed lanes.
+
+    Per-lane semantics are ``flat_lane_iter``'s, with the Levenberg scale
+    read from the lane's kernel-accumulated ``cun``.  ``adv (B,)`` masks
+    lanes: a lane with ``adv=False`` comes back unchanged.
+    """
+    if cfg.scale_reg_by_grad:
+        reg = lane.rp * torch.clamp(lane.cun, min=cfg.reg_scale_floor)
+    else:
+        reg = lane.rp
+    (tu, tx, txT, cost, nc, mc, pred, piv, hu, cun_t) = (
+        fused_newton_iter_packed(ocp, lane.xs, lane.xT, lane.u, lane.bp,
+                                 reg))
+    ok = torch.isfinite(piv) & (piv > 0) & torch.isfinite(pred)
+    new_cost = torch.where(mc <= 0.0, nc, torch.full_like(nc, float("inf")))
+
+    rho = gain_ratio(new_cost, cost, pred)
+    accept = (rho > 0.0) & ok
+    stalled = ~accept & (lane.rp >= cfg.reg_max) & bool(cfg.stall_exit)
+    rp_new, ri_new = lm_update(lane.rp, lane.r_inc, rho, accept, cfg)
+    rp = torch.where(adv, rp_new, lane.rp)
+    r_inc = torch.where(adv, ri_new, lane.r_inc)
+    accept = accept & adv
+
+    xs = torch.where(accept, tx, lane.xs)
+    xT = torch.where(accept, txT, lane.xT)
+    u = torch.where(accept, tu, lane.u)
+    cun = torch.where(accept, torch.sqrt(cun_t), lane.cun)
+
+    tol_s = torch.clamp(cfg.stage_tol_scale * lane.bp, min=cfg.tol)
+    conv = hu < tol_s
+    if cfg.pred_floor > 0.0:
+        conv = conv | (ok & (pred.abs() < cfg.pred_floor * (1.0 + cost.abs())))
+    bad = (~torch.isfinite(hu) | ~torch.isfinite(cost)) & adv
+    advance = conv | stalled | (lane.stage_it + 1 > cfg.max_newton_iters)
+    advance = advance & ~bad & adv
+    bp_next = lane.bp / cfg.bp_decay
+    done_now = bad | (advance & (bp_next <= cfg.bp_min))
+    roll = advance & ~done_now
+    u_prev = torch.where(roll, u, lane.u_prev)
+    if cfg.stage_predictor:
+        # Continuation predictor: both candidates on every lane (no host
+        # read of which lanes roll); a NaN/inf predicted cost loses every
+        # comparison.  Only from the second transition on.
+        u_pred = u + (1.0 / cfg.bp_decay) * (u - lane.u_prev)
+        xa, xb, xaT, xbT, ca, cb, cua, cub = transition_packed(
+            ocp, u, u_pred, lane.x0, bp_next)
+        take = roll & (lane.bp < lane.bp0) & (cb < ca)
+        xs = torch.where(take, xb, torch.where(roll, xa, xs))
+        xT = torch.where(take, xbT, torch.where(roll, xaT, xT))
+        u = torch.where(take, u_pred, u)
+        cun = torch.where(take, torch.sqrt(cub),
+                          torch.where(roll, torch.sqrt(cua), cun))
+    else:
+        xr, xrT, _, cur = rollout_cost_packed(ocp, u, lane.x0, bp_next)
+        xs = torch.where(roll, xr, xs)
+        xT = torch.where(roll, xrT, xT)
+        cun = torch.where(roll, torch.sqrt(cur), cun)
+    bp = torch.where(advance, bp_next, lane.bp)
+    stage_reg = (cfg.reg_init if cfg.reg_stage_init is None
+                 else cfg.reg_stage_init)
+    rp = torch.where(advance, torch.full_like(rp, stage_reg), rp)
+    r_inc = torch.where(advance, torch.full_like(r_inc, cfg.reg_inc_init),
+                        r_inc)
+    tick = adv.to(torch.int32)
+    stage_it = torch.where(advance, torch.zeros_like(lane.stage_it),
+                           lane.stage_it + tick)
+    return PackedLane(
+        x0=lane.x0, xs=xs, xT=xT, u=u, u_prev=u_prev, cun=cun,
+        it=lane.it + tick, stage_it=stage_it, rp=rp, r_inc=r_inc, bp=bp,
+        bp0=lane.bp0, done=lane.done | done_now)
+
+
+def _pack(controls, initial_states):
+    """Scenario rows ``(n, T, nu)``, ``(n, nx)`` -> batch-last lanes."""
+    return (controls.permute(1, 2, 0).contiguous(),
+            initial_states.T.contiguous())
+
+
+def solve_stream_packed(
+    ocp: OCP,
+    controls,        # (N, T, nu) per-scenario warm starts
+    initial_states,  # (N, nx)
+    cfg: SolverConfig,
+    lanes: int = 2048,
+    refill_every: int = 16,
+    bp_init=None,    # optional (N,) per-scenario barrier start
+    rp_init=None,    # optional (N,) per-scenario initial LM damping
+    warm_transfer: bool = False,
+):
+    """The packed stream: ``solve_stream``'s scheduling and per-scenario
+    results with the fused evaluator.  Returns a ``StreamSolution``.
+
+    Runs on the device of ``controls``: the four fused kernels on a card,
+    their plain versions on the CPU.  Requires ``newton_impl="fused"``,
+    ``globalization="single"`` and ``terminal_hessian="exact"``.
+    """
+    from ipoc_tpu_torch.solvers.stream import StreamSolution
+
+    if warm_transfer:
+        raise NotImplementedError(
+            "warm_transfer is not ported yet (ROADMAP.md, modules to port: "
+            "'Warm transfer in the packed stream')")
+    if cfg.newton_impl != "fused":
+        raise ValueError("the packed stream runs newton_impl='fused' only; "
+                         f"got {cfg.newton_impl!r}")
+    if cfg.globalization != "single":
+        raise ValueError("the packed stream requires globalization='single'")
+    if cfg.terminal_hessian != "exact":
+        raise ValueError("newton_impl='fused' computes the terminal Hessian "
+                         "in-kernel and requires terminal_hessian='exact'")
+    N, T, nu = controls.shape
+    B = min(lanes, N)
+    dtype, device = controls.dtype, controls.device
+    if device.type == "cuda":
+        cuda.disable_tf32()
+    if bp_init is None:
+        bp_init = torch.full((N,), cfg.bp_init, dtype=dtype, device=device)
+    if rp_init is None:
+        rp_init = torch.full((N,), cfg.reg_init, dtype=dtype, device=device)
+
+    def open_lanes(rows):
+        u, x0 = _pack(controls[rows], initial_states[rows])
+        return packed_lane_init(ocp, u, x0, bp_init[rows].contiguous(),
+                                rp_init[rows].contiguous(), cfg)
+
+    lane = open_lanes(torch.arange(B, device=device))
+    sid = torch.arange(B, device=device)
+    active = torch.ones((B,), dtype=torch.bool, device=device)
+    out_u = torch.zeros((N, T, nu), dtype=dtype, device=device)
+    out_it = torch.zeros((N,), dtype=torch.int32, device=device)
+    pool_next = B
+    gens = (N + B - 1) // B
+    K = max(1, refill_every)
+    # Outer-round backstop: every round either advances at least one
+    # lane-iteration or captures/retires at least one scenario.
+    max_outer = flat_total_cap(cfg) * (gens + 1) + N + gens + 1
+    steps = 0
+
+    for _ in range(max_outer):
+        if not bool(active.any()):
+            break
+        # Inner loop: up to K Newton steps, exiting early once every live
+        # lane is finished (one host read per step, so that `steps` counts
+        # the JAX package's lockstep steps).
+        for _ in range(K):
+            adv = active & ~lane.done
+            if not bool(adv.any()):
+                break
+            lane = packed_lane_iter(ocp, lane, cfg, adv)
+            steps += 1
+
+        # 1. Capture finished scenarios: each finished lane to its own row.
+        fin = (lane.done & active).nonzero().squeeze(1)
+        rows = sid[fin]
+        out_u.index_copy_(0, rows, lane.u[..., fin].permute(2, 0, 1))
+        out_it.index_copy_(0, rows, lane.it[fin])
+
+        # 2. Refill from the pool: the k-th finished lane (in lane order)
+        #    takes scenario pool_next + k while the pool lasts; the rest
+        #    retire.  A refilled lane with a non-finite warm start is done
+        #    from init and is captured next round with it=0.
+        n_take = min(fin.numel(), N - pool_next)
+        take = fin[:n_take]
+        if n_take:
+            new = torch.arange(pool_next, pool_next + n_take, device=device)
+            fresh = open_lanes(new)
+            lane = PackedLane(*(a.index_copy(-1, take, f)
+                                for a, f in zip(lane, fresh)))
+            sid = sid.index_copy(0, take, new)
+            pool_next += n_take
+        active = active.index_fill(0, fin[n_take:], False)
+
+    return StreamSolution(out_u, out_it, steps)

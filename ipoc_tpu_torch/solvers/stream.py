@@ -1,6 +1,10 @@
 """Streaming batched interior-point solves: refill converged lanes
-(counterpart of the unpacked ``solve_stream`` in
-``ipoc_tpu/solvers/stream.py``).
+(counterpart of ``solve_stream`` in ``ipoc_tpu/solvers/stream.py``).
+
+``newton_impl="fused"`` (``BATCH_CONFIG``, what the bench runs) goes to the
+packed stream, ``solvers/packed_stream.py``, as in the JAX package.  This
+module's own loop is the unpacked stream, which runs
+``newton_impl="seq"``.
 
 A pool of N scenarios goes through B resident lanes in a two-level loop: an
 inner loop advances every live lane by up to ``refill_every`` flat-mode
@@ -49,17 +53,29 @@ def solve_stream(
     refill_every: int = 16,
     bp_init=None,    # optional (N,) per-scenario barrier start (else cfg's)
     rp_init=None,    # optional (N,) per-scenario initial LM damping
+    warm_transfer: bool = False,
 ) -> StreamSolution:
     """Solve N scenarios with B = min(lanes, N) resident lanes, refilling.
 
     Runs on the device of ``controls``.  Requires
-    ``cfg.globalization == "single"`` and ``cfg.newton_impl == "seq"`` (the
-    lane functions raise on any other evaluator).
+    ``cfg.globalization == "single"``; ``newton_impl="fused"`` runs the
+    packed stream, ``"seq"`` the unpacked one (the lane functions raise on
+    any other evaluator).
     """
     if cfg.globalization != "single":
         raise ValueError(
             "solve_stream requires globalization='single' "
             "(the retry loop is a lockstep barrier across lanes)")
+    if cfg.newton_impl == "fused":
+        from ipoc_tpu_torch.solvers.packed_stream import solve_stream_packed
+
+        return solve_stream_packed(
+            ocp, controls, initial_states, cfg, lanes=lanes,
+            refill_every=refill_every, bp_init=bp_init, rp_init=rp_init,
+            warm_transfer=warm_transfer)
+    if warm_transfer:
+        raise ValueError("warm_transfer requires the packed stream "
+                         "(newton_impl='fused')")
     N, T, nu = controls.shape
     B = min(lanes, N)
     dtype, device = controls.dtype, controls.device

@@ -11,7 +11,12 @@ a machine with a card:
 Tolerances, kernel against plain version on the same card: float64
 du/dx atol 1e-10 * scale, pred rtol 1e-10, lam atol 1e-12 * scale; float32
 the JAX suite's kernel-vs-scan tolerances, atol 2e-5 * scale, pred rtol
-1e-4, lam atol 1e-5 * scale; ok flags equal.
+1e-4, lam atol 1e-5 * scale; ok flags equal.  The four fused kernels
+(``ops/fused_iter.py``): every output within 1e-10 of its scale in
+float64 and within 1e-4 of its scale in float32 (the generated stage code
+runs the same float32 program in another operation order, with FMA
+contraction, and the backward sweep carries rounding through T Riccati
+steps), equal NaN and inf entries, ok flags equal.
 """
 
 import numpy as np
@@ -21,6 +26,7 @@ import torch
 from ipoc_tpu_torch import BATCH_CONFIG, solve_stream
 from ipoc_tpu_torch.models import cartpole, pendulum
 from ipoc_tpu_torch.ops import cuda
+from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.cuda.seq_newton import (
     seq_costates_batched,
     seq_costates_plain,
@@ -105,7 +111,8 @@ def test_kernels_match_plain(card, case, dtype):
     du, dx, pred, ok = seq_newton_trial_batched(*trial)
     lam = seq_costates_batched(*costate)
     torch.cuda.synchronize()
-    assert cuda.launches == {"seq_newton_trial": 1, "seq_costates": 1}
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                 seq_newton_trial=1, seq_costates=1)
     du_p, dx_p, pred_p, ok_p = seq_newton_trial_plain(*trial)
     assert torch.equal(ok, ok_p) and bool(ok.all())
     scale = float(du_p.abs().max())
@@ -149,8 +156,111 @@ def test_stream_on_card_matches_cpu(card):
     cuda.reset_launches()
     got = solve_stream(ocp, u0.to(card), x0b.to(card), cfg, lanes=3,
                        refill_every=5)
-    assert cuda.launches == {"seq_newton_trial": got.steps,
-                             "seq_costates": got.steps}
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                 seq_newton_trial=got.steps,
+                                 seq_costates=got.steps)
+    ref = solve_stream(ocp, u0, x0b, cfg, lanes=3, refill_every=5)
+    assert int((got.iterations.cpu() != ref.iterations).sum()) <= 1
+
+    def raw(u):
+        return ocp.total_cost(rollout(ocp.dynamics, u, x0b), u,
+                              torch.tensor(1e-9, dtype=torch.float64))
+
+    np.testing.assert_allclose(raw(got.controls.cpu()).numpy(),
+                               raw(ref.controls).numpy(), rtol=1e-8)
+
+
+FUSED_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def _close(got, ref, tol):
+    """Equal NaN/inf entries; finite entries within ``tol`` of the scale."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    inf = torch.isinf(ref)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], ref[inf])
+    fin = torch.isfinite(ref)
+    if bool(fin.any()):
+        scale = float(ref[fin].abs().max())
+        assert float((got[fin] - ref[fin]).abs().max()) <= tol * scale
+
+
+def _lanes(model, B, T, seed, dtype, device):
+    """Batch-last lane inputs: controls, a second control set, initial
+    states."""
+    rng = np.random.default_rng(seed)
+    x0 = model.initial_state(torch.float64).numpy()
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    u = t(0.1 * rng.normal(size=(T, 1, B)))
+    up = t(0.15 * rng.normal(size=(T, 1, B)))
+    x0b = t(x0[:, None] + 0.01 * rng.normal(size=(x0.shape[0], B)))
+    return model.make_ocp(1.0 / T), u, up, x0b
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", [cartpole, pendulum],
+                         ids=["cartpole", "pendulum"])
+def test_fused_kernels_match_plain(card, model, dtype):
+    """The four fused kernels against their plain versions, B=64, T=40."""
+    B, T = 64, 40
+    tol = FUSED_TOL[dtype]
+    ocp, u, up, x0 = _lanes(model, B, T, 5, dtype, card)
+    bp = torch.full((B,), 0.05, dtype=dtype, device=card)
+    cuda.reset_launches()
+    got = tf.rollout_cost_packed(ocp, u, x0, bp)
+    ref = tf.rollout_cost_plain(ocp, u, x0, bp)
+    for g, r in zip(got, ref):
+        _close(g, r, tol)
+    xs, xT, _, cunsq = ref
+    reg = 100.0 * torch.sqrt(cunsq)
+    got = tf.fused_newton_iter_packed(ocp, xs, xT, u, bp, reg)
+    ref = tf.fused_newton_iter_plain(ocp, xs, xT, u, bp, reg)
+    for g, r in zip(got, ref):
+        _close(g, r, tol)
+    ok = [torch.isfinite(o[7]) & (o[7] > 0) & torch.isfinite(o[6])
+          for o in (got, ref)]
+    assert torch.equal(ok[0], ok[1]) and bool(ok[1].all())
+    got = tf.transition_packed(ocp, u, up, x0, bp)
+    ref = tf.transition_plain(ocp, u, up, x0, bp)
+    for g, r in zip(got, ref):
+        _close(g, r, tol)
+    torch.cuda.synchronize()
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                 fused_bwd=1, fused_fwd=1, rollout_cost=1,
+                                 transition=1)
+
+
+def test_fused_wrappers_raise_on_what_no_kernel_takes(card):
+    ocp, u, up, x0 = _lanes(pendulum, 8, 5, 6, torch.float64, card)
+    bp = torch.full((8,), 0.05, dtype=torch.float64, device=card)
+    with pytest.raises(NotImplementedError):
+        tf.rollout_cost_packed(ocp, u.half(), x0.half(), bp.half())
+    with pytest.raises(ValueError):
+        tf.rollout_cost_packed(ocp, u.transpose(0, 2).contiguous()
+                               .transpose(0, 2), x0, bp)
+    with pytest.raises(ValueError):
+        tf.transition_packed(ocp, u, up.cpu(), x0, bp)
+
+
+def test_fused_stream_on_card_matches_cpu(card):
+    """A small float64 pendulum packed stream on the card (four kernels)
+    against the CPU (plain versions): the Newton and transition kernels
+    launch once per step, and converged raw costs agree to rtol 1e-8 (an
+    accept decision may flip within rounding)."""
+    cfg = BATCH_CONFIG.replace(bp_min=4.1e-3)
+    T = 20
+    ocp = pendulum.make_ocp(1.0 / T)
+    rng = np.random.default_rng(4)
+    x0 = pendulum.initial_state(torch.float64).numpy()
+    u0 = torch.tensor(0.1 * rng.normal(size=(8, T, 1)))
+    x0b = torch.tensor(x0 + 0.01 * rng.normal(size=(8, 2)))
+    cuda.reset_launches()
+    got = solve_stream(ocp, u0.to(card), x0b.to(card), cfg, lanes=3,
+                       refill_every=5)
+    for k in ("fused_bwd", "fused_fwd", "transition"):
+        assert cuda.launches[k] == got.steps, k
+    assert 1 <= cuda.launches["rollout_cost"] <= got.steps
+    assert cuda.launches["seq_newton_trial"] == 0
     ref = solve_stream(ocp, u0, x0b, cfg, lanes=3, refill_every=5)
     assert int((got.iterations.cpu() != ref.iterations).sum()) <= 1
 

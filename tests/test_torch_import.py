@@ -16,11 +16,14 @@ MODULES = [
     "ipoc_tpu_torch.ops.derivatives",
     "ipoc_tpu_torch.ops.cuda",
     "ipoc_tpu_torch.ops.cuda.seq_newton",
+    "ipoc_tpu_torch.ops.codegen.scalarize",
+    "ipoc_tpu_torch.ops.fused_iter",
     "ipoc_tpu_torch.parallel.costates",
     "ipoc_tpu_torch.solvers.barrier",
     "ipoc_tpu_torch.solvers.batched",
     "ipoc_tpu_torch.solvers.globalization",
     "ipoc_tpu_torch.solvers.ip_newton",
+    "ipoc_tpu_torch.solvers.packed_stream",
     "ipoc_tpu_torch.solvers.stream",
 ]
 
@@ -40,8 +43,10 @@ def test_port_imports_no_jax():
         sys.meta_path.insert(0, BlockJax())
         for m in {MODULES!r}:
             importlib.import_module(m)
-        from ipoc_tpu_torch.ops import cuda
+        from ipoc_tpu_torch.ops import cuda, fused_iter
         assert cuda._lib is None, "importing built or loaded the kernels"
+        assert not fused_iter._LIBS and not fused_iter._PROGRAMS, (
+            "importing generated, built or loaded the fused kernels")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib"))
         print("JAX_MODULES", loaded)

@@ -100,7 +100,7 @@ def test_stream_bad_warm_start_lane(solved):
 def test_stream_launches_no_kernel_on_cpu(solved):
     """CPU tensors take the plain versions: no kernel launch is counted."""
     _, _, launches = solved
-    assert launches == {"seq_newton_trial": 0, "seq_costates": 0}
+    assert launches == dict.fromkeys(cuda.launches, 0)
 
 
 def _lanes(B=4, T=12, seed=5):
@@ -166,13 +166,19 @@ def test_transition_runs_only_on_rolling_lanes(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["par", "fused", "ddp"])
 def test_other_evaluators_raise(impl):
-    """Only newton_impl='seq' is ported; the others name their ROADMAP
-    item instead of being substituted."""
+    """The flat lanes run newton_impl='seq' only; the others name their
+    ROADMAP item instead of being substituted.  ('fused' runs through the
+    packed stream, tests/test_torch_packed_stream.py; its unpacked lane
+    evaluator is not ported.)"""
     tocp = t_pendulum.make_ocp(0.1)
     u = torch.zeros((2, 10, 1), dtype=torch.float64)
     x = torch.zeros((2, 2), dtype=torch.float64)
+    cfg = T_CFG.replace(newton_impl=impl)
     with pytest.raises(ValueError, match="ROADMAP"):
-        solve_stream(tocp, u, x, T_CFG.replace(newton_impl=impl))
+        if impl == "fused":
+            ip_newton.flat_lane_init(tocp, u, x, cfg)
+        else:
+            solve_stream(tocp, u, x, cfg)
 
 
 def test_stream_requires_single_globalization():
