@@ -6,11 +6,13 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``ipoc_tpu_torch/csrc`` (the seq
-library and one fused library per model, generated from the model and
-compiled by parallel ``nvcc`` calls) and then runs its phases, each printing
-one JSON line:
+library and one fused library per model and time step, generated from the
+model and compiled by parallel ``nvcc`` calls) and then runs its phases,
+each printing one JSON line:
 
-  0. the device: its name, power limit, and the kernels' build time;
+  0. the device: its name, power limit, the kernels' build time, and the
+     registers and spills ``ptxas`` reports for the mega kernel and the
+     merged trial;
   A. each kernel against its plain PyTorch version on the card, on stage
      data taken from the real slice (cartpole, T=100, B=4096), in float32
      and float64, on random nx=3, nu=2 data, and on an indefinite R that
@@ -20,24 +22,44 @@ one JSON line:
      (kernels) against the CPU (plain versions);
   C. ``solve_stream`` at the bench's width: cartpole H=100, float32,
      ``BATCH_CONFIG.replace(newton_impl="seq")``, 4096 lanes, refill every
-     32, a pool of 4 x 4096 scenarios;
+     32, a pool of 1 x 4096 scenarios (cut from 4 x 4096 to keep the
+     script inside its time limit: this host-bound path takes some 60 s at
+     4 x 4096);
   D. the four fused kernels against their plain versions on the fused
      slice's data (cartpole T=100, the pool's first 4096 lanes, at bp=0.1
      and at bp=0.004), float64 then float32, and on pendulum at B=256;
      then each kernel's time beside its plain version's;
-  E. ``solve_stream`` with ``BATCH_CONFIG`` (the packed fused stream) on
-     256 cartpole scenarios in float64: the card against the CPU;
-  F. the packed fused stream at the bench's width: cartpole H=100,
-     float32, ``BATCH_CONFIG`` unmodified, 4096 lanes, refill every 32, a
-     pool of 4 x 4096 scenarios, with the device busy share and every
-     kernel's launch count; then the first 512 raw costs against the
-     float64 solve on the card.
+  E. ``solve_stream`` with ``BATCH_CONFIG`` (the packed stream on its mega
+     executor) on 256 cartpole scenarios in float64: the card against the
+     CPU;
+  F. the packed stream's two-launch arm (``mega=False``) at the bench's
+     width: cartpole H=100, float32, ``BATCH_CONFIG`` unmodified, 4096
+     lanes, refill every 32, a pool of 4 x 4096 scenarios, with the device
+     busy share and every kernel's launch count; then the first 512 raw
+     costs against the float64 solve on the card;
+  G. the merged trial (Newton at T=100, DDP at T=25) and the mega kernel
+     (Newton at T=100 and DDP at T=25, k=4 with two iterations per barrier
+     stage so that lanes roll over, then k=32) against their plain
+     versions, and the mega kernel against k steps of ``packed_lane_iter``
+     on the two-launch kernels, on 4096 lanes of the pool at bp 0.1 and
+     0.004, float64 then float32; then each kernel's time beside its plain
+     version's, and the mega launch beside 32 two-launch iterations;
+  H. the single-grid stream on the mega executor (``solve_stream``,
+     ``BATCH_CONFIG``) at F's width, with launch counts: ``mega`` once per
+     refill round, no per-iteration kernel;
+  I. ``solve_stream_multigrid`` at bench.py's default: cartpole H=100,
+     coarsen 4, ``coarse_impl="ddp"``, 4096 lanes, refill every 32, a pool
+     of 4 x 4096, float32: both levels' steps and iterations, the busy
+     share, the basin-switch fraction against H's solutions; then the
+     coarse level again on the two-launch arm (the merged trial's path);
+  J. ``solve_stream_multigrid`` on 256 cartpole scenarios in float64: the
+     card against the CPU.
 
-Phases B and E run last: their CPU halves run meanwhile, in one child
+Phases B, E and J run last: their CPU halves run meanwhile, in one child
 process each, started at the beginning.  A failed check fails its phase;
 the other phases still run, and any failure exits non-zero.  The
 line before the last holds the kernels' record; the last line is
-``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of A-F
+``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of A-J
 (default: all; phase 0, the device and the build, always runs).  Without a card, or outside a checkout of the repository, the script
 exits non-zero and prints no result.
 """
@@ -45,9 +67,11 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import time
@@ -59,11 +83,22 @@ DT = 1.0 / T
 LANES = 4096
 POOL = 4 * LANES  # the bench's pool is 32 x lanes; 4 x keeps this smoke short
 REFILL = 32
+COARSEN = 4  # the multigrid's coarse level: T=25 at 4 x the time step
 # Phase D's float32 tolerance (kernel against plain version, relative to
 # each output's largest entry): the two evaluate the same float32 program
 # in another operation order (and the kernel contracts products into FMAs),
 # and the backward sweep carries rounding through T=100 Riccati steps.
 F32_TOL = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def model_ocp(name, coarsen=1):
+    """One OCP object per model and time step, shared by every phase: the
+    fused library and its generated code are cached per OCP object."""
+    from ipoc_tpu_torch.models import cartpole, pendulum
+
+    model = {"cartpole": cartpole, "pendulum": pendulum}[name]
+    return model.make_ocp(coarsen * DT)
 
 
 def check(cond, msg):
@@ -99,7 +134,6 @@ def slice_stage_data(pool, dtype, device, bp=0.1, rp=100.0):
     import torch
 
     from ipoc_tpu_torch import BATCH_CONFIG
-    from ipoc_tpu_torch.models import cartpole
     from ipoc_tpu_torch.ops.cuda.seq_newton import seq_costates_plain
     from ipoc_tpu_torch.ops.derivatives import (
         compute_first_order,
@@ -110,7 +144,7 @@ def slice_stage_data(pool, dtype, device, bp=0.1, rp=100.0):
     from ipoc_tpu_torch.solvers.ip_newton import _regularized
     from ipoc_tpu_torch.utils.integrators import rollout
 
-    ocp = cartpole.make_ocp(DT)
+    ocp = model_ocp("cartpole")
     u, x0 = (a.to(device, dtype) for a in pool)
     B = u.shape[0]
     x = rollout(ocp.dynamics, u, x0)
@@ -197,7 +231,6 @@ def compare_costates(args, tol, label):
 def phase_device():
     import torch
 
-    from ipoc_tpu_torch.models import cartpole, pendulum
     from ipoc_tpu_torch.ops import cuda
     from ipoc_tpu_torch.ops import fused_iter
 
@@ -210,8 +243,9 @@ def phase_device():
     print(power, flush=True)
     t0 = time.perf_counter()
     specs = [cuda.SEQ_NEWTON,
-             fused_iter.model_spec(cartpole.make_ocp(DT), 4, 1),
-             fused_iter.model_spec(pendulum.make_ocp(DT), 2, 1)]
+             fused_iter.model_spec(model_ocp("cartpole"), 4, 1),
+             fused_iter.model_spec(model_ocp("cartpole", COARSEN), 4, 1),
+             fused_iter.model_spec(model_ocp("pendulum"), 2, 1)]
     codegen_s = time.perf_counter() - t0
     paths = cuda.build_all(specs)
     build_s = time.perf_counter() - t0
@@ -221,8 +255,34 @@ def phase_device():
           "count": torch.cuda.device_count(), "codegen_s": codegen_s,
           "kernel_build_s": build_s,
           "libraries": [str(p.relative_to(p.parents[3])) for p in paths],
+          "ptxas_cartpole": ptxas_report(paths[1]),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return name, power
+
+
+def ptxas_report(lib):
+    """Registers, stack frame and spill bytes that ``ptxas -v`` reported
+    for the mega kernel and the merged trial of one library, per dtype and
+    mode (the build keeps its report beside the library)."""
+    text = lib.with_suffix(".ptxas.txt").read_text()
+    out = {}
+    blocks = re.split(r"Compiling entry function '", text)[1:]
+    for block in blocks:
+        m = re.match(r"_ZN4ipoc\d+(mega_kernel|merged_trial_kernel)"
+                     r"I5Model([fd])Lb([01])E", block)
+        if m is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        key = (f"{m.group(1)}_{'float32' if m.group(2) == 'f' else 'float64'}"
+               f"_{'ddp' if m.group(3) == '1' else 'newton'}")
+        out[key] = {"registers": int(regs.group(1)) if regs else None,
+                    "stack_frame_bytes": int(frame.group(1)) if frame else None,
+                    "spill_store_bytes": int(frame.group(2)) if frame else None,
+                    "spill_load_bytes": int(frame.group(3)) if frame else None}
+    check(len(out) == 8, f"ptxas report incomplete: {sorted(out)}")
+    return out
 
 
 def phase_kernels(pool, dev):
@@ -281,53 +341,61 @@ def phase_kernels(pool, dev):
 
 
 CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
-               "E": "BATCH_CONFIG"}
+               "E": "BATCH_CONFIG",
+               "J": "solve_stream_multigrid(coarsen=4, coarse_impl='ddp'), "
+                    "BATCH_CONFIG"}
 
 
-def card_vs_cpu_config(phase):
-    from ipoc_tpu_torch import BATCH_CONFIG
+def card_vs_cpu_solve(phase, u, x0):
+    """The solve that phase B, E or J runs on both sides: 256 scenarios
+    through 64 lanes.  Returns ``(controls, iterations, steps, extra)``,
+    ``extra`` the coarse level's iterations and steps for J."""
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_stream, solve_stream_multigrid
 
-    return (BATCH_CONFIG.replace(newton_impl="seq") if phase == "B"
-            else BATCH_CONFIG)
+    ocp = model_ocp("cartpole")
+    if phase == "J":
+        sol = solve_stream_multigrid(
+            ocp, model_ocp("cartpole", COARSEN), COARSEN, u, x0,
+            BATCH_CONFIG, lanes=64, refill_every=REFILL, coarse_impl="ddp")
+        return (sol.controls, sol.iterations.cpu(), sol.steps,
+                {"iterations_coarse": sol.iterations_coarse.cpu(),
+                 "steps_coarse": sol.steps_coarse})
+    cfg = (BATCH_CONFIG.replace(newton_impl="seq") if phase == "B"
+           else BATCH_CONFIG)
+    sol = solve_stream(ocp, u, x0, cfg, lanes=64, refill_every=REFILL)
+    return sol.controls, sol.iterations.cpu(), sol.steps, {}
 
 
 def cpu_reference_solve(phase):
-    """The CPU half of phase B or E: ``solve_stream`` with the plain
-    versions on the 256 float64 scenarios.  Runs in a child process
-    (``--cpu-reference B|E``, one thread) while the card works through the
-    other phases; returns ``(controls, iterations, steps, wall_s)``."""
+    """The CPU half of phase B, E or J: the solve with the plain versions
+    on the 256 float64 scenarios.  Runs in a child process
+    (``--cpu-reference B|E|J``, one thread) while the card works through
+    the other phases; returns ``(controls, iterations, steps, extra,
+    wall_s)``."""
     import torch
 
-    from ipoc_tpu_torch import solve_stream
     from ipoc_tpu_torch.models import cartpole
 
     torch.set_num_threads(1)
     u, x0 = (a[:256].double() for a in make_pool(cartpole, POOL,
                                                   torch.float32))
     t0 = time.perf_counter()
-    sol = solve_stream(cartpole.make_ocp(DT), u, x0,
-                       card_vs_cpu_config(phase), lanes=64,
-                       refill_every=REFILL)
-    return (sol.controls, sol.iterations, sol.steps,
-            time.perf_counter() - t0)
+    out = card_vs_cpu_solve(phase, u, x0)
+    return (*out, time.perf_counter() - t0)
 
 
 def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
-    """Phases B (seq stream) and E (packed fused stream): 256 float64
-    scenarios through 64 lanes, the card (kernels) against the CPU (plain
-    versions, ``cpu_ref``)."""
-    from ipoc_tpu_torch import solve_stream
-    from ipoc_tpu_torch.models import cartpole
-
-    ocp = cartpole.make_ocp(DT)
+    """Phases B (seq stream), E (packed stream) and J (multigrid): 256
+    float64 scenarios through 64 lanes, the card (kernels) against the CPU
+    (plain versions, ``cpu_ref``)."""
+    ocp = model_ocp("cartpole")
     u, x0 = (a[:256] for a in pool64)
     t0 = time.perf_counter()
-    card = solve_stream(ocp, u.to(dev), x0.to(dev), card_vs_cpu_config(phase),
-                        lanes=64, refill_every=REFILL)
-    card.iterations.cpu()
+    u_card, it_card, steps_card, extra_card = card_vs_cpu_solve(
+        phase, u.to(dev), x0.to(dev))
     t_card = time.perf_counter() - t0
-    u_cpu, it_cpu, steps_cpu, t_cpu = cpu_ref
-    u_card, it_card = card.controls.cpu(), card.iterations.cpu()
+    u_cpu, it_cpu, steps_cpu, extra_cpu, t_cpu = cpu_ref
+    u_card = u_card.cpu()
     same = it_card == it_cpu
     n_diff = int((~same).sum())
     du_lane = (u_card - u_cpu).abs().flatten(1).amax(1)
@@ -351,7 +419,8 @@ def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
                "raw_cost_rel_diff": float(abs(a - b) / abs(b))}
               for i, a, b in zip(odd, c_card, c_cpu)],
           "lanes_agreeing": int((same & (du_lane <= 1e-6)).sum()),
-          "steps_card": card.steps, "steps_cpu": steps_cpu,
+          "steps_card": steps_card, "steps_cpu": steps_cpu,
+          **coarse_agreement(extra_card, extra_cpu),
           "wall_s_card": t_card, "wall_s_cpu_child": t_cpu})
     # A lane agrees if its iteration count is equal and its controls are
     # within 1e-6; at least 99% must.  Rounding differences between the
@@ -360,12 +429,24 @@ def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
     # controls along a flat valley: every lane's converged raw cost must
     # still agree to the goldens' rtol 1e-8.
     agree = same & (du_lane <= 1e-6)
-    n_bad = 256 - int(agree.sum())
+    n_bad = len(agree) - int(agree.sum())
     rel = float(((c_card - c_cpu).abs() / c_cpu.abs()).max()) if len(odd) \
         else 0.0
-    check(n_bad <= 0.01 * 256,
-          f"{n_bad} of 256 lanes differ in iterations or controls")
+    check(n_bad <= 0.01 * len(agree),
+          f"{n_bad} of {len(agree)} lanes differ in iterations or controls")
     check(rel <= 1e-8, f"converged raw costs differ by {rel} relative")
+
+
+def coarse_agreement(card, cpu):
+    """Phase J's coarse level, card against CPU (empty for B and E)."""
+    if not card:
+        return {}
+    same = card["iterations_coarse"] == cpu["iterations_coarse"]
+    frac = float(same.double().mean())
+    check(frac >= 0.99, f"coarse iterations equal on only {frac} of lanes")
+    return {"coarse_lanes_with_different_iterations": int((~same).sum()),
+            "steps_coarse_card": card["steps_coarse"],
+            "steps_coarse_cpu": cpu["steps_coarse"]}
 
 
 def raw_costs(ocp, u, x0):
@@ -378,6 +459,25 @@ def raw_costs(ocp, u, x0):
                                              device=u.device))
 
 
+def kernel_ms(prof, per=1):
+    """Device ms per kernel of a profile, divided by ``per``.  Kernel rows
+    only: an operator's row carries its kernels' device time too, so
+    summing every row would count it twice."""
+    from torch.autograd import DeviceType
+
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = e.key.split("(")[0][:60]
+            per_kernel[key] = (per_kernel.get(key, 0.0)
+                               + e.self_device_time_total / per / 1e3)
+    return per_kernel
+
+
+def top_kernels(per_kernel, n=8):
+    return dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:n])
+
+
 def busy_share(lane, step, warm_iters=90, window=10):
     """Device busy share over a window of lane iterations on the full lane
     batch, after ``warm_iters`` iterations (lanes then sit in several
@@ -386,7 +486,6 @@ def busy_share(lane, step, warm_iters=90, window=10):
     the profiler.  Returns ``(share, ms per iteration, device ms per
     iteration of the largest kernels)``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm_iters):
@@ -405,49 +504,75 @@ def busy_share(lane, step, warm_iters=90, window=10):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    # Kernel rows only: an operator's row carries its kernels' device time
-    # too, so summing every row would count it twice.
-    per_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            key = e.key.split("(")[0][:60]
-            per_kernel[key] = (per_kernel.get(key, 0.0)
-                               + e.self_device_time_total / window / 1e3)
+    per_kernel = kernel_ms(prof, window)
     dev_ms = sum(per_kernel.values())
-    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
     step_ms = wall_us / window / 1e3
-    return (dev_ms / step_ms if dev_ms > 0 else None), step_ms, top
+    return (dev_ms / step_ms if dev_ms > 0 else None), step_ms, \
+        top_kernels(per_kernel)
+
+
+def run_busy_share(run, wall_s):
+    """Device busy share of one whole run: the profiler's kernel-row
+    device time of ``run()`` (which waits for the device) divided by
+    ``wall_s``, the host-clock time of the same run without the profiler.
+    Returns ``(share, device ms of the largest kernels)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    per_kernel = kernel_ms(prof)
+    dev_ms = sum(per_kernel.values())
+    return dev_ms / (wall_s * 1e3), top_kernels(per_kernel)
+
+
+def solve_at_width(ocp, u, x0, cfg, lanes):
+    """The default stream: ``solve_stream`` (the mega executor for the
+    packed configurations)."""
+    from ipoc_tpu_torch import solve_stream
+
+    return solve_stream(ocp, u, x0, cfg, lanes=lanes, refill_every=REFILL)
+
+
+def two_launch_at_width(ocp, u, x0, cfg, lanes):
+    """The packed stream's two-launch arm."""
+    from ipoc_tpu_torch.solvers.packed_stream import solve_stream_packed
+
+    return solve_stream_packed(ocp, u, x0, cfg, lanes=lanes,
+                               refill_every=REFILL, mega=False)
 
 
 def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
-                          lane_fns, openings=()):
-    """Phases C (seq) and F (packed fused): ``solve_stream`` at the bench's
-    width on the whole pool, float32, its launch counts, the quality of
-    what comes out, the first 512 raw costs against the float64 solve on
-    the card, and the device busy share over a window of ``lane_fns =
-    (open lanes, one lane iteration)``.  ``openings`` is a list that grows
-    by one per lane opening; the record counts those of the measured run.
-    Returns the emitted record."""
+                          lane_fns=None, counters=None, solve=solve_at_width,
+                          whole_run_busy=False):
+    """Phases C (seq), F (two-launch arm) and H (mega executor): a stream at
+    the bench's width on ``pool32``, float32, its launch counts, the
+    quality of what comes out, the first 512 raw costs against the float64
+    solve on the card, and the device busy share over a window of
+    ``lane_fns = (open lanes, one lane iteration)`` and/or, with
+    ``whole_run_busy``, over a second whole run.  ``counters`` maps a
+    record key to a list that grows by one per event (a lane opening, a
+    refill round); the record counts those of the measured run.  Returns
+    ``(the emitted record, the solution)``."""
     import torch
 
-    from ipoc_tpu_torch import solve_stream
-    from ipoc_tpu_torch.models import cartpole
     from ipoc_tpu_torch.ops import cuda
 
-    ocp = cartpole.make_ocp(DT)
+    ocp = model_ocp("cartpole")
     u, x0 = (a.to(dev) for a in pool32)
+    n = u.shape[0]
     # Warm-up: a small stream (library load, allocator, torch.func caches).
-    solve_stream(ocp, u[:256], x0[:256], cfg, lanes=256,
-                 refill_every=REFILL).iterations.cpu()
+    solve(ocp, u[:256], x0[:256], cfg, 256).iterations.cpu()
 
+    counters = counters or {}
     cuda.reset_launches()
-    n_open = len(openings)
+    before = {k: len(v) for k, v in counters.items()}
     t0 = time.perf_counter()
-    sol = solve_stream(ocp, u, x0, cfg, lanes=LANES, refill_every=REFILL)
+    sol = solve(ocp, u, x0, cfg, LANES)
     sol.iterations.cpu()  # waits for the device
     wall = time.perf_counter() - t0
     counts = dict(cuda.launches)
-    n_open = len(openings) - n_open
+    events = {k: len(v) - before[k] for k, v in counters.items()}
 
     costs = raw_costs(ocp, sol.controls, x0).double().cpu()
     iters = sol.iterations.cpu().double()
@@ -456,50 +581,61 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
     nonfinite = float((~torch.isfinite(costs)).double().mean())
 
     u64, x64 = (a[:512].to(dev) for a in pool64)
-    sol64 = solve_stream(ocp, u64, x64, cfg, lanes=512, refill_every=REFILL)
+    sol64 = solve(ocp, u64, x64, cfg, 512)
     c64 = raw_costs(ocp, sol64.controls, x64).cpu()
     agree = float(((costs[:512] - c64).abs() <= 1e-3 * c64.abs())
                   .double().mean())
 
-    open_lanes, step = lane_fns
-    busy, step_ms, top = busy_share(open_lanes(ocp, u[:LANES], x0[:LANES]),
-                                    lambda ln: step(ocp, ln))
     record = {
         "phase": phase, "model": "cartpole", "horizon": T,
         "dtype": "float32", "config": cfg_name, "lanes": LANES,
-        "refill_every": REFILL, "scenarios": POOL,
-        "pool_note": "4 x lanes (the bench's pool is 32 x lanes) to keep "
-                     "the smoke inside its time limit",
-        "wall_s": wall, "solves_per_s": POOL / wall, "steps": sol.steps,
+        "refill_every": REFILL, "scenarios": n,
+        "pool_note": f"{n // LANES} x lanes (the bench's pool is 32 x "
+                     "lanes) to keep the smoke inside its time limit",
+        "wall_s": wall, "solves_per_s": n / wall, "steps": sol.steps,
         "ms_per_step_whole_run": wall / max(sol.steps, 1) * 1e3,
         "mean_iterations": float(iters.mean()),
         "max_iterations": int(iters.max()),
         "mean_raw_cost": float(costs.mean()),
-        "frac_nonfinite_cost": nonfinite, "launches": counts,
-        "lane_openings": n_open, "max_abs_u": umax,
-        "frac_f32_cost_within_1e-3_of_f64_first512": agree,
-        "device_busy_share": busy,
-        "busy_window": f"10 iterations of {LANES} lanes after 90, profiler "
-                       "kernel-row device time / unprofiled host time",
-        "window_ms_per_iteration": step_ms,
-        "window_device_ms_per_iteration_top_kernels": top}
+        "frac_nonfinite_cost": nonfinite, "launches": counts, **events,
+        "max_abs_u": umax,
+        "frac_f32_cost_within_1e-3_of_f64_first512": agree}
+    if lane_fns is not None:
+        open_lanes, step = lane_fns
+        busy, step_ms, top = busy_share(
+            open_lanes(ocp, u[:LANES], x0[:LANES]), lambda ln: step(ocp, ln))
+        record.update({
+            "device_busy_share": busy,
+            "busy_window": f"10 iterations of {LANES} lanes after 90, "
+                           "profiler kernel-row device time / unprofiled "
+                           "host time",
+            "window_ms_per_iteration": step_ms,
+            "window_device_ms_per_iteration_top_kernels": top})
+    if whole_run_busy:
+        busy, top = run_busy_share(
+            lambda: solve(ocp, u, x0, cfg, LANES).iterations.cpu(), wall)
+        record.update({
+            "device_busy_share_whole_run": busy,
+            "whole_run_device_ms_top_kernels": top})
     emit(record)
     check(finite, "non-finite controls")
     check(umax <= 50.0 + 1e-4, f"|u| = {umax} exceeds the bound 50")
     check(nonfinite == 0.0, f"non-finite raw cost share {nonfinite}")
-    return record
+    return record, sol
 
 
 def phase_bench_size(pool32, pool64, dev):
-    """Phase C: the seq stream at the bench's width."""
+    """Phase C: the seq stream at the bench's width, on one pool of
+    ``LANES`` scenarios."""
     from ipoc_tpu_torch import BATCH_CONFIG
     from ipoc_tpu_torch.solvers.ip_newton import flat_lane_init, flat_lane_iter
 
     cfg = BATCH_CONFIG.replace(newton_impl="seq")
-    rec = phase_stream_at_width(
-        "C", cfg, "BATCH_CONFIG.replace(newton_impl='seq')", pool32, pool64,
-        dev, (lambda ocp, u, x0: flat_lane_init(ocp, u, x0, cfg),
-              lambda ocp, ln: flat_lane_iter(ocp, ln, cfg, ~ln.done)))
+    rec, _ = phase_stream_at_width(
+        "C", cfg, "BATCH_CONFIG.replace(newton_impl='seq')",
+        tuple(a[:LANES] for a in pool32), pool64, dev,
+        (lambda ocp, u, x0: flat_lane_init(ocp, u, x0, cfg),
+         lambda ocp, ln: flat_lane_iter(ocp, ln, cfg, ~ln.done)))
     counts = rec["launches"]
     check(counts["seq_newton_trial"] > 0 and counts["seq_costates"] > 0,
           f"a kernel of the path never launched: {counts}")
@@ -593,18 +729,18 @@ def phase_fused_kernels(pool32, dev):
     """Phase D: the four fused kernels against their plain versions."""
     import torch
 
-    from ipoc_tpu_torch.models import cartpole, pendulum
+    from ipoc_tpu_torch.models import pendulum
     from ipoc_tpu_torch.ops import fused_iter as tf
 
     out = {"phase": "D"}
-    cp = cartpole.make_ocp(DT)
+    cp = model_ocp("cartpole")
     pool = tuple(a[:2 * LANES] for a in pool32)
     for dtype, tol in ((torch.float64, 1e-10), (torch.float32, F32_TOL)):
         tag = str(dtype).split(".")[-1]
         for bp in (0.1, 0.004):
             out[f"cartpole_{tag}_bp{bp}"] = compare_fused(
                 cp, pool, dtype, dev, bp, tol, f"cartpole {tag} bp={bp}")
-        pd = pendulum.make_ocp(DT)
+        pd = model_ocp("pendulum")
         pp = make_pool(pendulum, 512, torch.float32, seed=SEED + 1)
         out[f"pendulum_{tag}"] = compare_fused(
             pd, pp, dtype, dev, 0.1, tol, f"pendulum {tag}")
@@ -652,40 +788,57 @@ def phase_fused_kernels(pool32, dev):
     return record
 
 
-def phase_fused_bench_size(pool32, pool64, dev):
-    """Phase F: the packed fused stream at the bench's width; every
-    per-iteration kernel launches once per step, rollout_cost once per
-    lane opening, and 99% of the first 512 float32 raw costs are within
-    1e-3 of the float64 solve."""
+class counting:
+    """Count the calls of ``module.name`` inside the ``with`` block (one
+    entry appended to ``self.calls`` per call)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.calls.append(1)
+            return self.real(*a, **k)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def open_packed(ocp, u, x0, cfg, bp):
+    """Packed lanes from scenario rows ``u (N, T, nu)``, ``x0 (N, nx)`` at
+    barrier parameter ``bp`` (one rollout-cost launch on a card)."""
     import torch
 
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+
+    bp0 = torch.full((u.shape[0],), bp, dtype=u.dtype, device=u.device)
+    return ps.packed_lane_init(ocp, u.permute(1, 2, 0).contiguous(),
+                               x0.T.contiguous(), bp0,
+                               torch.full_like(bp0, cfg.reg_init), cfg)
+
+
+def phase_fused_bench_size(pool32, pool64, dev):
+    """Phase F: the packed stream's two-launch arm at the bench's width;
+    every per-iteration kernel launches once per step, rollout_cost once
+    per lane opening, and 99% of the first 512 float32 raw costs are
+    within 1e-3 of the float64 solve."""
     from ipoc_tpu_torch import BATCH_CONFIG
     from ipoc_tpu_torch.solvers import packed_stream as ps
 
     cfg = BATCH_CONFIG
-
-    def open_lanes(ocp, u, x0):
-        bp0 = torch.full((u.shape[0],), cfg.bp_init, dtype=u.dtype,
-                         device=u.device)
-        return ps.packed_lane_init(ocp, u.permute(1, 2, 0).contiguous(),
-                                   x0.T.contiguous(), bp0,
-                                   torch.full_like(bp0, cfg.reg_init), cfg)
-
-    opened = []
-    real_init = ps.packed_lane_init
-
-    def counting_init(*a, **k):
-        opened.append(1)
-        return real_init(*a, **k)
-
-    ps.packed_lane_init = counting_init
-    try:
-        rec = phase_stream_at_width(
-            "F", cfg, "BATCH_CONFIG", pool32, pool64, dev,
-            (open_lanes, lambda ocp, ln: ps.packed_lane_iter(
-                ocp, ln, cfg, ~ln.done)), opened)
-    finally:
-        ps.packed_lane_init = real_init
+    with counting(ps, "packed_lane_init") as opened:
+        rec, _ = phase_stream_at_width(
+            "F", cfg, "BATCH_CONFIG, two-launch arm (mega=False)", pool32,
+            pool64, dev,
+            (lambda ocp, u, x0: open_packed(ocp, u, x0, cfg, cfg.bp_init),
+             lambda ocp, ln: ps.packed_lane_iter(ocp, ln, cfg, ~ln.done)),
+            {"lane_openings": opened.calls}, solve=two_launch_at_width,
+            whole_run_busy=True)
     counts, steps = rec["launches"], rec["steps"]
     for k in ("fused_bwd", "fused_fwd", "transition"):
         check(counts[k] == steps, f"{k} launched {counts[k]} times in "
@@ -695,7 +848,382 @@ def phase_fused_bench_size(pool32, pool64, dev):
           f"{rec['lane_openings']} lane openings")
     check(rec["frac_f32_cost_within_1e-3_of_f64_first512"] >= 0.99,
           "fewer than 99% of 512 float32 costs within 1e-3 of float64")
+    check(counts["mega"] == counts["merged_trial"] == 0,
+          f"the two-launch arm launched the mega or merged kernel: {counts}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The mega kernel, the merged trial and the multigrid: phases G, H, I, J
+# ---------------------------------------------------------------------------
+
+TRIAL_OUTS = ("tu", "tx", "txT", "cost", "nc", "mc", "dv", "piv", "hu",
+              "cun")
+LEVELS = {"newton": (1, False), "ddp": (COARSEN, True)}  # (coarsen, ddp)
+
+
+def level_inputs(pool32, level, dtype, dev):
+    """One level's scenario rows from the pool's first ``LANES``: the fine
+    grid (Newton, T=100) or the coarse grid (DDP, T=25, every 4th control
+    as the multigrid takes them), with that level's model."""
+    coarsen, _ = LEVELS[level]
+    u, x0 = (a[:LANES].to(dev, dtype) for a in pool32)
+    return (model_ocp("cartpole", coarsen), u[:, ::coarsen].contiguous(),
+            x0)
+
+
+def ended_bad(lane, cfg):
+    """Lanes that finished on a non-finite gradient or cost (``bad``), not
+    by reaching ``bp_min``: a finished lane keeps its barrier parameter
+    only then."""
+    return lane.done & (lane.bp > cfg.bp_min)
+
+
+def compare_lanes(got, ref, tol):
+    """Two packed lanes.  A lane's decisions agree when its ``it``,
+    ``stage_it`` and ``done`` are equal; it agrees when, besides, every
+    float field is within ``tol`` of that field's largest finite |ref|
+    (equal inf and NaN entries are equal).  Returns both shares, the
+    largest relative error over the lanes whose decisions agree, and the
+    largest absolute and relative errors over the agreeing lanes."""
+    import torch
+
+    B = got.done.shape[0]
+    same = torch.ones(B, dtype=torch.bool, device=got.done.device)
+    close = same.clone()
+    floats = []
+    for a, b in zip(got, ref):
+        a, b = a.reshape(-1, B), b.reshape(-1, B)
+        if a.is_floating_point():
+            a, b = a.double(), b.double()
+            fin = torch.isfinite(b)
+            scale = (float(b[fin].abs().max()) if bool(fin.any()) else 0.0) \
+                + 1e-30
+            equal = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            close &= (equal | ((a - b).abs() <= tol * scale)).all(0)
+            floats.append((a, b, scale))
+        else:
+            same &= (a == b).all(0)
+    agree = same & close
+
+    def largest(mask):
+        err = rel = 0.0
+        for a, b, scale in floats:
+            d = (a - b)[:, mask]
+            d = d[torch.isfinite(d)]
+            if d.numel():
+                e = float(d.abs().max())
+                err, rel = max(err, e), max(rel, e / scale)
+        return err, rel
+
+    err, rel = largest(agree)
+    return {"decisions_equal_frac": float(same.double().mean()),
+            "agree_frac": float(agree.double().mean()),
+            "max_rel_err_equal_decisions": largest(same)[1],
+            "max_abs_err": err, "max_rel_err": rel}
+
+
+def two_launch_iterations(ocp, lane, cfg, k):
+    """Up to ``k`` calls of ``packed_lane_iter`` on the two-launch kernels,
+    as the two-launch arm runs a refill round (one host read per step).
+    Returns ``(lane, steps)``."""
+    from ipoc_tpu_torch.solvers.packed_stream import packed_lane_iter
+
+    steps = 0
+    for _ in range(k):
+        adv = ~lane.done
+        if not bool(adv.any()):
+            break
+        lane = packed_lane_iter(ocp, lane, cfg, adv)
+        steps += 1
+    return lane, steps
+
+
+def event_ms(fn, reps, setup=lambda: None, warm=True):
+    """Mean device-clock ms of ``fn(setup())`` over ``reps`` calls, after
+    one warm call with ``warm``; ``setup`` runs outside the timed span
+    (CUDA events around each call, the device idle before it)."""
+    import torch
+
+    if warm:
+        fn(setup())
+    total = 0.0
+    for _ in range(reps):
+        arg = setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def phase_mega_kernels(pool32, dev):
+    """Phase G: the merged trial and the mega kernel against their plain
+    versions, the mega kernel against the two-launch kernels, and their
+    times."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import fused_iter as tf
+    from ipoc_tpu_torch.ops import mega
+
+    out = {"phase": "G"}
+    problems = []
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, F32_TOL)):
+        tag = str(dtype).split(".")[-1]
+        for level, (_, ddp) in LEVELS.items():
+            ocp, u, x0 = level_inputs(pool32, level, dtype, dev)
+            impl = "ddp" if ddp else "fused"
+            for bp in (0.1, 0.004):
+                label = f"{level} T={u.shape[1]} {tag} bp={bp}"
+                lane = open_packed(ocp, u, x0, BATCH_CONFIG, bp)
+                reg = 100.0 * torch.clamp(lane.cun, min=1e-6)
+                args = (ocp, lane.xs, lane.xT, lane.u, lane.bp, reg)
+                got = tf.merged_trial_launch(*args, ddp=ddp)
+                ref = tf.fused_newton_iter_plain(*args, ddp=ddp)
+                errs = [compare_out(f"{label} merged[{n}]", g, r, tol)
+                        for n, g, r in zip(TRIAL_OUTS, got, ref)]
+                ok = [torch.isfinite(o[7]) & (o[7] > 0) & torch.isfinite(o[6])
+                      for o in (got, ref)]
+                check(torch.equal(ok[0], ok[1]), f"{label}: ok flags differ")
+                rec = {"merged_trial": {
+                    "max_abs_err": max(e[0] for e in errs),
+                    "max_rel_err": max(e[1] for e in errs),
+                    "ok_frac": float(ok[1].double().mean())}}
+                for k, cap in ((4, 2), (32, BATCH_CONFIG.max_newton_iters)):
+                    cfg = BATCH_CONFIG.replace(newton_impl=impl,
+                                               max_newton_iters=cap)
+                    lane0 = open_packed(ocp, u, x0, cfg, bp)
+                    active = torch.ones_like(lane0.done)
+                    got, steps = mega.mega_k_iterations(
+                        ocp, mega.clone_lane(lane0), active, cfg, k, ddp)
+                    ref, ref_steps = mega.mega_k_iterations_plain(
+                        ocp, lane0, active, cfg, k, ddp)
+                    two, two_steps = two_launch_iterations(ocp, lane0, cfg, k)
+                    vs_plain = compare_lanes(got, ref, tol)
+                    vs_two = compare_lanes(got, two, tol)
+                    # Against the two-launch kernels (the same generated
+                    # code) and over k=4 against the plain version, each
+                    # element within phase D's tolerance on 99% of lanes.
+                    # Over k=32 the plain version's rounding (torch.func
+                    # derivatives, another operation order) grows through
+                    # the cold start's Newton steps past that per-element
+                    # tolerance: there 99% of lanes must take the same
+                    # decisions (it, stage_it, done), as phase E requires.
+                    held = [("two-launch", vs_two, "agree_frac"),
+                            ("plain", vs_plain,
+                             "agree_frac" if k == 4 else
+                             "decisions_equal_frac")]
+                    for name, cmp, key in held:
+                        if cmp[key] < 0.99:
+                            problems.append(f"{label} mega k={k} vs {name}: "
+                                            f"{key} {cmp[key]}")
+                    rolled = float((got.bp < lane0.bp).double().mean())
+                    rec[f"mega_k{k}"] = {
+                        "steps": int(steps), "plain_steps": int(ref_steps),
+                        "two_launch_steps": two_steps,
+                        "rolled_over_frac": rolled,
+                        "ended_bad": {"kernel": int(ended_bad(got, cfg).sum()),
+                                      "plain": int(ended_bad(ref, cfg).sum())},
+                        "vs_plain": vs_plain, "vs_two_launch": vs_two}
+                    if vs_two["agree_frac"] == 1.0 and int(steps) != two_steps:
+                        problems.append(f"{label} k={k}: steps {int(steps)} "
+                                        f"!= two-launch {two_steps}")
+                    if k == 4 and rolled == 0:
+                        problems.append(f"{label}: no lane rolled over in "
+                                        "k=4")
+                out[f"{level}_{tag}_bp{bp}"] = rec
+
+    # Times at the path's shapes, float32, bp=0.1: the merged trial in DDP
+    # mode at T=25, the mega kernel (k=32) at both levels beside its plain
+    # version and beside 32 two-launch iterations on the same lanes.
+    timing = {}
+    for level, (_, ddp) in LEVELS.items():
+        ocp, u, x0 = level_inputs(pool32, level, torch.float32, dev)
+        cfg = BATCH_CONFIG.replace(newton_impl="ddp" if ddp else "fused")
+        lane0 = open_packed(ocp, u, x0, cfg, 0.1)
+        reg = 100.0 * torch.clamp(lane0.cun, min=1e-6)
+        args = (ocp, lane0.xs, lane0.xT, lane0.u, lane0.bp, reg)
+        active = torch.ones_like(lane0.done)
+        ws = mega.mega_workspace(lane0)
+        timing[level] = {
+            "horizon": u.shape[1],
+            "merged_trial_ms": cuda_ms(
+                lambda: tf.merged_trial_launch(*args, ddp=ddp), 20),
+            "plain_trial_ms": cuda_ms(
+                lambda: tf.fused_newton_iter_plain(*args, ddp=ddp), 3),
+            "mega_k32_ms": event_ms(
+                lambda ln: mega.mega_k_iterations(ocp, ln, active, cfg,
+                                                  REFILL, ddp, ws),
+                5, lambda: mega.clone_lane(lane0)),
+            "plain_k32_ms": event_ms(
+                lambda ln: mega.mega_k_iterations_plain(ocp, ln, active,
+                                                        cfg, REFILL, ddp),
+                1, lambda: lane0, warm=False),
+            "two_launch_32_iterations_ms": event_ms(
+                lambda ln: two_launch_iterations(ocp, ln, cfg, REFILL),
+                3, lambda: lane0)}
+    out["timing"] = timing
+    out["timing_shape"] = (f"B={LANES} lanes opened at bp=0.1, float32, "
+                           "CUDA events; newton T=100, ddp T=25 (the "
+                           "multigrid's coarse level)")
+    out["float32_tolerance"] = F32_TOL
+    out["problems"] = problems
+    emit(out)
+    check(not problems, "; ".join(problems))
+    f32 = [out[f"{lv}_float32_bp{bp}"] for lv in LEVELS for bp in (0.1, 0.004)]
+    return {
+        "merged_trial": {
+            "max_abs_err": max(r["merged_trial"]["max_abs_err"] for r in f32),
+            "ms": timing["ddp"]["merged_trial_ms"],
+            "plain_ms": timing["ddp"]["plain_trial_ms"]},
+        "mega": {
+            "max_abs_err": max(r["mega_k4"]["vs_plain"]["max_abs_err"]
+                               for r in f32),
+            "ms": timing["newton"]["mega_k32_ms"],
+            "plain_ms": timing["newton"]["plain_k32_ms"]}}
+
+
+def check_mega_path(counts, rounds, openings, gates=0):
+    """The mega executor's launches: ``mega`` once per refill round,
+    ``rollout_cost`` once per lane opening (plus ``gates`` usable-gate
+    launches), no per-iteration kernel."""
+    check(counts["mega"] == rounds > 0,
+          f"mega launched {counts['mega']} times in {rounds} rounds")
+    check(counts["rollout_cost"] == openings + gates,
+          f"rollout_cost launched {counts['rollout_cost']} times for "
+          f"{openings} openings and {gates} gates")
+    for k in ("fused_bwd", "fused_fwd", "transition", "merged_trial"):
+        check(counts[k] == 0, f"{k} launched {counts[k]} times on the mega "
+              "path")
+
+
+def phase_mega_stream(pool32, pool64, dev):
+    """Phase H: the single-grid stream on the mega executor at the bench's
+    width.  Returns the launch counts and the solution (phase I's
+    single-grid reference)."""
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+
+    cfg = BATCH_CONFIG
+    with counting(ps, "packed_lane_init") as opened, \
+            counting(mega, "mega_k_iterations") as rounds:
+        rec, sol = phase_stream_at_width(
+            "H", cfg, "BATCH_CONFIG (mega executor)", pool32, pool64, dev,
+            counters={"lane_openings": opened.calls,
+                      "refill_rounds": rounds.calls},
+            whole_run_busy=True)
+    counts = rec["launches"]
+    check_mega_path(counts, rec["refill_rounds"], rec["lane_openings"])
+    check(rec["frac_f32_cost_within_1e-3_of_f64_first512"] >= 0.99,
+          "fewer than 99% of 512 float32 costs within 1e-3 of float64")
+    return counts, sol
+
+
+def phase_multigrid(pool32, dev, single_grid):
+    """Phase I: ``solve_stream_multigrid`` at bench.py's default, its
+    launch counts and quality against the single-grid solutions
+    ``single_grid`` (phase H); then the coarse level on the two-launch arm,
+    the merged trial's path."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_stream_multigrid
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+
+    cfg = BATCH_CONFIG
+    ocp, ocp_c = model_ocp("cartpole"), model_ocp("cartpole", COARSEN)
+    u, x0 = (a.to(dev) for a in pool32)
+    n = u.shape[0]
+
+    def solve(uu, xx, lanes=LANES, **kw):
+        return solve_stream_multigrid(ocp, ocp_c, COARSEN, uu, xx, cfg,
+                                      lanes=lanes, refill_every=REFILL,
+                                      coarse_impl="ddp", **kw)
+
+    solve(u[:256], x0[:256], lanes=256).iterations.cpu()  # warm-up
+    with counting(ps, "packed_lane_init") as opened, \
+            counting(mega, "mega_k_iterations") as rounds:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        sol = solve(u, x0)
+        sol.iterations.cpu()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.launches)
+        n_open, n_rounds = len(opened.calls), len(rounds.calls)
+    busy, top = run_busy_share(lambda: solve(u, x0).iterations.cpu(), wall)
+
+    c_mg = raw_costs(ocp, sol.controls, x0).double().cpu()
+    c_sg = raw_costs(ocp, single_grid.controls, x0).double().cpu()
+    rel = (c_mg - c_sg).abs() / c_sg.abs().clamp(min=1e-12)
+    switched = rel > 1e-3  # another local basin, not noise (bench.py)
+    finite = bool(torch.isfinite(sol.controls).all())
+    umax = float(sol.controls.abs().max())
+    it_f, it_c = (a.cpu().double() for a in (sol.iterations,
+                                               sol.iterations_coarse))
+    rec = {
+        "phase": "I", "model": "cartpole", "horizon": T, "coarsen": COARSEN,
+        "coarse_impl": "ddp", "dtype": "float32", "config": "BATCH_CONFIG",
+        "lanes": LANES, "refill_every": REFILL, "scenarios": n,
+        "wall_s": wall, "solves_per_s": n / wall,
+        "coarse": {"steps": sol.steps_coarse,
+                   "mean_iterations": float(it_c.mean()),
+                   "max_iterations": int(it_c.max())},
+        "fine": {"steps": sol.steps, "mean_iterations": float(it_f.mean()),
+                 "max_iterations": int(it_f.max())},
+        "launches": counts, "refill_rounds": n_rounds,
+        "lane_openings": n_open, "max_abs_u": umax,
+        "basin_switch_frac_vs_H": float(switched.double().mean()),
+        "mean_signed_rel_cost_delta_switched": float(
+            ((c_mg - c_sg) / c_sg.abs().clamp(min=1e-12))[switched].mean())
+        if bool(switched.any()) else 0.0,
+        "max_rel_cost_delta_matched": float(rel[~switched].max()),
+        "device_busy_share_whole_run": busy,
+        "whole_run_device_ms_top_kernels": top}
+
+    # The coarse level on the two-launch arm: the merged trial once per
+    # coarse step; the fine level stays on the mega executor.
+    def two_launch_coarse(o, uc, xx, c, lanes, refill_every):
+        return ps.solve_stream_packed(o, uc, xx, c, lanes=lanes,
+                                      refill_every=refill_every, mega=False)
+
+    cuda.reset_launches()
+    sol2 = solve(u, x0, coarse_solver=two_launch_coarse)
+    sol2.iterations.cpu()
+    counts2 = dict(cuda.launches)
+    same_c = sol2.iterations_coarse.cpu() == sol.iterations_coarse.cpu()
+    same_f = sol2.iterations.cpu() == sol.iterations.cpu()
+    c2 = raw_costs(ocp, sol2.controls, x0).double().cpu()
+    near = float(((c2 - c_mg).abs() <= 1e-3 * c_mg.abs()).double().mean())
+    rec["coarse_two_launch"] = {
+        "launches": counts2, "steps_coarse": sol2.steps_coarse,
+        "steps": sol2.steps,
+        "frac_equal_coarse_iterations_vs_mega": float(
+            same_c.double().mean()),
+        "frac_equal_fine_iterations_vs_mega": float(same_f.double().mean()),
+        "frac_raw_cost_within_1e-3_vs_mega": near}
+    emit(rec)
+    check(finite, "non-finite controls")
+    check(umax <= 50.0 + 1e-4, f"|u| = {umax} exceeds the bound 50")
+    check(rec["basin_switch_frac_vs_H"] <= 0.05,
+          f"basin-switch fraction {rec['basin_switch_frac_vs_H']} > 5%")
+    check_mega_path(counts, n_rounds, n_open, gates=1)
+    check(counts2["merged_trial"] == counts2["transition"]
+          == sol2.steps_coarse > 0,
+          f"merged_trial launched {counts2['merged_trial']} times in "
+          f"{sol2.steps_coarse} coarse steps")
+    # Both arms run the same trial code; their float32 glue rounds
+    # differently, so accept decisions flip on some lanes and a few land in
+    # another basin: the solutions are held to the basin-switch bound.
+    check(near >= 0.95, f"only {near} of the two-launch coarse arm's "
+          "solutions within 1e-3 of the mega run's raw costs")
+    return counts, counts2
 
 
 def make_pool(model, n, dtype, seed=SEED):
@@ -711,9 +1239,10 @@ def make_pool(model, n, dtype, seed=SEED):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEF",
-                        help="subset of phases A-F to run after phase 0, "
-                             "which always runs (default: ABCDEF)")
+    parser.add_argument("--phases", default="ABCDEFGHIJ",
+                        help="subset of phases A-J to run after phase 0, "
+                             "which always runs (default: ABCDEFGHIJ); I "
+                             "needs H")
     parser.add_argument("--cpu-reference", choices=list(CARD_VS_CPU),
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
@@ -761,8 +1290,9 @@ def main(argv=None):
 
     try:
         name, _ = phase_device()
-        # The CPU halves of phases B and E run meanwhile, one child process
-        # each (started after the build, which they would slow down).
+        # The CPU halves of phases B, E and J run meanwhile, one child
+        # process each (started after the build, which they would slow
+        # down).
         children.update({
             ph: subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--cpu-reference",
@@ -772,7 +1302,11 @@ def main(argv=None):
         # the float64 runs take the float32 pool's exact values.
         pool32 = make_pool(cartpole, POOL, torch.float32)
         pool64 = tuple(a.double() for a in pool32)
-        # Phases B and E last: their CPU halves run meanwhile.
+        # Phases B, E and J last: their CPU halves run meanwhile.  Each
+        # kernel's launch count is read from the path that runs it: the
+        # seq kernels from C, the two-launch kernels from F, the mega
+        # kernel from H and I (the bench's default path), the merged trial
+        # from I's coarse level on the two-launch arm.
         record.update(run("A", phase_kernels,
                           tuple(a[:LANES] for a in pool32), dev) or {})
         counts.update({k: v for k, v in (run(
@@ -782,6 +1316,19 @@ def main(argv=None):
         counts.update({k: v for k, v in (run(
             "F", phase_fused_bench_size, pool32, pool64, dev) or {}).items()
             if k in fused_iter.KERNELS})
+        record.update(run("G", phase_mega_kernels, pool32, dev) or {})
+        counts_h, single_grid = run("H", phase_mega_stream, pool32, pool64,
+                                    dev) or ({}, None)
+        if "I" in args.phases and single_grid is None:
+            failures.append("phase I: needs phase H's solutions")
+        else:
+            counts_i, counts_i2 = run("I", phase_multigrid, pool32, dev,
+                                      single_grid) or ({}, {})
+            if counts_h or counts_i:
+                counts["mega"] = counts_h.get("mega", 0) + counts_i.get(
+                    "mega", 0)
+            if counts_i2:
+                counts["merged_trial"] = counts_i2["merged_trial"]
         for ph in CARD_VS_CPU:
             run(ph, lambda ph=ph: phase_card_vs_cpu(ph, pool64, dev,
                                                     reference(ph)))
@@ -798,6 +1345,8 @@ def main(argv=None):
         "fused_fwd": ("fused_iter.cuh", "fused_iter_kernel.py:1298"),
         "rollout_cost": ("fused_iter.cuh", "fused_iter_kernel.py:1956"),
         "transition": ("fused_iter.cuh", "fused_iter_kernel.py:2053"),
+        "merged_trial": ("mega.cuh", "fused_iter_kernel.py:1206"),
+        "mega": ("mega.cuh", "mega_kernel.py:1148"),
     }
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     if failures:

@@ -37,8 +37,8 @@
 // float32 over the three per-iteration launches, far below what the memory
 // could stream in the time.  A later performance PR could run several
 // scenarios per thread or split a scenario's rows over a warp's lanes for
-// more parallel work per SM, or fuse the iteration's launches (the
-// resident mega kernel, fused_iter's next slice).
+// more parallel work per SM; the resident mega kernel (mega.cuh) fuses the
+// iteration's launches.
 
 #pragma once
 
@@ -331,8 +331,13 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
     return -1;                                                              \
   }
 
+// Every entry point of one model's library; the merged trial's and the mega
+// kernel's are defined in mega.cuh, which the generated source includes
+// after this header.
 #define IPOC_FUSED_ENTRY_POINTS(MODEL)                                 \
   IPOC_FUSED_ENTRY(ipoc_fused_bwd, launch_fused_bwd, MODEL)            \
   IPOC_FUSED_ENTRY(ipoc_fused_fwd, launch_fused_fwd, MODEL)            \
   IPOC_FUSED_ENTRY(ipoc_rollout_cost, launch_rollout_cost, MODEL)      \
-  IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)
+  IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)          \
+  IPOC_MERGED_ENTRY(MODEL)                                             \
+  IPOC_MEGA_ENTRY(MODEL)

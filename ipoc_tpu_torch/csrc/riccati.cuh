@@ -94,12 +94,19 @@ __device__ __forceinline__ scalar_t pivots_only(const scalar_t* A) {
 // the value carry Vxx (NX*NX), Vx (NX).  Out: the gains k (NU) and
 // K (NU*NX); Vxx and Vx updated in place; dv += k'Qu + 1/2 k'Quu k;
 // minpiv <- min(minpiv, pivots of Quu and R).
-template <typename scalar_t, int NX, int NU>
+//
+// DDP = true is the IP-DDP step (mega_kernel.py:852-878): the stage data
+// were contracted with the value gradient Vx, not the costates, so the
+// Hamiltonian gradient is the Q-function's, Qu = ru and Qx = hx (the
+// stage's lam_new, passed as hx); Vx is only written (Qx + Qxu k); dv +=
+// 1/2 k'Qu (= -1/2 Qu' Quu^-1 Qu); the pivots are Quu's alone.  The caller
+// starts Vx at the terminal gradient.
+template <typename scalar_t, int NX, int NU, bool DDP = false>
 __device__ __forceinline__ void riccati_step(
     const scalar_t* ru, const scalar_t* Q, const scalar_t* R,
     const scalar_t* M, const scalar_t* fx, const scalar_t* fu,
     scalar_t* Vxx, scalar_t* Vx, scalar_t* k, scalar_t* K, scalar_t& dv,
-    scalar_t& minpiv) {
+    scalar_t& minpiv, const scalar_t* hx = nullptr) {
   constexpr int MC = 1 + NX;
   // Vfx = Vxx fx, Vfu = Vxx fu.
   scalar_t Vfx[NX * NX], Vfu[NX * NU];
@@ -144,7 +151,7 @@ __device__ __forceinline__ void riccati_step(
       Quu[j * NU + i] = acc;
     }
   }
-  // Qxu = M + fx' Vfu;  Qu = ru + fu' Vx;  Qx = fx' Vx.
+  // Qxu = M + fx' Vfu;  Qu = ru + fu' Vx;  Qx = fx' Vx  (DDP: ru, hx).
   scalar_t Qxu[NX * NU], Qu[NU], Qx[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
@@ -155,17 +162,25 @@ __device__ __forceinline__ void riccati_step(
       for (int l = 1; l < NX; ++l) acc = acc + fx[l * NX + i] * Vfu[l * NU + j];
       Qxu[i * NU + j] = M[i * NU + j] + acc;
     }
-    scalar_t acc = fx[i] * Vx[0];
+    if constexpr (DDP) {
+      Qx[i] = hx[i];
+    } else {
+      scalar_t acc = fx[i] * Vx[0];
 #pragma unroll
-    for (int l = 1; l < NX; ++l) acc = acc + fx[l * NX + i] * Vx[l];
-    Qx[i] = acc;
+      for (int l = 1; l < NX; ++l) acc = acc + fx[l * NX + i] * Vx[l];
+      Qx[i] = acc;
+    }
   }
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
-    scalar_t acc = fu[i] * Vx[0];
+    if constexpr (DDP) {
+      Qu[i] = ru[i];
+    } else {
+      scalar_t acc = fu[i] * Vx[0];
 #pragma unroll
-    for (int l = 1; l < NX; ++l) acc = acc + fu[l * NU + i] * Vx[l];
-    Qu[i] = ru[i] + acc;
+      for (int l = 1; l < NX; ++l) acc = acc + fu[l * NU + i] * Vx[l];
+      Qu[i] = ru[i] + acc;
+    }
   }
 
   // Quu [k | K] = -[Qu | Qxu'] in one elimination; the RHS row i holds
@@ -180,7 +195,7 @@ __device__ __forceinline__ void riccati_step(
     for (int j = 0; j < NX; ++j) sol[i * MC + 1 + j] = Qxu[j * NU + i];
   }
   scalar_t piv = solve_track<scalar_t, NU, MC>(a, sol);
-  piv = nan_min(piv, pivots_only<scalar_t, NU>(R));
+  if constexpr (!DDP) piv = nan_min(piv, pivots_only<scalar_t, NU>(R));
 
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
@@ -208,10 +223,15 @@ __device__ __forceinline__ void riccati_step(
       Vxx[j * NX + i] = acc;
     }
   }
-  // dV += k'Qu + 1/2 k'Quu k.
+  // dV += k'Qu + 1/2 k'Quu k  (DDP: 1/2 k'Qu).
   scalar_t kQu = k[0] * Qu[0];
 #pragma unroll
   for (int i = 1; i < NU; ++i) kQu = kQu + k[i] * Qu[i];
+  if constexpr (DDP) {
+    dv = dv + scalar_t(0.5) * kQu;
+    minpiv = nan_min(minpiv, piv);
+    return;
+  }
   scalar_t kQk = scalar_t(0);
 #pragma unroll
   for (int i = 0; i < NU; ++i) {

@@ -7,7 +7,8 @@ with one ``nvcc`` call for ``sm_90a`` (float32 and float64 instantiated in
 it) into ``build/ipoc_tpu_torch/<hash>/`` at the root of the checkout, the
 directory keyed by a hash of every ``csrc`` file, the generated text and
 the flags.  The generated ``.cu`` is written into that directory next to
-the ``.so``, so it can be inspected.  Libraries are plain-C shared objects
+the ``.so``, so it can be inspected, and so is ``ptxas``'s report of each
+kernel's registers and spills (``lib<name>.ptxas.txt``).  Libraries are plain-C shared objects
 loaded with ``ctypes``.  Several libraries build in parallel, one ``nvcc``
 each.  Importing this package builds nothing and needs no ``nvcc``, so the
 CPU tests import every module.
@@ -33,12 +34,13 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "ipoc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launch count per kernel: each wrapper adds one where it launches, nowhere
 # else.  Plain integers; reset with :func:`reset_launches`.
 launches = {"seq_newton_trial": 0, "seq_costates": 0, "fused_bwd": 0,
-            "fused_fwd": 0, "rollout_cost": 0, "transition": 0}
+            "fused_fwd": 0, "rollout_cost": 0, "transition": 0,
+            "merged_trial": 0, "mega": 0}
 
 _lib = None
 
@@ -115,6 +117,7 @@ def build_all(specs) -> list:
             errors.append(f"nvcc failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{err}")
         else:
+            path.with_suffix(".ptxas.txt").write_text(err)
             os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n\n".join(errors))

@@ -44,6 +44,41 @@ def stage_barrier(bp, lead: tuple, like: torch.Tensor):
     return bp.reshape(bp.shape + (1,) * (len(lead) - bp.dim())).expand(lead)
 
 
+def compute_derivatives(ocp: OCP, states, controls, bp) -> Derivatives:
+    """Stage derivatives of cost and dynamics along the trajectory, first
+    and second order (the tensor form): ``cxx (..., T, nx, nx)``,
+    ``cxu[i, j] = d2c/dx_i du_j``, ``fxx[i, j, k] = d2f_i/dx_j dx_k``,
+    ``fxu[i, j, k] = d2f_i/dx_j du_k``, ``fuu`` likewise.  The DDP trial
+    contracts the dynamics curvature with the value gradient."""
+    lead = controls.shape[:-1]
+
+    def stage(x, u, b):
+        cx, cu = grad(ocp.stage_cost, argnums=(0, 1))(x, u, b)
+        (cxx, cxu), (_, cuu) = jacrev(grad(ocp.stage_cost, argnums=(0, 1)),
+                                      argnums=(0, 1))(x, u, b)
+        fx, fu = jacrev(ocp.dynamics, argnums=(0, 1))(x, u)
+        (fxx, fxu), (_, fuu) = jacrev(jacrev(ocp.dynamics, argnums=(0, 1)),
+                                      argnums=(0, 1))(x, u)
+        return cx, cu, cxx, cuu, cxu, fx, fu, fxx, fuu, fxu
+
+    return Derivatives(*over_leading(
+        stage, lead, states[..., :-1, :], controls,
+        stage_barrier(bp, lead, controls)))
+
+
+def compute_lqr_params(costates, d: Derivatives) -> LinearizedOCP:
+    """Newton stage data from the tensor form, with the dynamics curvature
+    contracted with the shifted costates ``lam[1:]``: ``ru = cu + fu' lam``,
+    ``Q = cxx + lam . fxx``, ``R = cuu + lam . fuu``, ``M = cxu + lam .
+    fxu``.  Equal to :func:`compute_hamiltonian_lqr` up to rounding."""
+    lam = costates[..., 1:, :]
+    ru = d.cu + torch.einsum("...tiu,...ti->...tu", d.fu, lam)
+    Q = d.cxx + torch.einsum("...ti,...tijk->...tjk", lam, d.fxx)
+    R = d.cuu + torch.einsum("...ti,...tijk->...tjk", lam, d.fuu)
+    M = d.cxu + torch.einsum("...ti,...tijk->...tjk", lam, d.fxu)
+    return LinearizedOCP(ru, Q, R, M)
+
+
 def compute_first_order(ocp: OCP, states, controls, bp) -> Derivatives:
     """First-order stage derivatives (cx, cu, fx, fu) along the trajectory.
 

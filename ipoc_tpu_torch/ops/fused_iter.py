@@ -1,19 +1,24 @@
-"""The fused Newton iteration and the packed rollout kernels: stage
+"""The fused Newton and DDP trials and the packed rollout kernels: stage
 programs, plain versions and wrappers (counterpart of
 ``ipoc_tpu/ops/pallas/fused_iter_kernel.py``, its packed-stream part).
 
-Four hand-written CUDA kernels (``csrc/fused_iter.cuh``) carry the packed
-stream on a card:
+Hand-written CUDA kernels (``csrc/fused_iter.cuh``, ``csrc/mega.cuh``)
+carry the packed stream on a card:
 
 * ``fused_bwd`` and ``fused_fwd`` -- one Newton trial from the iterate
   ``(x, u)`` and the per-lane ``(bp, reg)``: in-kernel stage derivatives,
   costates, Riccati gains, the current cost, dV, the minimum pivot and
   max|ru|; then the deviation rollout with the trial's cost, its maximum
   constraint value and its sum ||cu||^2;
+* ``merged_trial`` -- the same trial in one launch, in Newton mode or in
+  DDP mode (the stage data contracted with the value gradient, then the
+  nonlinear closed-loop re-rollout): the DDP evaluator;
 * ``rollout_cost`` -- rollout, barrier cost and sum ||cu||^2 (lane open and
   refill);
 * ``transition`` -- both stage-transition candidates, ``u`` and the
-  central-path prediction, with their costs and sums ||cu||^2.
+  central-path prediction, with their costs and sums ||cu||^2;
+* ``mega`` -- k whole lane iterations per launch (``ops/mega.py``), built
+  into the same library.
 
 Their per-stage code is generated from the model: the stage programs below
 are written with ``torch.func`` on one element (shapes ``(nx,)``, ``(nu,)``,
@@ -44,6 +49,7 @@ from ipoc_tpu_torch.ops.cuda.seq_newton import (
     seq_trial_pivot_plain,
 )
 from ipoc_tpu_torch.ops.derivatives import (
+    compute_derivatives,
     compute_first_order,
     compute_hamiltonian_lqr,
     final_gradient,
@@ -52,7 +58,8 @@ from ipoc_tpu_torch.ops.derivatives import (
     stage_barrier,
 )
 from ipoc_tpu_torch.problem import OCP
-from ipoc_tpu_torch.utils.integrators import rollout
+from ipoc_tpu_torch.solvers.ip_ddp import _ddp_bwd
+from ipoc_tpu_torch.utils.integrators import closed_loop_rollout, rollout
 
 # ---------------------------------------------------------------------------
 # Stage programs (one element; traced and scalarized for the kernels)
@@ -142,6 +149,31 @@ def _term_fwd_fn(ocp: OCP):
     return term
 
 
+def _stage_ddp_fwd_fn(ocp: OCP, nx: int, nu: int):
+    """DDP forward stage (JAX ``_stage_ddp_fwd_fn(with_cu=True)``): the
+    nonlinear closed-loop re-rollout, whose carry is the trial state itself
+    (not a deviation): ``du = k + K (tx - x)``, ``tx+ = f(tx, u + du)``;
+    returns ``(tu, tx, tx+, cost, max constraint, sum cu^2)`` at the trial
+    point."""
+
+    def stage(x, u, bp, tx, Kk):
+        k = Kk[:nu]
+        K = Kk[nu:].reshape(nu, nx)
+        tu = u + (k + (K * (tx - x)).sum(-1))
+        cu = grad(ocp.stage_cost, argnums=1)(tx, tu, bp)
+        return (tu, tx, ocp.dynamics(tx, tu), ocp.stage_cost(tx, tu, bp),
+                ocp.constraints(tx, tu).amax(-1), (cu * cu).sum(-1))
+
+    return stage
+
+
+def _term_ddp_fwd_fn(ocp: OCP):
+    def term(xT, txT):
+        return txT, ocp.final_cost(txT)
+
+    return term
+
+
 def _stage_roll_cost_cu_fn(ocp: OCP):
     """Rollout step with the stage cost and sum cu^2 (JAX
     ``_stage_roll_cost_cu_fn``)."""
@@ -178,6 +210,9 @@ def stage_programs(ocp: OCP, nx: int, nu: int) -> dict:
         "stage_fwd": (_stage_fwd_fn(ocp, nx, nu),
                       [(nx,), (nu,), (), (nx,), (ng,)]),
         "term_fwd": (_term_fwd_fn(ocp), [(nx,), (nx,)]),
+        "stage_ddp_fwd": (_stage_ddp_fwd_fn(ocp, nx, nu),
+                          [(nx,), (nu,), (), (nx,), (ng,)]),
+        "term_ddp_fwd": (_term_ddp_fwd_fn(ocp), [(nx,), (nx,)]),
         "roll_cost": (_stage_roll_cost_cu_fn(ocp), [(nx,), (nu,), ()]),
         "transition": (_stage_transition_fn(ocp),
                        [(nx,), (nx,), (nu,), (nu,), ()]),
@@ -205,7 +240,8 @@ def model_source(ocp: OCP, nx: int, nu: int) -> str:
     return (
         "// Generated by ipoc_tpu_torch/ops/codegen/scalarize.py from the\n"
         "// model's stage programs (ipoc_tpu_torch/ops/fused_iter.py).\n"
-        '#include "fused_iter.cuh"\n\n'
+        '#include "fused_iter.cuh"\n'
+        '#include "mega.cuh"\n\n'
         "struct Model {\n"
         f"  static constexpr int NX = {nx};\n"
         f"  static constexpr int NU = {nu};\n\n"
@@ -223,6 +259,9 @@ def model_spec(ocp: OCP, nx: int, nu: int) -> cuda.LibSpec:
 
 
 _LIBS: dict = {}
+# The four kernels with the uniform entry point (dtype, ins, outs, B, T,
+# stream); the merged trial and the mega kernel (``ops/mega.py``) take a
+# mode and more.
 KERNELS = ("fused_bwd", "fused_fwd", "rollout_cost", "transition")
 
 
@@ -237,13 +276,23 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
             fn = getattr(lib, f"ipoc_{name}")
             fn.argtypes = [i, p, p, i, i, p]
             fn.restype = i
+        lib.ipoc_merged_trial.argtypes = [i, i, p, p, i, i, p]
+        lib.ipoc_merged_trial.restype = i
+        lib.ipoc_mega.argtypes = [i, i, p, p, p, i, i, i, p]
+        lib.ipoc_mega.restype = i
         _LIBS[key] = lib
     return _LIBS[key]
 
 
-def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu):
+def pointers(tensors):
+    """A ctypes array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu, mode=None):
     """Check the inputs, allocate the outputs and launch kernel ``name``;
-    ``ins[0]`` is a stage array ``(T, rows, B)``."""
+    ``ins[0]`` is a stage array ``(T, rows, B)``.  ``mode`` (0 Newton, 1
+    DDP) goes to an entry point that takes one."""
     code = cuda.check_inputs(name, ins, in_shapes)
     if ins[0].device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes tensors on a card")
@@ -253,12 +302,11 @@ def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu):
     if B == 0:
         return tuple(outs)
     lib = library(ocp, nx, nu)
-    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+    lead = (code,) if mode is None else (code, mode)
     with torch.cuda.device(ins[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, f"ipoc_{name}")(code, in_ptrs, out_ptrs, B, T,
-                                              stream)
+        status = getattr(lib, f"ipoc_{name}")(*lead, pointers(ins),
+                                              pointers(outs), B, T, stream)
     cuda.check(status, name)
     cuda.launches[name] += 1
     return tuple(outs)
@@ -284,6 +332,20 @@ def fused_fwd_launch(ocp: OCP, xs, xT, u, bp, Kk):
                     (T, (1 + nx) * nu, B)],
                    [(T, nu, B), (T, nx, B), (nx, B), (B,), (B,), (B,)],
                    nx, nu)
+
+
+def merged_trial_launch(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
+    """The merged one-launch trial on a card's tensors, Newton or DDP mode:
+    the backward sweep, then the forward sweep in the same thread, the
+    gains through a scratch ``(T, (1+nx)*nu, B)`` output.  Returns
+    :func:`fused_newton_iter_packed`'s ten outputs."""
+    T, nx, B = xs.shape
+    nu = u.shape[1]
+    outs = _launch(ocp, "merged_trial", (xs, u, xT, bp, reg),
+                   [(T, nx, B), (T, nu, B), (nx, B), (B,), (B,)],
+                   [(T, nu, B), (T, nx, B), (nx, B)] + [(B,)] * 7
+                   + [(T, (1 + nx) * nu, B)], nx, nu, mode=int(ddp))
+    return outs[:10]
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +390,26 @@ def _fused_reference(ocp: OCP, x, u, bp, reg):
     return temp_x, temp_u, cost, new_cost, max_c, pred, ok, hu, piv, cun
 
 
+def _fused_ddp_reference(ocp: OCP, x, u, bp, reg):
+    """The unfused composition of one DDP trial on ``(B, ...)`` tensors
+    (JAX ``_fused_ddp_reference``, batched): tensor-form derivatives ->
+    the Vx-contracted backward pass with ``reg`` already scaled ->
+    nonlinear closed-loop re-rollout -> trial evaluation.  Returns
+    :func:`_fused_reference`'s outputs; ``piv`` is the minimum pivot of an
+    unpivoted elimination of the stages' regularized ``Quu``, ``ok`` the
+    Cholesky test, as in JAX."""
+    cost = ocp.total_cost(x, u, bp)
+    d = compute_derivatives(ocp, x, u, bp)
+    ffgain, gain, pred, ok, Qu, piv = _ddp_bwd(ocp.final_cost, x[:, -1], d,
+                                               reg)
+    temp_x, temp_u = closed_loop_rollout(ocp.dynamics, gain, ffgain, x, u)
+    new_cost = ocp.total_cost(temp_x, temp_u, bp)
+    max_c = ocp.constraints(temp_x[:, :-1], temp_u).flatten(1).amax(1)
+    hu = Qu.abs().flatten(1).amax(1)
+    cun = _cu_sq(ocp, temp_x, temp_u, bp)
+    return temp_x, temp_u, cost, new_cost, max_c, pred, ok, hu, piv, cun
+
+
 def _lanes_first(xs, xT):
     """Batch-last stages ``(T, nx, B)`` and terminal ``(nx, B)`` ->
     ``(B, T+1, nx)``."""
@@ -340,10 +422,11 @@ def _lanes_last(x):
             x[:, -1].T.contiguous())
 
 
-def fused_newton_iter_plain(ocp: OCP, xs, xT, u, bp, reg):
-    """Plain version of the two fused launches (same contract as
+def fused_newton_iter_plain(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
+    """Plain version of the fused trial, Newton or DDP (same contract as
     :func:`fused_newton_iter_packed`)."""
-    temp_x, temp_u, cost, nc, mc, pred, _, hu, piv, cun = _fused_reference(
+    ref = _fused_ddp_reference if ddp else _fused_reference
+    temp_x, temp_u, cost, nc, mc, pred, _, hu, piv, cun = ref(
         ocp, _lanes_first(xs, xT), u.permute(2, 0, 1), bp, reg)
     tx, txT = _lanes_last(temp_x)
     return (temp_u.permute(1, 2, 0).contiguous(), tx, txT, cost, nc, mc,
@@ -372,9 +455,10 @@ def transition_plain(ocp: OCP, u, up, x0, bp):
 # ---------------------------------------------------------------------------
 
 
-def fused_newton_iter_packed(ocp: OCP, xs, xT, u, bp, reg):
-    """One fused Newton trial per lane, two launches (JAX
-    ``fused_newton_iter_packed(..., with_cu=True)``, two-launch arm).
+def fused_newton_iter_packed(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
+    """One fused trial per lane (JAX ``fused_newton_iter_packed(...,
+    with_cu=True, ddp=...)``): the Newton trial in two launches, or with
+    ``ddp`` the DDP trial in the merged kernel's one launch.
 
     Shapes: ``xs (T, nx, B)`` stages 0..T-1, ``xT (nx, B)``,
     ``u (T, nu, B)``, ``bp (B,)``, ``reg (B,)`` (the Levenberg parameter,
@@ -384,7 +468,9 @@ def fused_newton_iter_packed(ocp: OCP, xs, xT, u, bp, reg):
     trial point and the trial is feasible iff ``max_c <= 0``.
     """
     if cuda.on_cpu("fused_newton_iter", xs, u, xT, bp, reg):
-        return fused_newton_iter_plain(ocp, xs, xT, u, bp, reg)
+        return fused_newton_iter_plain(ocp, xs, xT, u, bp, reg, ddp)
+    if ddp:
+        return merged_trial_launch(ocp, xs, xT, u, bp, reg, ddp=True)
     Kk, cost, dv, piv, hu = fused_bwd_launch(ocp, xs, xT, u, bp, reg)
     tu, tx, txT, nc, mc, cun = fused_fwd_launch(ocp, xs, xT, u, bp, Kk)
     return tu, tx, txT, cost, nc, mc, dv, piv, hu, cun

@@ -42,8 +42,9 @@ class OCP(NamedTuple):
 class Derivatives(NamedTuple):
     """Stacked per-stage derivatives (leading axes ``(..., T)``).
 
-    The slice computes first order only (:func:`ipoc_tpu_torch.ops.
-    derivatives.compute_first_order`); the second-order fields stay ``None``.
+    :func:`ipoc_tpu_torch.ops.derivatives.compute_derivatives` fills every
+    field (the DDP trial's tensor form); ``compute_first_order`` leaves the
+    second-order fields ``None``.
     """
 
     cx: torch.Tensor

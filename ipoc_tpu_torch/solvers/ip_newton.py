@@ -1,7 +1,7 @@
 """Interior-point Newton lanes (counterpart of
 ``ipoc_tpu/solvers/ip_newton.py``): the subset the unpacked single-grid
-stream runs with ``newton_impl="seq"``.  (``"fused"`` runs through the
-packed stream, ``solvers/packed_stream.py``.)
+stream runs with ``newton_impl="seq"``.  (``"fused"`` and ``"ddp"`` run
+through the packed stream, ``solvers/packed_stream.py``.)
 
 Everything is batched by hand over a leading lane axis B: a lane is one
 scenario's flat-mode solve, and what JAX wrote per lane under ``vmap`` is
@@ -35,14 +35,14 @@ from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
 from ipoc_tpu_torch.utils.integrators import rollout
 
 # Step evaluators of the JAX package that these flat lanes do not run, and
-# the ROADMAP.md item ("Modules to port") that will port each.  "fused"
-# runs through the packed stream (solvers/packed_stream.py, reached from
-# solve_stream); its unpacked lane evaluator (the fused arm of _trial_eval)
-# is not ported.
+# the ROADMAP.md item ("Modules to port") that will port each.  "fused" and
+# "ddp" run through the packed stream (solvers/packed_stream.py, reached
+# from solve_stream); their unpacked lane evaluators (the fused and ddp
+# arms of _trial_eval) are not ported.
 _NOT_PORTED = {
     "par": "The parallel-in-time single-solve path",
     "fused": "The unpacked fused lane evaluator",
-    "ddp": "DDP and multigrid",
+    "ddp": "The unpacked DDP lane evaluator",
 }
 
 
@@ -53,7 +53,7 @@ def check_newton_impl(cfg: SolverConfig) -> None:
         return
     if cfg.newton_impl in _NOT_PORTED:
         hint = ("; solve_stream runs it through the packed stream"
-                if cfg.newton_impl == "fused" else "")
+                if cfg.newton_impl in ("fused", "ddp") else "")
         raise ValueError(
             f"newton_impl={cfg.newton_impl!r} is not ported for the flat "
             f"lanes (ROADMAP.md, modules to port: "

@@ -1,18 +1,23 @@
 """The packed streaming executor (counterpart of
-``ipoc_tpu/solvers/packed_stream.py``, its two-launch arm).
+``ipoc_tpu/solvers/packed_stream.py``).
 
-The stream of ``solvers/stream.py`` with the lane state kept in the fused
+The stream of ``solvers/stream.py`` with the lane state kept in the
 kernels' layout across iterations, so no iteration relayouts it:
 
 * the layout is batch-last: stage arrays ``(T, rows, B)`` (the trajectory's
   stages 0..T-1 and the controls), terminal and initial states ``(nx, B)``,
   per-lane scalars ``(B,)``; one scenario per column, so a kernel's
   neighbouring threads read neighbouring addresses;
-* each lane iteration is three launches on a card (``ops/fused_iter.py``):
-  the fused backward and forward sweeps of one Newton trial, and the
-  stage-transition kernel, which runs on every lane every iteration (as in
-  JAX): which lanes roll over is never read on the host, so an iteration
-  has no host sync of its own;
+* the default executor is the mega kernel (``ops/mega.py``): each refill
+  round is one launch of ``refill_every`` lane iterations (trial, accept,
+  convergence tests, and the stage transition only for a lane that rolls
+  over), updating the lanes in place, and one host read of the steps it
+  ran;
+* the two-launch arm (``mega=False``) runs :func:`packed_lane_iter` per
+  iteration: the fused trial (two launches; DDP: the merged kernel's one)
+  and the stage-transition kernel, which runs on every lane every
+  iteration (as in JAX), so that which lanes roll over is never read on
+  the host;
 * the Levenberg scale ``||cu||_F`` is carried per lane (``cun``), summed in
   the kernels at the trial point and at the transition candidates, instead
   of a gradient pass per iteration;
@@ -20,13 +25,13 @@ kernels' layout across iterations, so no iteration relayouts it:
   ``refill_every`` iterations; opening and refilling lanes is one
   rollout-cost launch per round.
 
-Per-lane semantics are those of ``flat_lane_iter`` with the fused
+Per-lane semantics are those of ``flat_lane_iter`` with the fused or DDP
 evaluator; the one numerical difference is the summation order of
 ``||cu||_F``, which can flip an accept decision within rounding
 (converged solutions agree to solver tolerance).  On the CPU every kernel
 is its plain version.  The JAX package's TPU machinery is not ported: the
-sublane, VMEM, mega-kernel and merged-kernel gates and their environment
-switches.
+sublane and VMEM gates, the streamed mega kernel's dispatch and the
+environment switches (``mega=False`` replaces ``IPOC_MEGA_KERNEL=0``).
 """
 
 from __future__ import annotations
@@ -39,8 +44,11 @@ from ipoc_tpu_torch.config import SolverConfig
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops.fused_iter import (
     fused_newton_iter_packed,
+    fused_newton_iter_plain,
     rollout_cost_packed,
+    rollout_cost_plain,
     transition_packed,
+    transition_plain,
 )
 from ipoc_tpu_torch.problem import OCP
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
@@ -74,28 +82,45 @@ def packed_lane_init(ocp: OCP, u, x0, bp0, rp0,
     """
     xs, xT, cost, cunsq = rollout_cost_packed(ocp, u, x0, bp0)
     B = u.shape[-1]
-    zi = torch.zeros((B,), dtype=torch.int32, device=u.device)
+
+    def zi():
+        return torch.zeros((B,), dtype=torch.int32, device=u.device)
+
+    # Every field owns its storage (the mega kernel updates the lane in
+    # place): nothing aliases another field or the caller's tensors.
     return PackedLane(
-        x0=x0, xs=xs, xT=xT, u=u, u_prev=u, cun=torch.sqrt(cunsq), it=zi,
-        stage_it=zi, rp=rp0, r_inc=torch.full_like(rp0, cfg.reg_inc_init),
-        bp=bp0, bp0=bp0, done=~torch.isfinite(cost))
+        x0=x0.clone(), xs=xs, xT=xT, u=u.clone(), u_prev=u.clone(),
+        cun=torch.sqrt(cunsq), it=zi(), stage_it=zi(), rp=rp0.clone(),
+        r_inc=torch.full_like(rp0, cfg.reg_inc_init), bp=bp0.clone(),
+        bp0=bp0.clone(), done=~torch.isfinite(cost))
 
 
 def packed_lane_iter(ocp: OCP, lane: PackedLane, cfg: SolverConfig,
-                     adv) -> PackedLane:
-    """One Newton iteration and stage-transition step on packed lanes.
+                     adv, plain: bool = False) -> PackedLane:
+    """One Newton (or, with ``newton_impl="ddp"``, DDP) iteration and
+    stage-transition step on packed lanes.
 
     Per-lane semantics are ``flat_lane_iter``'s, with the Levenberg scale
     read from the lane's kernel-accumulated ``cun``.  ``adv (B,)`` masks
-    lanes: a lane with ``adv=False`` comes back unchanged.
+    lanes: a lane with ``adv=False`` comes back unchanged.  The evaluators
+    are the kernels on a card and their plain versions on the CPU;
+    ``plain`` takes the plain versions on a card too (the mega kernel's
+    plain version).  Out of place: the lane passed in is not modified.
     """
-    if cfg.scale_reg_by_grad:
+    ddp = cfg.newton_impl == "ddp"
+    if plain:
+        trial, transition, roll_cost = (fused_newton_iter_plain,
+                                        transition_plain, rollout_cost_plain)
+    else:
+        trial, transition, roll_cost = (fused_newton_iter_packed,
+                                        transition_packed, rollout_cost_packed)
+    if ddp or cfg.scale_reg_by_grad:
+        # DDP scales the Levenberg parameter by ||cu|| unconditionally.
         reg = lane.rp * torch.clamp(lane.cun, min=cfg.reg_scale_floor)
     else:
         reg = lane.rp
-    (tu, tx, txT, cost, nc, mc, pred, piv, hu, cun_t) = (
-        fused_newton_iter_packed(ocp, lane.xs, lane.xT, lane.u, lane.bp,
-                                 reg))
+    (tu, tx, txT, cost, nc, mc, pred, piv, hu, cun_t) = trial(
+        ocp, lane.xs, lane.xT, lane.u, lane.bp, reg, ddp=ddp)
     ok = torch.isfinite(piv) & (piv > 0) & torch.isfinite(pred)
     new_cost = torch.where(mc <= 0.0, nc, torch.full_like(nc, float("inf")))
 
@@ -128,7 +153,7 @@ def packed_lane_iter(ocp: OCP, lane: PackedLane, cfg: SolverConfig,
         # read of which lanes roll); a NaN/inf predicted cost loses every
         # comparison.  Only from the second transition on.
         u_pred = u + (1.0 / cfg.bp_decay) * (u - lane.u_prev)
-        xa, xb, xaT, xbT, ca, cb, cua, cub = transition_packed(
+        xa, xb, xaT, xbT, ca, cb, cua, cub = transition(
             ocp, u, u_pred, lane.x0, bp_next)
         take = roll & (lane.bp < lane.bp0) & (cb < ca)
         xs = torch.where(take, xb, torch.where(roll, xa, xs))
@@ -137,7 +162,7 @@ def packed_lane_iter(ocp: OCP, lane: PackedLane, cfg: SolverConfig,
         cun = torch.where(take, torch.sqrt(cub),
                           torch.where(roll, torch.sqrt(cua), cun))
     else:
-        xr, xrT, _, cur = rollout_cost_packed(ocp, u, lane.x0, bp_next)
+        xr, xrT, _, cur = roll_cost(ocp, u, lane.x0, bp_next)
         xs = torch.where(roll, xr, xs)
         xT = torch.where(roll, xrT, xT)
         cun = torch.where(roll, torch.sqrt(cur), cun)
@@ -172,28 +197,36 @@ def solve_stream_packed(
     bp_init=None,    # optional (N,) per-scenario barrier start
     rp_init=None,    # optional (N,) per-scenario initial LM damping
     warm_transfer: bool = False,
+    mega: bool = True,
 ):
     """The packed stream: ``solve_stream``'s scheduling and per-scenario
-    results with the fused evaluator.  Returns a ``StreamSolution``.
+    results with the fused (``newton_impl="fused"``) or DDP (``"ddp"``)
+    evaluator.  Returns a ``StreamSolution``.
 
-    Runs on the device of ``controls``: the four fused kernels on a card,
-    their plain versions on the CPU.  Requires ``newton_impl="fused"``,
-    ``globalization="single"`` and ``terminal_hessian="exact"``.
+    Each refill round is one :func:`ops.mega.mega_k_iterations` launch of
+    ``refill_every`` lane iterations, then one host read of the steps it
+    ran, then the capture and refill (JAX's mega executor).  ``mega=False``
+    takes the two-launch arm instead: up to ``refill_every`` calls of
+    :func:`packed_lane_iter`, with one host read per step for the loop
+    predicate (JAX's ``IPOC_MEGA_KERNEL=0``).  Runs on the device of
+    ``controls``: the kernels on a card, their plain versions on the CPU.
+    Requires ``globalization="single"`` and ``terminal_hessian="exact"``.
     """
+    from ipoc_tpu_torch.ops.mega import mega_k_iterations, mega_workspace
     from ipoc_tpu_torch.solvers.stream import StreamSolution
 
     if warm_transfer:
         raise NotImplementedError(
             "warm_transfer is not ported yet (ROADMAP.md, modules to port: "
             "'Warm transfer in the packed stream')")
-    if cfg.newton_impl != "fused":
-        raise ValueError("the packed stream runs newton_impl='fused' only; "
-                         f"got {cfg.newton_impl!r}")
+    if cfg.newton_impl not in ("fused", "ddp"):
+        raise ValueError("the packed stream runs newton_impl='fused' or "
+                         f"'ddp'; got {cfg.newton_impl!r}")
     if cfg.globalization != "single":
         raise ValueError("the packed stream requires globalization='single'")
     if cfg.terminal_hessian != "exact":
-        raise ValueError("newton_impl='fused' computes the terminal Hessian "
-                         "in-kernel and requires terminal_hessian='exact'")
+        raise ValueError("the fused evaluators compute the terminal Hessian "
+                         "in-kernel and require terminal_hessian='exact'")
     N, T, nu = controls.shape
     B = min(lanes, N)
     dtype, device = controls.dtype, controls.device
@@ -210,6 +243,8 @@ def solve_stream_packed(
                                 rp_init[rows].contiguous(), cfg)
 
     lane = open_lanes(torch.arange(B, device=device))
+    workspace = mega_workspace(lane) if mega else None
+    ddp = cfg.newton_impl == "ddp"
     sid = torch.arange(B, device=device)
     active = torch.ones((B,), dtype=torch.bool, device=device)
     out_u = torch.zeros((N, T, nu), dtype=dtype, device=device)
@@ -225,15 +260,21 @@ def solve_stream_packed(
     for _ in range(max_outer):
         if not bool(active.any()):
             break
-        # Inner loop: up to K Newton steps, exiting early once every live
-        # lane is finished (one host read per step, so that `steps` counts
-        # the JAX package's lockstep steps).
-        for _ in range(K):
-            adv = active & ~lane.done
-            if not bool(adv.any()):
-                break
-            lane = packed_lane_iter(ocp, lane, cfg, adv)
-            steps += 1
+        if mega:
+            # K iterations in one launch; each lane stops once it is done.
+            lane, dt = mega_k_iterations(ocp, lane, active, cfg, K, ddp,
+                                         workspace)
+            steps += int(dt)
+        else:
+            # Up to K iterations, exiting early once every live lane is
+            # finished (one host read per step, so that `steps` counts the
+            # JAX package's lockstep steps).
+            for _ in range(K):
+                adv = active & ~lane.done
+                if not bool(adv.any()):
+                    break
+                lane = packed_lane_iter(ocp, lane, cfg, adv)
+                steps += 1
 
         # 1. Capture finished scenarios: each finished lane to its own row.
         fin = (lane.done & active).nonzero().squeeze(1)

@@ -1,10 +1,13 @@
 """Streaming batched interior-point solves: refill converged lanes
-(counterpart of ``solve_stream`` in ``ipoc_tpu/solvers/stream.py``).
+(counterpart of ``solve_stream`` and ``solve_stream_multigrid`` in
+``ipoc_tpu/solvers/stream.py``).
 
-``newton_impl="fused"`` (``BATCH_CONFIG``, what the bench runs) goes to the
-packed stream, ``solvers/packed_stream.py``, as in the JAX package.  This
-module's own loop is the unpacked stream, which runs
-``newton_impl="seq"``.
+``newton_impl="fused"`` (``BATCH_CONFIG``, what the bench runs) and
+``"ddp"`` go to the packed stream, ``solvers/packed_stream.py``, as in the
+JAX package.  This module's own loop is the unpacked stream, which runs
+``newton_impl="seq"``.  :func:`solve_stream_multigrid`, the bench's default
+mode, runs two streams: a coarse grid, then the fine grid warm-started
+from it.
 
 A pool of N scenarios goes through B resident lanes in a two-level loop: an
 inner loop advances every live lane by up to ``refill_every`` flat-mode
@@ -58,15 +61,15 @@ def solve_stream(
     """Solve N scenarios with B = min(lanes, N) resident lanes, refilling.
 
     Runs on the device of ``controls``.  Requires
-    ``cfg.globalization == "single"``; ``newton_impl="fused"`` runs the
-    packed stream, ``"seq"`` the unpacked one (the lane functions raise on
-    any other evaluator).
+    ``cfg.globalization == "single"``; ``newton_impl="fused"`` and
+    ``"ddp"`` run the packed stream on its mega-kernel executor, ``"seq"``
+    the unpacked one (the lane functions raise on any other evaluator).
     """
     if cfg.globalization != "single":
         raise ValueError(
             "solve_stream requires globalization='single' "
             "(the retry loop is a lockstep barrier across lanes)")
-    if cfg.newton_impl == "fused":
+    if cfg.newton_impl in ("fused", "ddp"):
         from ipoc_tpu_torch.solvers.packed_stream import solve_stream_packed
 
         return solve_stream_packed(
@@ -75,7 +78,7 @@ def solve_stream(
             warm_transfer=warm_transfer)
     if warm_transfer:
         raise ValueError("warm_transfer requires the packed stream "
-                         "(newton_impl='fused')")
+                         "(newton_impl='fused' or 'ddp')")
     N, T, nu = controls.shape
     B = min(lanes, N)
     dtype, device = controls.dtype, controls.device
@@ -137,3 +140,92 @@ def solve_stream(
         active = active.index_fill(0, fin[n_take:], False)
 
     return StreamSolution(out_u, out_it, steps)
+
+
+class MultigridSolution(NamedTuple):
+    controls: torch.Tensor           # (N, T, nu) per-scenario solutions
+    iterations: torch.Tensor         # (N,) fine-level Newton iterations
+    iterations_coarse: torch.Tensor  # (N,) coarse-level Newton iterations
+    steps: int                       # fine-level lockstep steps
+    steps_coarse: int                # coarse-level lockstep steps
+
+
+def solve_stream_multigrid(
+    ocp: OCP,
+    ocp_coarse: OCP,
+    coarsen: int,
+    controls,        # (N, T, nu) per-scenario warm starts (T % coarsen == 0)
+    initial_states,  # (N, nx)
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    lanes: int = 2048,
+    refill_every: int = 16,
+    fine_bp_init: float = 0.02,
+    fine_reg_init: float = 1.0,
+    coarse_impl: str | None = None,
+    fine_impl: str | None = None,
+    coarse_solver=None,
+) -> MultigridSolution:
+    """Coarse-to-fine (multigrid-in-time) streaming solve.
+
+    Every scenario is solved first on a ``coarsen``-times coarser time grid
+    (``ocp_coarse``: the same continuous problem at ``coarsen * dt``) down
+    to the fine re-entry barrier ``fine_bp_init``; its controls, held over
+    ``coarsen`` fine stages (zero-order hold by repetition), warm-start the
+    fine grid, which re-enters the barrier schedule at ``fine_bp_init`` with
+    LM damping ``fine_reg_init``.  A scenario whose interpolated start is
+    unusable on the fine grid (a non-finite barrier cost at
+    ``fine_bp_init``, or non-finite controls; one rollout-cost launch on a
+    card) falls back to its own ``controls`` and the full schedule through
+    the per-scenario ``bp_init``/``rp_init``.
+
+    ``coarse_impl``/``fine_impl`` override the level's ``newton_impl``
+    (the bench runs ``coarse_impl="ddp"``); ``coarse_solver`` replaces the
+    coarse solve: ``(ocp_c, u_c, x0, cfg_c, lanes, refill_every) ->`` a
+    solution with ``controls``, ``iterations`` and ``steps`` (JAX's hook
+    also passes ``inner_unroll``, which the port does not have).  Semantics
+    are the JAX package's; on a nonconvex problem a small share of
+    scenarios lands in another local basin than the single-grid stream.
+    """
+    N, T, nu = controls.shape
+    if T % coarsen != 0:
+        raise ValueError(f"horizon {T} not divisible by coarsen={coarsen}")
+    from ipoc_tpu_torch.ops.fused_iter import rollout_cost_packed
+    from ipoc_tpu_torch.solvers.packed_stream import _pack
+
+    # The coarse level only needs to reach the fine re-entry bp.
+    coarse_bp_min = max(cfg.bp_min, fine_bp_init * (1.0 - 1e-6))
+    c_cfg = cfg.replace(bp_min=coarse_bp_min)
+    if coarse_impl is not None:
+        c_cfg = c_cfg.replace(newton_impl=coarse_impl)
+    f_cfg = cfg if fine_impl is None else cfg.replace(newton_impl=fine_impl)
+    u_coarse = controls[:, ::coarsen].contiguous()
+    if coarse_solver is None:
+        sol_c = solve_stream(ocp_coarse, u_coarse, initial_states, c_cfg,
+                             lanes=lanes, refill_every=refill_every)
+    else:
+        sol_c = coarse_solver(ocp_coarse, u_coarse, initial_states, c_cfg,
+                              lanes, refill_every)
+    u_warm = torch.repeat_interleave(sol_c.controls, coarsen, dim=1)
+
+    # The usable gate: a finite barrier cost at the re-entry bp (which
+    # subsumes strict feasibility and a fine-grid rollout that overflows)
+    # and finite controls.
+    dtype, device = controls.dtype, controls.device
+    u_p, x0_p = _pack(u_warm, initial_states)
+    fine_bp = torch.full((N,), fine_bp_init, dtype=dtype, device=device)
+    cost = rollout_cost_packed(ocp, u_p, x0_p, fine_bp)[2]
+    ok = torch.isfinite(cost) & torch.isfinite(u_warm).flatten(1).all(1)
+    u_start = torch.where(ok[:, None, None], u_warm, controls)
+    bp0 = torch.where(ok, fine_bp, torch.full_like(fine_bp, cfg.bp_init))
+    rp0 = torch.where(ok, torch.full_like(fine_bp, fine_reg_init),
+                      torch.full_like(fine_bp, cfg.reg_init))
+    sol_f = solve_stream(ocp, u_start, initial_states, f_cfg, lanes=lanes,
+                         refill_every=refill_every, bp_init=bp0,
+                         rp_init=rp0)
+    return MultigridSolution(
+        controls=sol_f.controls,
+        iterations=sol_f.iterations,
+        iterations_coarse=sol_c.iterations,
+        steps=sol_f.steps,
+        steps_coarse=sol_c.steps,
+    )

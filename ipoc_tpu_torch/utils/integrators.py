@@ -37,3 +37,24 @@ def rollout(dynamics: Callable, controls, initial_state):
         x = dynamics(x, controls[..., t, :])
         states.append(x)
     return torch.stack(states, dim=-2)
+
+
+def closed_loop_rollout(dynamics: Callable, gain, ffgain, nominal_states,
+                        nominal_controls):
+    """Nonlinear closed-loop rollout ``u = u_nom + k + K (x - x_nom)``
+    through the true dynamics.
+
+    ``gain (..., T, nu, nx)``, ``ffgain (..., T, nu)``, the nominal
+    ``(..., T+1, nx)`` states and ``(..., T, nu)`` controls; returns the
+    ``(..., T+1, nx)`` states and ``(..., T, nu)`` controls, starting from
+    the nominal initial state."""
+    x_hat = nominal_states[..., 0, :]
+    states, controls = [x_hat], []
+    for t in range(nominal_controls.shape[-2]):
+        dx = x_hat - nominal_states[..., t, :]
+        u_hat = (nominal_controls[..., t, :] + ffgain[..., t, :]
+                 + (gain[..., t, :, :] @ dx.unsqueeze(-1)).squeeze(-1))
+        x_hat = dynamics(x_hat, u_hat)
+        states.append(x_hat)
+        controls.append(u_hat)
+    return torch.stack(states, dim=-2), torch.stack(controls, dim=-2)

@@ -16,7 +16,12 @@ the JAX suite's kernel-vs-scan tolerances, atol 2e-5 * scale, pred rtol
 float64 and within 1e-4 of its scale in float32 (the generated stage code
 runs the same float32 program in another operation order, with FMA
 contraction, and the backward sweep carries rounding through T Riccati
-steps), equal NaN and inf entries, ok flags equal.
+steps), equal NaN and inf entries, ok flags equal; the merged trial
+(``merged_trial``, Newton and DDP modes) likewise.  The mega kernel
+(``ops/mega.py``) against its plain version in float64: on all lanes but
+at most one (an accept decision may flip within rounding), equal
+iteration counts, stage iterations and done flags and every float field
+within 1e-10 of its scale; inactive lanes untouched; equal ``steps``.
 """
 
 import numpy as np
@@ -27,6 +32,7 @@ from ipoc_tpu_torch import BATCH_CONFIG, solve_stream
 from ipoc_tpu_torch.models import cartpole, pendulum
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
+from ipoc_tpu_torch.ops import mega
 from ipoc_tpu_torch.ops.cuda.seq_newton import (
     seq_costates_batched,
     seq_costates_plain,
@@ -39,6 +45,7 @@ from ipoc_tpu_torch.ops.derivatives import (
     final_gradient,
     final_hessian,
 )
+from ipoc_tpu_torch.solvers import packed_stream as ps
 from ipoc_tpu_torch.solvers.ip_newton import _regularized
 from ipoc_tpu_torch.utils.integrators import rollout
 
@@ -243,8 +250,8 @@ def test_fused_wrappers_raise_on_what_no_kernel_takes(card):
 
 
 def test_fused_stream_on_card_matches_cpu(card):
-    """A small float64 pendulum packed stream on the card (four kernels)
-    against the CPU (plain versions): the Newton and transition kernels
+    """A small float64 pendulum packed stream, two-launch arm, on the card
+    (four kernels) against the CPU (plain versions): the Newton and transition kernels
     launch once per step, and converged raw costs agree to rtol 1e-8 (an
     accept decision may flip within rounding)."""
     cfg = BATCH_CONFIG.replace(bp_min=4.1e-3)
@@ -255,8 +262,8 @@ def test_fused_stream_on_card_matches_cpu(card):
     u0 = torch.tensor(0.1 * rng.normal(size=(8, T, 1)))
     x0b = torch.tensor(x0 + 0.01 * rng.normal(size=(8, 2)))
     cuda.reset_launches()
-    got = solve_stream(ocp, u0.to(card), x0b.to(card), cfg, lanes=3,
-                       refill_every=5)
+    got = ps.solve_stream_packed(ocp, u0.to(card), x0b.to(card), cfg,
+                                 lanes=3, refill_every=5, mega=False)
     for k in ("fused_bwd", "fused_fwd", "transition"):
         assert cuda.launches[k] == got.steps, k
     assert 1 <= cuda.launches["rollout_cost"] <= got.steps
@@ -270,3 +277,116 @@ def test_fused_stream_on_card_matches_cpu(card):
 
     np.testing.assert_allclose(raw(got.controls.cpu()).numpy(),
                                raw(ref.controls).numpy(), rtol=1e-8)
+
+
+@pytest.mark.parametrize("ddp", [False, True], ids=["newton", "ddp"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", [cartpole, pendulum],
+                         ids=["cartpole", "pendulum"])
+def test_merged_trial_matches_plain(card, model, dtype, ddp):
+    """The merged one-launch trial against the plain fused trial of its
+    mode, B=64, T=40; the DDP wrapper launches it."""
+    B, T = 64, 40
+    tol = FUSED_TOL[dtype]
+    ocp, u, _, x0 = _lanes(model, B, T, 7, dtype, card)
+    bp = torch.full((B,), 0.05, dtype=dtype, device=card)
+    xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0, bp)
+    reg = 100.0 * torch.sqrt(cunsq)
+    cuda.reset_launches()
+    got = (tf.fused_newton_iter_packed(ocp, xs, xT, u, bp, reg, ddp=True)
+           if ddp else tf.merged_trial_launch(ocp, xs, xT, u, bp, reg))
+    ref = tf.fused_newton_iter_plain(ocp, xs, xT, u, bp, reg, ddp=ddp)
+    for g, r in zip(got, ref):
+        _close(g, r, tol)
+    ok = [torch.isfinite(o[7]) & (o[7] > 0) & torch.isfinite(o[6])
+          for o in (got, ref)]
+    assert torch.equal(ok[0], ok[1]) and bool(ok[1].all())
+    torch.cuda.synchronize()
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                 merged_trial=1)
+
+
+def _agreeing_lanes(got, ref, tol):
+    """Lanes on which two PackedLanes agree: equal integer and bool fields,
+    float fields within ``tol`` of each field's scale."""
+    agree = torch.ones_like(got.done)
+    for a, b in zip(got, ref):
+        if a.is_floating_point():
+            scale = float(b[torch.isfinite(b)].abs().max()) + 1e-30
+            close = ((a - b).abs() <= tol * scale) | (a == b)
+            agree &= close.reshape(-1, close.shape[-1]).all(0)
+        else:
+            agree &= (a == b).reshape(-1, a.shape[-1]).all(0)
+    return agree
+
+
+@pytest.mark.parametrize("ddp", [False, True], ids=["newton", "ddp"])
+@pytest.mark.parametrize("model", [cartpole, pendulum],
+                         ids=["cartpole", "pendulum"])
+def test_mega_kernel_matches_plain(card, model, ddp):
+    """k=4 then k=32 lane iterations in one launch each, float64, B=64,
+    T=40, two iterations per barrier stage so that lanes roll over; every
+    third lane inactive."""
+    B, T = 64, 40
+    cfg = BATCH_CONFIG.replace(max_newton_iters=2,
+                               newton_impl="ddp" if ddp else "fused")
+    ocp, u, _, x0 = _lanes(model, B, T, 8, torch.float64, card)
+    bp0 = torch.full((B,), cfg.bp_init, dtype=torch.float64, device=card)
+    lane = ps.packed_lane_init(ocp, u, x0, bp0,
+                               torch.full_like(bp0, cfg.reg_init), cfg)
+    active = torch.arange(B, device=card) % 3 != 0
+    ref = lane
+    for k in (4, 32):
+        before = mega.clone_lane(lane)
+        ref, ref_steps = mega.mega_k_iterations_plain(ocp, ref, active, cfg,
+                                                      k, ddp)
+        cuda.reset_launches()
+        lane, steps = mega.mega_k_iterations(ocp, lane, active, cfg, k, ddp)
+        torch.cuda.synchronize()
+        assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0), mega=1)
+        assert int(steps) == int(ref_steps)
+        for name, a, b in zip(ps.PackedLane._fields, lane, before):
+            assert torch.equal(a[..., ~active], b[..., ~active]), name
+        assert int(_agreeing_lanes(lane, ref, 1e-10).sum()) >= B - 1
+    assert bool((lane.bp[active] < cfg.bp_init).all())
+
+
+@pytest.mark.parametrize("impl", ["fused", "ddp"])
+def test_mega_stream_on_card_matches_cpu(card, impl):
+    """A small float64 pendulum packed stream on its mega executor, on the
+    card against the CPU: one mega launch per refill round and no
+    per-iteration kernel; converged raw costs agree to rtol 1e-8."""
+    cfg = BATCH_CONFIG.replace(bp_min=4.1e-3, newton_impl=impl)
+    T = 20
+    ocp = pendulum.make_ocp(1.0 / T)
+    rng = np.random.default_rng(4)
+    x0 = pendulum.initial_state(torch.float64).numpy()
+    u0 = torch.tensor(0.1 * rng.normal(size=(8, T, 1)))
+    x0b = torch.tensor(x0 + 0.01 * rng.normal(size=(8, 2)))
+    cuda.reset_launches()
+    got = solve_stream(ocp, u0.to(card), x0b.to(card), cfg, lanes=3,
+                       refill_every=5)
+    n = cuda.launches["mega"]
+    assert 1 <= n <= got.steps
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0), mega=n,
+                                 rollout_cost=cuda.launches["rollout_cost"])
+    ref = solve_stream(ocp, u0, x0b, cfg, lanes=3, refill_every=5)
+    assert int((got.iterations.cpu() != ref.iterations).sum()) <= 1
+
+    def raw(u):
+        return ocp.total_cost(rollout(ocp.dynamics, u, x0b), u,
+                              torch.tensor(1e-9, dtype=torch.float64))
+
+    np.testing.assert_allclose(raw(got.controls.cpu()).numpy(),
+                               raw(ref.controls).numpy(), rtol=1e-8)
+
+
+def test_mega_raises_on_aliased_lane(card):
+    cfg = BATCH_CONFIG
+    ocp, u, _, x0 = _lanes(pendulum, 8, 5, 9, torch.float64, card)
+    bp0 = torch.full((8,), cfg.bp_init, dtype=torch.float64, device=card)
+    lane = ps.packed_lane_init(ocp, u, x0, bp0, bp0.clone(), cfg)
+    with pytest.raises(ValueError, match="share"):
+        mega.mega_k_iterations(ocp, lane._replace(u_prev=lane.u),
+                               torch.ones(8, dtype=torch.bool, device=card),
+                               cfg, 2)

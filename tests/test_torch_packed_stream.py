@@ -154,17 +154,53 @@ def test_fused_config_takes_the_packed_stream(monkeypatch):
     assert calls == ["fused"] and sol.iterations.shape == (2,)
 
 
-def test_ddp_and_warm_transfer_raise():
+def test_ddp_and_warm_transfer_raise(monkeypatch):
+    """newton_impl='ddp' reaches the packed stream; warm_transfer still
+    raises, and the packed stream refuses 'seq'."""
     tocp = t_pendulum.make_ocp(0.1)
     u = torch.zeros((2, 10, 1), dtype=torch.float64)
     x = torch.zeros((2, 2), dtype=torch.float64)
     cfg = config_from_jax(CFG)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        solve_stream(tocp, u, x, cfg.replace(newton_impl="ddp"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_stream(tocp, u, x, cfg, warm_transfer=True)
     with pytest.raises(ValueError, match="fused"):
         ps.solve_stream_packed(tocp, u, x, cfg.replace(newton_impl="seq"))
+    calls = []
+    real = ps.solve_stream_packed
+
+    def spy(*args, **kwargs):
+        calls.append(args[3].newton_impl)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ps, "solve_stream_packed", spy)
+    u0, x0b = _pool(j_pendulum, 2, 4, seed=1)
+    sol = solve_stream(t_pendulum.make_ocp(0.25), *pool_from_numpy(u0, x0b),
+                       cfg.replace(newton_impl="ddp", bp_min=0.05), lanes=2)
+    assert calls == ["ddp"] and sol.iterations.shape == (2,)
+    assert bool((sol.iterations > 0).all())
+
+
+def test_packed_lane_fields_own_their_storage():
+    """packed_lane_init gives every field its own storage (the mega kernel
+    writes u, u_prev, it and stage_it in place): an in-place write to one
+    field leaves every other field and the caller's tensors as they were."""
+    tocp = t_pendulum.make_ocp(0.25)
+    u0, x0b = _pool(j_pendulum, 3, 4, seed=2)
+    u, x0 = ps._pack(*pool_from_numpy(u0, x0b))
+    bp0 = torch.full((3,), 0.1, dtype=torch.float64)
+    rp0 = torch.ones(3, dtype=torch.float64)
+    args = (u, x0, bp0, rp0)
+    before = [a.clone() for a in args]
+    lane = ps.packed_lane_init(tocp, *args, config_from_jax(CFG))
+    for name in ps.PackedLane._fields:
+        snapshot = [t.clone() for t in lane]
+        field = getattr(lane, name)
+        field.logical_not_() if field.dtype == torch.bool else field.add_(1)
+        for other, a, b in zip(ps.PackedLane._fields, lane, snapshot):
+            if other != name:
+                assert torch.equal(a, b), f"{name} aliases {other}"
+        for a, b in zip(args, before):
+            assert torch.equal(a, b), f"{name} aliases an input"
 
 
 @pytest.mark.parametrize("model", list(MODELS))

@@ -167,15 +167,15 @@ def test_transition_runs_only_on_rolling_lanes(monkeypatch):
 @pytest.mark.parametrize("impl", ["par", "fused", "ddp"])
 def test_other_evaluators_raise(impl):
     """The flat lanes run newton_impl='seq' only; the others name their
-    ROADMAP item instead of being substituted.  ('fused' runs through the
-    packed stream, tests/test_torch_packed_stream.py; its unpacked lane
-    evaluator is not ported.)"""
+    ROADMAP item instead of being substituted.  ('fused' and 'ddp' run
+    through the packed stream, tests/test_torch_packed_stream.py; their
+    unpacked lane evaluators are not ported.)"""
     tocp = t_pendulum.make_ocp(0.1)
     u = torch.zeros((2, 10, 1), dtype=torch.float64)
     x = torch.zeros((2, 2), dtype=torch.float64)
     cfg = T_CFG.replace(newton_impl=impl)
     with pytest.raises(ValueError, match="ROADMAP"):
-        if impl == "fused":
+        if impl in ("fused", "ddp"):
             ip_newton.flat_lane_init(tocp, u, x, cfg)
         else:
             solve_stream(tocp, u, x, cfg)
