@@ -6,13 +6,13 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``ipoc_tpu_torch/csrc`` (the seq
-library and one fused library per model and time step, generated from the
-model and compiled by parallel ``nvcc`` calls) and then runs its phases,
+and parallel-in-time libraries and one fused library per model and time
+step, generated from the model; parallel ``nvcc`` calls) and then runs its phases,
 each printing one JSON line:
 
   0. the device: its name, power limit, the kernels' build time, and the
-     registers and spills ``ptxas`` reports for the mega kernel and the
-     merged trial;
+     registers and spills ``ptxas`` reports for the mega kernel, the
+     merged trial and the three parallel-in-time kernels;
   A. each kernel against its plain PyTorch version on the card, on stage
      data taken from the real slice (cartpole, T=100, B=4096), in float32
      and float64, on random nx=3, nu=2 data, and on an indefinite R that
@@ -53,15 +53,33 @@ each printing one JSON line:
      share, the basin-switch fraction against H's solutions; then the
      coarse level again on the two-launch arm (the merged trial's path);
   J. ``solve_stream_multigrid`` on 256 cartpole scenarios in float64: the
-     card against the CPU.
+     card against the CPU;
+  K. the parallel-in-time kernels (the affine scan in both directions, the
+     value scan, the one-launch trial) against their plain versions on
+     cartpole stage data at T=100 and T=1000, B=1 and B=1024, and on
+     random nx=3, nu=2 data at T=129, float64 (1e-10 of scale) then
+     float32 (1e-4); an indefinite R on one lane; the trial against the
+     public LQT passes on the scan kernels, whose launches are counted
+     there; then each kernel's time beside its plain version's;
+  L. ``par_interior_point_optimal_control``: the goldens (pendulum and
+     cartpole H=100, float64) against tests/golden/*.npz and the CPU run,
+     the seq solve beside them; cartpole H=1000 under FAST_CONFIG in
+     float32 and float64 with iterations, trials, wall time (median of 5),
+     host reads and launches per solve, and the busy share over the first
+     barrier stage;
+  M. ``solve_batch(method="par")`` on the pool's first 1024 scenarios in
+     float32 under FAST_CONFIG (the busy share over its first 11 lockstep
+     iterations); then 256 scenarios in float64, the card against the
+     CPU.
 
-Phases B, E and J run last: their CPU halves run meanwhile, in one child
-process each, started at the beginning.  A failed check fails its phase;
-the other phases still run, and any failure exits non-zero.  The
-line before the last holds the kernels' record; the last line is
-``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of A-J
-(default: all; phase 0, the device and the build, always runs).  Without a card, or outside a checkout of the repository, the script
-exits non-zero and prints no result.
+Phases B, E, J and the second half of M run last: their CPU halves (and
+L's CPU golden solves) run meanwhile, in one child process each, started
+at the beginning.  A failed check fails its phase; the other phases still
+run, and any failure exits non-zero.  The line before the last holds the
+kernels' record; the last line is ``{"ok": true, "device": {...}}``.
+``--phases`` runs a subset of A-M (default: all; phase 0, the device and
+the build, always runs).  Without a card, or outside a checkout of the
+repository, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -89,6 +107,16 @@ COARSEN = 4  # the multigrid's coarse level: T=25 at 4 x the time step
 # in another operation order (and the kernel contracts products into FMAs),
 # and the backward sweep carries rounding through T=100 Riccati steps.
 F32_TOL = 1e-4
+# The card's peaks for a kernel's bound (NVIDIA's data sheet for the H100
+# SXM at 700 W): device memory, and float32 outside
+# the tensor cores (an FMA counts two operations).  Every timed launch below
+# runs in float32.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# The parallel-in-time slice: the goldens' horizon and the reference
+# sweep's longest (H * dt = 1 s), and the batch of phase M.
+PAR_HORIZONS = (T, 1000)
+PAR_BATCH = 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,7 +135,112 @@ def check(cond, msg):
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and append it to build/chip_smoke.jsonl, so that
+    the whole record survives where only the end of the standard output is
+    kept."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke.jsonl"), "a") as f:
+        f.write(line + "\n")
+
+
+def nbytes(*objs):
+    """Bytes of the tensors in ``objs`` (nested tuples and lists too)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif hasattr(o, "element_size"):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def bound(bytes_moved, ops, library_ms=None):
+    """A kernel's bound: the larger of its bytes (each input read once,
+    each output written once) over the card's memory rate and its float32
+    operations over the card's peak; ``library_ms`` is the time of one
+    PyTorch call computing the same function, where there is one (none of
+    this port's kernels has one)."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(bytes_moved), "ops": int(ops),
+            "library_ms": library_ms}
+
+
+# Operation counts (a multiply-add counts two) of the kernels' arithmetic,
+# from the shapes, term by term as the kernels compute it.
+
+def mm_ops(n, k, m):
+    return n * m * (2 * k - 1)
+
+
+def solve_ops(n, m):
+    """An unpivoted elimination of an n x n system against m columns."""
+    ops = 0
+    for k in range(n):
+        ops += 1 + (n - k - 1) + m + 2 * (n - k - 1) * ((n - k - 1) + m)
+    return ops + sum(2 * (n - 1 - i) * m for i in range(n - 1))
+
+
+def affine_combine_ops(n):
+    return mm_ops(n, n, n) + mm_ops(n, n, 1) + n
+
+
+def fold_ops(n):
+    """The eta and J halves of a value combine (the terminal fold)."""
+    return (mm_ops(n, n, n) + n + mm_ops(n, n, 1) + n + solve_ops(n, n + 1)
+            + mm_ops(n, n, 1) + n + 2 * mm_ops(n, n, n) + n * n)
+
+
+def value_combine_ops(n):
+    return (fold_ops(n) + mm_ops(n, n, n) + n + mm_ops(n, n, 1) + n
+            + solve_ops(n, 2 * n + 1) + mm_ops(n, n, n) + mm_ops(n, n, 1) + n
+            + 2 * mm_ops(n, n, n) + n * n)
+
+
+def par_trial_ops(B, T, nx, nu):
+    """The one-launch trial: per stage the reference trick and element,
+    the fold, the gains, the closed-loop element and the state step; T-1
+    value and affine combines."""
+    element = (solve_ops(nx, nu) + mm_ops(nu, nx, nu) + nu * nu
+               + solve_ops(nu, 1) + mm_ops(nx, nu, 1) + solve_ops(nu, nu)
+               + mm_ops(nu, nu, nx) + 2 * (mm_ops(nx, nu, nx) + nx * nx)
+               + mm_ops(nx, nu, nu) + mm_ops(nu, nx, 1) + nu
+               + mm_ops(nx, nu, 1) + mm_ops(nx, nx, 1) + mm_ops(nx, nu, nx))
+    gains = (2 * mm_ops(nx, nx, nu) + mm_ops(nu, nx, nu) + nu * nu + nx * nu
+             + mm_ops(nu, nu, 1) + 2 * mm_ops(nu, nx, 1) + 3 * nu
+             + solve_ops(nu, 1 + nx) + 2 * mm_ops(nu, nu, 1) + 4 * nu + 2)
+    closed = mm_ops(nx, nu, nx) + nx * nx + mm_ops(nx, nu, 1)
+    step = mm_ops(nu, nx, 1) + nu + mm_ops(nx, nx, 1) + nx
+    per_stage = element + fold_ops(nx) + gains + closed + step
+    return B * (T * per_stage + (T - 1) * (value_combine_ops(nx)
+                                           + affine_combine_ops(nx)))
+
+
+def riccati_ops(nx, nu):
+    """riccati.cuh's backward step (Newton mode) and the forward step of the
+    sequential trial, per stage."""
+    bwd = (mm_ops(nx, nx, nx) + mm_ops(nx, nx, nu)
+           + nx * (nx + 1) // 2 * 2 * nx + nu * (nu + 1) // 2 * 2 * nx
+           + nx * nu * 2 * nx + mm_ops(nx, nx, 1) + nu * 2 * nx
+           + solve_ops(nu, 1 + nx) + solve_ops(nu, 0) + nu * (1 + nx)
+           + nx * 2 * nu + nx * (nx + 1) // 2 * 2 * nu + 4 * nu
+           + mm_ops(nu, nu, 1) + 2)
+    fwd = nu * 2 * nx + nx * (2 * nx + 2 * nu)
+    return bwd + fwd
+
+
+def program_ops(ocp, nx, nu):
+    """Operations per call of each generated stage program (the scalar
+    DAG's non-input nodes)."""
+    from ipoc_tpu_torch.ops import fused_iter
+
+    return {name: sum(1 for nd in prog.order if nd.op != "input")
+            for name, prog in fused_iter.scalar_programs(ocp, nx, nu).items()}
 
 
 def cuda_ms(fn, reps):
@@ -242,7 +375,7 @@ def phase_device():
     power = smi.stdout.strip().splitlines()[0]
     print(power, flush=True)
     t0 = time.perf_counter()
-    specs = [cuda.SEQ_NEWTON,
+    specs = [cuda.SEQ_NEWTON, cuda.PAR_NEWTON,
              fused_iter.model_spec(model_ocp("cartpole"), 4, 1),
              fused_iter.model_spec(model_ocp("cartpole", COARSEN), 4, 1),
              fused_iter.model_spec(model_ocp("pendulum"), 2, 1)]
@@ -250,12 +383,14 @@ def phase_device():
     paths = cuda.build_all(specs)
     build_s = time.perf_counter() - t0
     cuda.library()
+    cuda.library(cuda.PAR_NEWTON)
     cuda.disable_tf32()
     emit({"phase": "0", "device": name, "nvidia_smi": power,
           "count": torch.cuda.device_count(), "codegen_s": codegen_s,
           "kernel_build_s": build_s,
           "libraries": [str(p.relative_to(p.parents[3])) for p in paths],
-          "ptxas_cartpole": ptxas_report(paths[1]),
+          "ptxas_cartpole": ptxas_report(paths[2]),
+          "ptxas_par_newton": par_ptxas_report(paths[1]),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return name, power
 
@@ -282,6 +417,33 @@ def ptxas_report(lib):
                     "spill_store_bytes": int(frame.group(2)) if frame else None,
                     "spill_load_bytes": int(frame.group(3)) if frame else None}
     check(len(out) == 8, f"ptxas report incomplete: {sorted(out)}")
+    return out
+
+
+def par_ptxas_report(lib):
+    """Registers and spill bytes of each instantiation of the three
+    parallel-in-time kernels (``csrc/par_newton.cu``), keyed by kernel,
+    dtype and template shape."""
+    text = lib.with_suffix(".ptxas.txt").read_text()
+    out = {}
+    for block in re.split(r"Compiling entry function '", text)[1:]:
+        m = re.search(r"(affine_scan_kernel|value_scan_kernel|"
+                      r"par_newton_trial_kernel)I([fd])((?:L[ib]\d+E)*)E",
+                      block.split("'")[0])
+        if m is None:
+            continue
+        shape = "_".join(re.findall(r"L[ib](\d+)E", m.group(3)))
+        key = (f"{m.group(1).replace('_kernel', '')}_"
+               f"{'float32' if m.group(2) == 'f' else 'float64'}_{shape}")
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        out[key] = {"registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(frame.group(2)) if frame
+                    else None,
+                    "spill_load_bytes": int(frame.group(3)) if frame
+                    else None}
+    check(len(out) == 24, f"par_newton ptxas report incomplete: {sorted(out)}")
     return out
 
 
@@ -321,16 +483,21 @@ def phase_kernels(pool, dev):
         out[f"random_nx3_{tag}_costates"] = compare_costates(
             costate32, ltol, f"random nx=3 {tag} costates")
         if dtype == torch.float32:
+            B, T_, nx, nu = trial[5].shape
             record["seq_newton_trial"] = {
                 "max_abs_err": out[f"cartpole_{tag}_trial"]["max_abs_err"],
                 "ms": cuda_ms(lambda: seq_newton_trial_batched(*trial), 20),
                 "plain_ms": cuda_ms(lambda: seq_newton_trial_plain(*trial),
                                     5),
+                **bound(nbytes(trial, seq_newton_trial_batched(*trial)),
+                        B * T_ * riccati_ops(nx, nu)),
             }
             record["seq_costates"] = {
                 "max_abs_err": out[f"cartpole_{tag}_costates"]["max_abs_err"],
                 "ms": cuda_ms(lambda: seq_costates_batched(*costate), 20),
                 "plain_ms": cuda_ms(lambda: seq_costates_plain(*costate), 5),
+                **bound(nbytes(costate, seq_costates_batched(*costate)),
+                        B * T_ * 2 * nx * nx),
             }
     out["timing"] = {k: {"ms": v["ms"], "plain_ms": v["plain_ms"]}
                      for k, v in record.items()}
@@ -343,16 +510,27 @@ def phase_kernels(pool, dev):
 CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
                "E": "BATCH_CONFIG",
                "J": "solve_stream_multigrid(coarsen=4, coarse_impl='ddp'), "
-                    "BATCH_CONFIG"}
+                    "BATCH_CONFIG",
+               "M": "solve_batch(method='par'), FAST_CONFIG"}
 
 
 def card_vs_cpu_solve(phase, u, x0):
-    """The solve that phase B, E or J runs on both sides: 256 scenarios
-    through 64 lanes.  Returns ``(controls, iterations, steps, extra)``,
-    ``extra`` the coarse level's iterations and steps for J."""
-    from ipoc_tpu_torch import BATCH_CONFIG, solve_stream, solve_stream_multigrid
+    """The solve that phase B, E, J or M runs on both sides: 256 scenarios
+    (through 64 lanes for the streams; in one lockstep batch for M).
+    Returns ``(controls, iterations, steps, extra)``, ``extra`` the coarse
+    level's iterations and steps for J."""
+    from ipoc_tpu_torch import (
+        BATCH_CONFIG,
+        FAST_CONFIG,
+        solve_batch,
+        solve_stream,
+        solve_stream_multigrid,
+    )
 
     ocp = model_ocp("cartpole")
+    if phase == "M":
+        sol = solve_batch(ocp, u, x0, FAST_CONFIG, method="par")
+        return sol.controls, sol.iterations.cpu(), None, {}
     if phase == "J":
         sol = solve_stream_multigrid(
             ocp, model_ocp("cartpole", COARSEN), COARSEN, u, x0,
@@ -367,16 +545,21 @@ def card_vs_cpu_solve(phase, u, x0):
 
 
 def cpu_reference_solve(phase):
-    """The CPU half of phase B, E or J: the solve with the plain versions
-    on the 256 float64 scenarios.  Runs in a child process
-    (``--cpu-reference B|E|J``, one thread) while the card works through
+    """The CPU half of phase B, E, J or M: the solve with the plain
+    versions on the 256 float64 scenarios.  Runs in a child process
+    (``--cpu-reference B|E|J|M``, one thread) while the card works through
     the other phases; returns ``(controls, iterations, steps, extra,
-    wall_s)``."""
+    wall_s)``.  For L, the goldens' parallel solves
+    (:func:`golden_par_cpu`)."""
     import torch
 
     from ipoc_tpu_torch.models import cartpole
 
-    torch.set_num_threads(1)
+    # M's lockstep batch does larger tensor ops than the streams' 64
+    # lanes; a few threads keep its CPU half off the script's critical path.
+    torch.set_num_threads(4 if phase == "M" else 1)
+    if phase == "L":
+        return golden_par_cpu()
     u, x0 = (a[:256].double() for a in make_pool(cartpole, POOL,
                                                   torch.float32))
     t0 = time.perf_counter()
@@ -385,9 +568,9 @@ def cpu_reference_solve(phase):
 
 
 def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
-    """Phases B (seq stream), E (packed stream) and J (multigrid): 256
-    float64 scenarios through 64 lanes, the card (kernels) against the CPU
-    (plain versions, ``cpu_ref``)."""
+    """Phases B (seq stream), E (packed stream), J (multigrid) and the
+    second half of M (solve_batch): 256 float64 scenarios, the card
+    (kernels) against the CPU (plain versions, ``cpu_ref``)."""
     ocp = model_ocp("cartpole")
     u, x0 = (a[:256] for a in pool64)
     t0 = time.perf_counter()
@@ -405,7 +588,7 @@ def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
     c_card = raw_costs(ocp, u_card[odd], x0[odd])
     c_cpu = raw_costs(ocp, u_cpu[odd], x0[odd])
     emit({"phase": phase, "config": CARD_VS_CPU[phase], "scenarios": 256,
-          "lanes": 64, "dtype": "float64",
+          "lanes": 256 if phase == "M" else 64, "dtype": "float64",
           "lanes_with_different_iterations": n_diff,
           "max_abs_du_on_equal_lanes": du,
           "equal_lanes_with_du_above": {
@@ -775,6 +958,26 @@ def phase_fused_kernels(pool32, dev):
     f32 = [out[f"cartpole_float32_bp{bp}"] for bp in (0.1, 0.004)]
     for k in tf.KERNELS:
         record[k]["max_abs_err"] = max(o[k]["max_abs_err"] for o in f32)
+    # Bounds at the timed shapes: bytes of each launch's inputs and outputs,
+    # operations of its generated stage programs and Riccati steps.
+    T_, nx, B = xs.shape
+    ops = program_ops(cp, nx, 1)
+    bwd_out = tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)
+    ios = {
+        "fused_bwd": ((xs, xT, u, bpt, reg), bwd_out,
+                      T_ * (ops["stage_bwd"] + riccati_ops(nx, 1))
+                      + ops["term"]),
+        "fused_fwd": ((xs, xT, u, bpt, Kk),
+                      tf.fused_fwd_launch(cp, xs, xT, u, bpt, Kk),
+                      T_ * ops["stage_fwd"] + ops["term_fwd"]),
+        "rollout_cost": ((u, x0, bpt), tf.rollout_cost_packed(cp, u, x0, bpt),
+                         T_ * ops["roll_cost"] + ops["final_cost"]),
+        "transition": ((u, up, x0, bpt),
+                       tf.transition_packed(cp, u, up, x0, bpt),
+                       T_ * ops["transition"] + 2 * ops["final_cost"]),
+    }
+    for k, (ins, outs, per_lane) in ios.items():
+        record[k].update(bound(nbytes(ins, outs), B * per_lane))
     out["timing"] = record
     out["timing_shape"] = (f"B={LANES}, T={T}, float32, CUDA events "
                            "around back-to-back calls; the plain time of "
@@ -1076,16 +1279,45 @@ def phase_mega_kernels(pool32, dev):
     emit(out)
     check(not problems, "; ".join(problems))
     f32 = [out[f"{lv}_float32_bp{bp}"] for lv in LEVELS for bp in (0.1, 0.004)]
+    # Bounds at the timed shapes: the merged trial in DDP mode at T=25; the
+    # mega kernel over the lane iterations its k=32 launch actually ran
+    # (lanes that finish stop working), each a Newton trial.
+    ocp, u, x0 = level_inputs(pool32, "ddp", torch.float32, dev)
+    cfg = BATCH_CONFIG.replace(newton_impl="ddp")
+    lane0 = open_packed(ocp, u, x0, cfg, 0.1)
+    reg = 100.0 * torch.clamp(lane0.cun, min=1e-6)
+    args = (lane0.xs, lane0.xT, lane0.u, lane0.bp, reg)
+    T_, nx, B = lane0.xs.shape
+    ops = program_ops(ocp, nx, 1)
+    merged_bound = bound(
+        nbytes(args, tf.merged_trial_launch(ocp, *args, ddp=True)),
+        B * (T_ * (ops["stage_bwd"] + riccati_ops(nx, 1)
+                   + ops["stage_ddp_fwd"]) + ops["term"]
+             + ops["term_ddp_fwd"]))
+    ocp, u, x0 = level_inputs(pool32, "newton", torch.float32, dev)
+    cfg = BATCH_CONFIG
+    lane0 = open_packed(ocp, u, x0, cfg, 0.1)
+    got, _ = mega.mega_k_iterations(ocp, mega.clone_lane(lane0),
+                                    torch.ones_like(lane0.done), cfg, REFILL,
+                                    False)
+    lane_iters = int((got.it - lane0.it).sum())
+    T_, nx, B = lane0.xs.shape
+    ops = program_ops(ocp, nx, 1)
+    mega_bound = bound(
+        2 * nbytes(tuple(lane0)),
+        lane_iters * (T_ * (ops["stage_bwd"] + riccati_ops(nx, 1)
+                            + ops["stage_fwd"]) + ops["term"]
+                      + ops["term_fwd"]))
     return {
         "merged_trial": {
             "max_abs_err": max(r["merged_trial"]["max_abs_err"] for r in f32),
             "ms": timing["ddp"]["merged_trial_ms"],
-            "plain_ms": timing["ddp"]["plain_trial_ms"]},
+            "plain_ms": timing["ddp"]["plain_trial_ms"], **merged_bound},
         "mega": {
             "max_abs_err": max(r["mega_k4"]["vs_plain"]["max_abs_err"]
                                for r in f32),
             "ms": timing["newton"]["mega_k32_ms"],
-            "plain_ms": timing["newton"]["plain_k32_ms"]}}
+            "plain_ms": timing["newton"]["plain_k32_ms"], **mega_bound}}
 
 
 def check_mega_path(counts, rounds, openings, gates=0):
@@ -1226,6 +1458,503 @@ def phase_multigrid(pool32, dev, single_grid):
     return counts, counts2
 
 
+# ---------------------------------------------------------------------------
+# The parallel-in-time slice: phases K, L, M
+# ---------------------------------------------------------------------------
+
+# tests/test_golden.py's warm start, 0.1 * jax.random.normal(PRNGKey(1),
+# (100, 1)) in float64, written out because this script imports no jax;
+# tests/test_torch_par_golden.py holds it to JAX's draw.
+GOLDEN_WARM_START = (
+    -0.11842844218378551, -0.011617040844628399, 0.017269028009903428,
+    0.09573071790540393, -0.08329541450744178, 0.06908051716286406,
+    0.007545020754047458, -0.07645270989348373, -0.005064538917471915,
+    -0.1352474213301947, -0.0985917341545191, -0.11198478915637924,
+    0.047528386801689415, 0.05933369331746692, 0.1281290415640692,
+    -0.06461786382589661, 0.07496310575619733, -0.048255831614092394,
+    0.13608633612173524, 0.016367777491860438, -0.12559112836204597,
+    -0.14894827238927302, 0.1094408412345168, 0.04482111004887972,
+    0.22928366253554794, -0.07643387370573117, 0.1350904340556187,
+    -0.03451453097725925, 0.0367125428285667, 0.010898000348012271,
+    0.0035276497405441806, 0.07905961731079757, 0.05465778641720681,
+    -0.2104645576573327, 0.2852279828152687, 0.10644858480771671,
+    -0.03162467206008989, -0.07811220936346991, 0.015006970352093384,
+    0.25803731986246886, -0.05856053363405975, -0.16387337250700462,
+    -0.055103642705170264, 0.12132236940964612, -0.0017399022997577358,
+    0.01908949755215974, 0.23381403500912754, -0.03797890594728668,
+    0.012998894901574784, -0.05413653142590367, -0.18315929966046376,
+    0.1187706504213959, -0.0015734571705448433, -0.1468879929810107,
+    -0.0006954086998909839, 0.12856023857129553, 0.05153416714435425,
+    -0.06053759249440922, 0.06083738024071479, 0.021711397575949688,
+    -0.08748549960008549, 0.17864132564813517, -0.111872731206387,
+    0.06496266367209362, 0.006701764798569827, -0.02613683694271575,
+    -0.05837135236569579, -0.06330983663306441, 0.06312029227334444,
+    0.032496859553296634, -0.03287366345550891, -0.1913302558084512,
+    -0.18326345809866365, 0.1626055554224045, 0.055867975676351725,
+    -0.04812694913695275, -0.04530961694701566, -0.012955049797916153,
+    0.0016328319351252, 0.044215978230800146, -0.11409040287957697,
+    -0.1169147962095632, -0.2554408121361101, 0.12199858065725105,
+    0.1607009287926262, 0.051965466815536945, 0.027957746997006556,
+    0.15588819165701753, 0.20543476319111253, -0.18897968907426008,
+    -0.22862533080315262, 0.05393380895353225, -0.009858133730438567,
+    0.07170683476584756, -0.0486799347374337, 0.2163138673923172,
+    -0.14909893736198096, 0.0022147157384965073, 0.06096970581057207,
+    -0.0896091910195345,
+)
+PAR_TRIAL_TOL = {"float64": (1e-10, 1e-10), "float32": (2e-5, 1e-4)}
+
+
+@functools.lru_cache(maxsize=None)
+def horizon_ocp(T_):
+    """Cartpole at horizon ``T_`` with H * dt = 1 s (the reference sweep)."""
+    from ipoc_tpu_torch.models import cartpole
+
+    return model_ocp("cartpole") if T_ == T else cartpole.make_ocp(1.0 / T_)
+
+
+def par_inputs(T_, B, dtype, dev, seed=SEED):
+    """The parallel trial's inputs at a cold start of cartpole at horizon
+    ``T_``, as a solve's first iteration computes them (bp=0.1, the
+    Levenberg parameter 1 scaled by ||cu||), and the three scans' inputs
+    on the same data: the costate elements (T+1 of them, suffix), the value
+    elements of the Newton LQT (T), and the closed-loop elements from its
+    gains (T, prefix).  Returns ``(trial, scans)``, ``scans`` a dict of
+    argument tuples."""
+    import torch
+
+    from ipoc_tpu_torch import FAST_CONFIG
+    from ipoc_tpu_torch.models import cartpole
+    from ipoc_tpu_torch.ops.derivatives import (
+        compute_first_order,
+        compute_hamiltonian_lqr,
+        final_gradient,
+        final_hessian,
+    )
+    from ipoc_tpu_torch.ops.scan_kernels import affine_scan_plain
+    from ipoc_tpu_torch.solvers.ip_newton import _regularized
+    from ipoc_tpu_torch.utils.integrators import rollout
+
+    ocp = horizon_ocp(T_)
+    gen = torch.Generator().manual_seed(seed)
+    u = 0.1 * torch.randn((B, T_, 1), generator=gen, dtype=torch.float64)
+    x0 = (cartpole.initial_state(torch.float64)
+          + 0.01 * torch.randn((B, 4), generator=gen, dtype=torch.float64))
+    u, x0 = u.to(dev, dtype), x0.to(dev, dtype)
+    x = rollout(ocp.dynamics, u, x0)
+    bp = torch.tensor(0.1, dtype=dtype, device=dev)
+    d = compute_first_order(ocp, x, u, bp)
+    lam_T = final_gradient(ocp, x[:, -1])
+    F = torch.cat([d.fx.transpose(-1, -2), torch.zeros_like(d.fx[:, :1])], 1)
+    c = torch.cat([d.cx, lam_T[:, None]], 1)
+    costate = (F.contiguous(), c.contiguous())
+    lam = affine_scan_plain(*costate, reverse=True)[1]
+    lin = _regularized(compute_hamiltonian_lqr(ocp, x, u, lam, bp), d,
+                       torch.ones((B,), dtype=dtype, device=dev), True,
+                       FAST_CONFIG.reg_scale_floor)
+    trial = tuple(a.contiguous() for a in (lin.r, lin.Q, lin.R, lin.M, d.fx,
+                                           d.fu, final_hessian(ocp, x[:, -1])))
+    return trial, scan_inputs(trial, costate)
+
+
+def scan_inputs(trial, costate=None):
+    """The value scan's and the forward pass's affine scan's inputs from a
+    trial's stage data (the pipeline's own intermediates)."""
+    import torch
+
+    from ipoc_tpu_torch.parallel import lqt as L
+    from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP
+
+    ru, Q, R, M, fx, fu, XT = trial
+    d = Derivatives(None, None, None, None, None, fx, fu, None, None, None)
+    lqt = L.newton_lqt(LinearizedOCP(ru, Q, R, M), d, XT)
+    K, kff = L.par_bwd_pass(lqt, plain=True)[:2]
+    F, e = L._closed_loop(lqt, K, kff)
+    F = torch.cat([torch.zeros_like(F[:, :1]), F[:, 1:]], 1)
+    scans = {"value": tuple(a.contiguous() for a in L._elements(lqt)),
+             "prefix": (F.contiguous(), e.contiguous())}
+    if costate is not None:
+        scans["suffix"] = costate
+    return scans
+
+
+def compare_scans(scans, tol, label):
+    """Each scan kernel against its plain version: the largest error of
+    each output relative to that output's largest entry."""
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    out = {}
+    for kind, args in scans.items():
+        if kind == "value":
+            got, ref = sk.value_scan(*args), sk.value_scan_plain(*args)
+        else:
+            rev = kind == "suffix"
+            got = sk.affine_scan(*args, reverse=rev)
+            ref = sk.affine_scan_plain(*args, reverse=rev)
+        errs = [compare_out(f"{label} {kind} scan[{i}]", g, r, tol)
+                for i, (g, r) in enumerate(zip(got, ref))]
+        out[f"{kind}_scan"] = {"max_abs_err": max(e[0] for e in errs),
+                               "max_rel_err": max(e[1] for e in errs)}
+    return out
+
+
+def compare_par_trial(trial, tol, label):
+    """The one-launch trial against its plain version (the pipeline on the
+    scans' plain versions, tolerance ``tol`` of each output's scale) and
+    against the pipeline on the scan kernels (``PAR_TRIAL_TOL``: du, dx of
+    du's scale, pred relative); equal ok flags."""
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+
+    tag = str(trial[0].dtype).split(".")[-1]
+    got = nk.fused_newton_step(*trial)
+    plain = nk.fused_newton_step_plain(*trial)
+    pipe = nk.newton_pipeline(*trial)
+    out = {}
+    for name, ref in (("vs_plain", plain), ("vs_pipeline", pipe)):
+        check(bool((got[3] == ref[3]).all()), f"{label} {name}: ok differs")
+        ok = ref[3]
+        check(bool(ok.any()), f"{label}: no feasible lane")
+        scale = float(ref[0][ok].abs().max()) + 1e-30
+        err = max(float((got[i][ok] - ref[i][ok]).abs().max())
+                  for i in (0, 1))
+        prel = float(((got[2][ok] - ref[2][ok]).abs()
+                      / ref[2][ok].abs()).max())
+        dtol, ptol = ((tol, tol) if name == "vs_plain"
+                      else PAR_TRIAL_TOL[tag])
+        check(err <= dtol * scale, f"{label} {name}: |d(du,dx)| {err} > "
+              f"{dtol} * {scale}")
+        check(prel <= ptol, f"{label} {name}: pred rel err {prel}")
+        out[name] = {"max_abs_err": err, "rel_err": err / scale,
+                     "pred_max_rel_err": prel}
+    out["ok_frac"] = float(got[3].double().mean())
+    return out
+
+
+def phase_par_kernels(dev):
+    """Phase K: the affine scan (both directions), the value scan and the
+    one-launch trial against their plain versions on cartpole stage data
+    (T=100 and T=1000, B=1 and B=1024) and random nx=3, nu=2 data (T=129),
+    float64 then float32; an indefinite R on one lane; the trial against
+    the pipeline on the scan kernels, a path of its own (the public LQT
+    passes), whose launch counts are read here; then each kernel's time
+    beside its plain version's."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    out = {"phase": "K"}
+    cases = [(T_, B) for T_ in PAR_HORIZONS for B in (1, PAR_BATCH)]
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, F32_TOL)):
+        tag = str(dtype).split(".")[-1]
+        for T_, B in cases:
+            label = f"cartpole T={T_} B={B} {tag}"
+            trial, scans = par_inputs(T_, B, dtype, dev)
+            out[label] = {**compare_scans(scans, tol, label),
+                          "trial": compare_par_trial(trial, tol, label)}
+        gen = torch.Generator().manual_seed(SEED)
+        trial, _ = random_stage_data(gen, PAR_BATCH, 129, 3, 2, dtype, dev)
+        label = f"random nx=3 nu=2 T=129 B={PAR_BATCH} {tag}"
+        out[label] = {**compare_scans(scan_inputs(trial), tol, label),
+                      "trial": compare_par_trial(trial, tol, label)}
+        # One stage of one lane with an indefinite R: that lane only fails.
+        ru, Q, R, M, fx, fu, XT = par_inputs(T, PAR_BATCH, dtype, dev)[0]
+        R = R.clone()
+        R[3, 17] = -1.0
+        bad = (ru, Q, R, M, fx, fu, XT)
+        ok_k = nk.fused_newton_step(*bad)[3]
+        ok_p = nk.fused_newton_step_plain(*bad)[3]
+        check(torch.equal(ok_k, ok_p) and not bool(ok_k[3])
+              and int(ok_k.sum()) == PAR_BATCH - 1,
+              f"indefinite R on lane 3 ({tag}): ok kernel "
+              f"{int(ok_k.sum())}, plain {int(ok_p.sum())} of {PAR_BATCH}")
+        out[f"indefinite_R_lane3_{tag}_ok_count"] = int(ok_k.sum())
+
+    # The public LQT passes on a card (newton_lqt -> par_bwd_pass ->
+    # par_fwd_pass): counts from 0, one value scan and one prefix affine
+    # scan, no trial kernel.
+    trial, scans = par_inputs(T, PAR_BATCH, torch.float32, dev)
+    cuda.reset_launches()
+    nk.newton_pipeline(*trial)
+    torch.cuda.synchronize()
+    pipeline_counts = {k: v for k, v in cuda.launches.items() if v}
+    check(pipeline_counts == {"value_scan": 1, "affine_scan": 1},
+          f"the LQT passes launched {pipeline_counts}")
+    out["lqt_passes_launches"] = pipeline_counts
+
+    # Times, float32: B=1024 at T=100 (phase M's batch) and B=1 at T=1000
+    # (phase L's single solve).
+    timing = {}
+    for T_, B in ((T, PAR_BATCH), (1000, 1)):
+        trial, scans = par_inputs(T_, B, torch.float32, dev)
+        nx, nu = trial[5].shape[-2:]
+        fns = {
+            "affine_scan": (lambda: sk.affine_scan(*scans["suffix"], True),
+                            lambda: sk.affine_scan_plain(*scans["suffix"],
+                                                         True),
+                            scans["suffix"],
+                            B * T_ * affine_combine_ops(nx)),
+            "value_scan": (lambda: sk.value_scan(*scans["value"]),
+                           lambda: sk.value_scan_plain(*scans["value"]),
+                           scans["value"],
+                           B * (T_ - 1) * value_combine_ops(nx)),
+            "par_newton_trial": (lambda: nk.fused_newton_step(*trial),
+                                 lambda: nk.fused_newton_step_plain(*trial),
+                                 trial, par_trial_ops(B, T_, nx, nu)),
+        }
+        rec = {}
+        for name, (kernel, plain, ins, ops) in fns.items():
+            rec[name] = {"ms": cuda_ms(kernel, 50),
+                         "plain_ms": cuda_ms(plain, 3),
+                         **bound(nbytes(ins, kernel()), ops)}
+        timing[f"T={T_} B={B}"] = rec
+    out["timing"] = timing
+    out["timing_shape"] = ("float32, CUDA events around back-to-back calls "
+                           "after a warm one; the affine scan in its suffix "
+                           "mode on the costate elements (T+1)")
+    out["float32_tolerance"] = F32_TOL
+    emit(out)
+    f32 = [v for k, v in out.items() if k.endswith("float32")]
+    record = {}
+    for name in ("affine_scan", "value_scan", "par_newton_trial"):
+        if name == "par_newton_trial":
+            err = max(r["trial"]["vs_plain"]["max_abs_err"] for r in f32)
+        else:
+            err = max(r[k]["max_abs_err"] for r in f32 for k in r
+                      if k.endswith("_scan")
+                      and (k == "value_scan") == (name == "value_scan"))
+        record[name] = {"max_abs_err": err,
+                        **timing[f"T={T} B={PAR_BATCH}"][name]}
+    return record, pipeline_counts
+
+
+def golden_setup(name):
+    import numpy as np
+    import torch
+
+    from ipoc_tpu_torch.models import cartpole, pendulum
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = np.load(os.path.join(here, "tests", "golden", f"{name}_h100.npz"))
+    model = {"cartpole": cartpole, "pendulum": pendulum}[name]
+    u0 = torch.tensor(GOLDEN_WARM_START, dtype=torch.float64)[:, None]
+    return data, model_ocp(name), u0, model.initial_state(torch.float64)
+
+
+PARITY = "DEFAULT_CONFIG.replace(stall_exit=False)"
+
+
+def golden_par_cpu():
+    """The CPU half of phase L: the goldens' float64 parallel solves with the
+    plain versions, ``{model: (controls, iterations)}``."""
+    from ipoc_tpu_torch import DEFAULT_CONFIG
+    from ipoc_tpu_torch import par_interior_point_optimal_control as par
+
+    out = {}
+    for name in ("pendulum", "cartpole"):
+        _, ocp, u0, x0 = golden_setup(name)
+        u, it = par(ocp, u0, x0, DEFAULT_CONFIG.replace(stall_exit=False))
+        out[name] = (u, int(it))
+    return out
+
+
+def counted_solve(solve, *args):
+    """One solve with the launch counts from 0, the trials (calls of
+    ``par_newton_step``), the Newton iterations' costate scans (calls of
+    ``_costates``) and the host reads (``bool()`` of a tensor: the loop
+    predicates) counted: ``(result, launches, trials, costate calls, host
+    reads)``."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import ip_newton
+
+    with counting(ip_newton, "par_newton_step") as trials, \
+            counting(ip_newton, "_costates") as scans, \
+            counting(torch.Tensor, "__bool__") as reads:
+        cuda.reset_launches()
+        res = solve(*args)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.launches.items() if v}
+    return (res, launches, len(trials.calls), len(scans.calls),
+            len(reads.calls))
+
+
+def window_busy(run):
+    """Device busy share over one window of an eager solve, ``run()``
+    (which waits for the device): its kernel time from a CUDA-only profile
+    over its host-clock time without the profiler.  A whole eager solve
+    issues 10^5-10^6 kernels, which the profiler takes minutes to collect,
+    so the callers pass a window: the first barrier stage, or its first
+    lockstep iterations.  Returns ``(share, window wall s, device ms of the
+    largest kernels)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    run()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    per_kernel = kernel_ms(prof)
+    return (sum(per_kernel.values()) / (wall_s * 1e3), wall_s,
+            top_kernels(per_kernel))
+
+
+def phase_single_solve(dev, cpu_ref):
+    """Phase L: ``par_interior_point_optimal_control`` on the card.  The
+    goldens (pendulum and cartpole H=100, float64, PARITY_CFG) against
+    tests/golden/*.npz and against the CPU run's iterations, with the seq
+    solve beside them; then cartpole at H=1000 under FAST_CONFIG in float32
+    and float64: iterations, trials, wall time (median of 5), host reads
+    and each kernel's launches per solve, and the busy share over the first
+    barrier stage."""
+    import numpy as np
+    import torch
+
+    from ipoc_tpu_torch import DEFAULT_CONFIG, FAST_CONFIG
+    from ipoc_tpu_torch import par_interior_point_optimal_control as par
+    from ipoc_tpu_torch import seq_interior_point_optimal_control as seq
+    from ipoc_tpu_torch.models import cartpole
+    from ipoc_tpu_torch.ops.derivatives import check_feasibility
+    from ipoc_tpu_torch.utils.integrators import rollout
+
+    cfg_parity = DEFAULT_CONFIG.replace(stall_exit=False)
+    out = {"phase": "L", "golden_config": PARITY}
+    for name in ("pendulum", "cartpole"):
+        data, ocp, u0, x0 = golden_setup(name)
+        (u, it), launches, trials, scans, _ = counted_solve(
+            par, ocp, u0.to(dev), x0.to(dev), cfg_parity)
+        u, it = u.cpu(), int(it)
+        bp = torch.tensor(float(data["final_bp"]), dtype=torch.float64)
+        cost = float(ocp.total_cost(rollout(ocp.dynamics, u, x0), u, bp))
+        cost_rel = abs(cost - float(data["cost_seq"])) / abs(
+            float(data["cost_seq"]))
+        du = float(np.abs(u.numpy() - data["u_seq"]).max())
+        u_s, it_s = seq(ocp, u0.to(dev), x0.to(dev), cfg_parity)
+        du_seq = float(np.abs(u_s.cpu().numpy() - data["u_seq"]).max())
+        u_cpu, it_cpu = cpu_ref[name]
+        out[f"golden_{name}"] = {
+            "par_iterations": it, "par_iterations_cpu": it_cpu,
+            "trials": trials, "launches": launches,
+            "cost_rel_err_vs_golden": cost_rel,
+            "max_abs_du_vs_golden": du,
+            "max_abs_du_vs_cpu": float((u - u_cpu).abs().max()),
+            "seq_iterations": int(it_s), "seq_iterations_golden": int(
+                data["iters_seq"]), "seq_max_abs_du_vs_golden": du_seq}
+        check(cost_rel <= 1e-8, f"{name} par cost rel err {cost_rel}")
+        check(du <= 5e-2, f"{name} par |du| vs golden {du}")
+        check(du_seq <= 1e-6, f"{name} seq |du| vs golden {du_seq}")
+        check(it == it_cpu, f"{name} par iterations card {it}, CPU {it_cpu}")
+        check(launches == {"affine_scan": scans, "par_newton_trial": trials}
+              and scans == it,
+              f"{name}: launches {launches}, {it} iterations, {trials} "
+              "trials")
+
+    T_ = PAR_HORIZONS[-1]
+    ocp = horizon_ocp(T_)
+    gen = torch.Generator().manual_seed(SEED)
+    u0 = 0.1 * torch.randn((T_, 1), generator=gen, dtype=torch.float64)
+    x0 = cartpole.initial_state(torch.float64)
+    walls = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split(".")[-1]
+        uu, xx = u0.to(dev, dtype), x0.to(dev, dtype)
+
+        def solve():
+            u, it = par(ocp, uu, xx, FAST_CONFIG)
+            return u.cpu(), int(it)
+
+        # Five timed solves, the first also counted (the counters cost a
+        # Python call per counted event, well inside the spread).
+        times = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            if i == 0:
+                (u, it), launches, trials, scans, reads = counted_solve(solve)
+            else:
+                solve()
+            times.append(time.perf_counter() - t0)
+        wall = sorted(times)[2]
+        first = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99)
+        busy, wall_first, top = window_busy(
+            lambda: par(ocp, uu, xx, first)[0].cpu())
+        x = rollout(ocp.dynamics, u.double(), x0)
+        feasible = bool(check_feasibility(ocp, x, u.double()))
+        raw = float(ocp.total_cost(x, u.double(),
+                                   torch.tensor(1e-9, dtype=torch.float64)))
+        walls[tag] = wall
+        out[f"H{T_}_{tag}"] = {
+            "config": "FAST_CONFIG", "iterations": it, "trials": trials,
+            "costate_scans": scans, "launches_per_solve": launches,
+            "wall_s_median_of_5": wall, "wall_s": times,
+            "host_reads_per_solve": reads,
+            "device_busy_share_first_stage": busy,
+            "first_stage_wall_s": wall_first,
+            "first_stage_device_ms_top_kernels": top,
+            "max_abs_u": float(u.abs().max()), "feasible": feasible,
+            "raw_cost": raw}
+        check(bool(torch.isfinite(u).all()) and feasible and it > 0,
+              f"H={T_} {tag}: infeasible or non-finite solution")
+        check(launches == {"affine_scan": scans, "par_newton_trial": trials}
+              and scans == it,
+              f"H={T_} {tag}: launches {launches}, {it} iterations, "
+              f"{trials} trials")
+    emit(out)
+    return out
+
+
+def phase_batch_solve(pool32, dev):
+    """Phase M: ``solve_batch(method="par")`` on the pool's first 1024
+    cartpole H=100 scenarios in float32 under FAST_CONFIG: wall time,
+    iterations, busy share; the kernels launched once per lockstep Newton
+    iteration (affine scan) and once per lockstep trial (the trial)."""
+    import torch
+
+    from ipoc_tpu_torch import FAST_CONFIG, solve_batch
+
+    ocp = model_ocp("cartpole")
+    u, x0 = (a[:PAR_BATCH].to(dev) for a in pool32)
+
+    def solve(cfg=FAST_CONFIG):
+        return solve_batch(ocp, u, x0, cfg)
+
+    # Phases K and L ran this path's code and kernels already: no warm-up.
+    t0 = time.perf_counter()
+    sol, launches, trials, scans, reads = counted_solve(solve)
+    wall = time.perf_counter() - t0
+    # The busy share over the first 11 lockstep Newton iterations of the
+    # first barrier stage (the cold start, two thirds of the wall).
+    window = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99,
+                                 max_newton_iters=10)
+    busy, wall_window, top = window_busy(
+        lambda: solve(window).iterations.cpu())
+    it = sol.iterations.cpu().double()
+    costs = raw_costs(ocp, sol.controls.double(), x0.double()).cpu()
+    rec = {"phase": "M", "model": "cartpole", "horizon": T,
+           "dtype": "float32", "config": "FAST_CONFIG", "method": "par",
+           "scenarios": PAR_BATCH, "wall_s": wall,
+           "solves_per_s": PAR_BATCH / wall,
+           "mean_iterations": float(it.mean()),
+           "max_iterations": int(it.max()),
+           "lockstep_newton_iterations": scans, "lockstep_trials": trials,
+           "host_reads": reads, "launches": launches,
+           "device_busy_share_window": busy,
+           "busy_window": "the first 11 lockstep Newton iterations of the "
+                          "first barrier stage",
+           "window_wall_s": wall_window, "window_device_ms_top_kernels": top,
+           "max_abs_u": float(sol.controls.abs().max()),
+           "frac_nonfinite_cost": float((~torch.isfinite(costs)).double()
+                                        .mean())}
+    emit(rec)
+    check(bool(torch.isfinite(sol.controls).all()), "non-finite controls")
+    check(rec["max_abs_u"] <= 50.0 + 1e-4, "|u| exceeds the bound 50")
+    check(rec["frac_nonfinite_cost"] == 0.0, "non-finite raw costs")
+    check(launches == {"affine_scan": scans, "par_newton_trial": trials},
+          f"launches {launches}: {scans} lockstep iterations, {trials} "
+          "lockstep trials")
+    return launches
+
+
 def make_pool(model, n, dtype, seed=SEED):
     """The bench's pool recipe (bench.py make_batch call), on the CPU."""
     import torch
@@ -1239,11 +1968,11 @@ def make_pool(model, n, dtype, seed=SEED):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJ",
-                        help="subset of phases A-J to run after phase 0, "
-                             "which always runs (default: ABCDEFGHIJ); I "
+    parser.add_argument("--phases", default="ABCDEFGHIJKLM",
+                        help="subset of phases A-M to run after phase 0, "
+                             "which always runs (default: ABCDEFGHIJKLM); I "
                              "needs H")
-    parser.add_argument("--cpu-reference", choices=list(CARD_VS_CPU),
+    parser.add_argument("--cpu-reference", choices=list(CARD_VS_CPU) + ["L"],
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
 
@@ -1297,7 +2026,7 @@ def main(argv=None):
             ph: subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--cpu-reference",
                  ph], stdout=subprocess.PIPE)
-            for ph in CARD_VS_CPU if ph in args.phases})
+            for ph in list(CARD_VS_CPU) + ["L"] if ph in args.phases})
         # The bench's pool recipe (bench.py make_batch call), on the CPU;
         # the float64 runs take the float32 pool's exact values.
         pool32 = make_pool(cartpole, POOL, torch.float32)
@@ -1329,6 +2058,15 @@ def main(argv=None):
                     "mega", 0)
             if counts_i2:
                 counts["merged_trial"] = counts_i2["merged_trial"]
+        # The parallel-in-time slice.  value_scan's count is read from the
+        # public LQT passes (phase K); the affine scan's and the trial's
+        # from solve_batch at width (phase M).
+        par_record, lqt_counts = run("K", phase_par_kernels, dev) or ({}, {})
+        record.update(par_record)
+        if lqt_counts:
+            counts["value_scan"] = lqt_counts["value_scan"]
+        run("L", lambda: phase_single_solve(dev, reference("L")))
+        counts.update(run("M", phase_batch_solve, pool32, dev) or {})
         for ph in CARD_VS_CPU:
             run(ph, lambda ph=ph: phase_card_vs_cpu(ph, pool64, dev,
                                                     reference(ph)))
@@ -1347,16 +2085,21 @@ def main(argv=None):
         "transition": ("fused_iter.cuh", "fused_iter_kernel.py:2053"),
         "merged_trial": ("mega.cuh", "fused_iter_kernel.py:1206"),
         "mega": ("mega.cuh", "mega_kernel.py:1148"),
+        "affine_scan": ("par_newton.cu", "scan_kernels.py:252"),
+        "value_scan": ("par_newton.cu", "scan_kernels.py:252"),
+        "par_newton_trial": ("par_newton.cu", "newton_kernel.py:229"),
     }
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     if failures:
         print("chip_smoke: FAILED\n" + "\n".join(failures), file=sys.stderr)
         return 1
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     emit({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"ipoc_tpu_torch/csrc/{src}",
          "replaces": pallas + rep, "launches": counts.get(k),
-         **record.get(k, {})}
+         **{f: record.get(k, {}).get(f) for f in keys}}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -5,12 +5,15 @@ PyTorch tensors; the JAX package's Pallas kernels become hand-written CUDA
 kernels for Hopper (``ipoc_tpu_torch/csrc``), built with ``nvcc`` at first
 use on a card.  This package never imports jax.
 
-Ported so far: the bench's default path, ``solve_stream_multigrid`` with a
-DDP coarse level, and the single-grid scenario stream, ``solve_stream``,
-under ``BATCH_CONFIG`` (the packed stream on the mega kernel, with
-per-stage code generated from the model), with ``newton_impl="ddp"`` and
-with ``newton_impl="seq"`` (two kernels); their models and derivatives.
-ROADMAP.md lists what is still to port.
+Ported so far: the paper's parallel-in-time solve,
+``par_interior_point_optimal_control`` (with ``solve_batch`` and ``solve``,
+the sequential validation solve and the public LQT passes), on the
+associative-scan kernels and the one-launch parallel trial; the bench's
+default path, ``solve_stream_multigrid`` with a DDP coarse level, and the
+single-grid scenario stream, ``solve_stream``, under ``BATCH_CONFIG`` (the
+packed stream on the mega kernel, with per-stage code generated from the
+model), with ``newton_impl="ddp"``, ``"seq"`` and ``"par"``; their models
+and derivatives.  ROADMAP.md lists what is still to port.
 """
 
 from ipoc_tpu_torch.config import (
@@ -19,6 +22,21 @@ from ipoc_tpu_torch.config import (
     FAST_CONFIG,
     SolverConfig,
 )
+from ipoc_tpu_torch.parallel.costates import par_costates, seq_costates
+from ipoc_tpu_torch.parallel.lqt import (
+    LQT,
+    newton_lqt,
+    par_bwd_pass,
+    par_fwd_pass,
+    seq_bwd_pass,
+    seq_fwd_pass,
+)
+from ipoc_tpu_torch.solvers.batched import BatchSolution, solve_batch
+from ipoc_tpu_torch.solvers.ip_newton import (
+    par_interior_point_optimal_control,
+    seq_interior_point_optimal_control,
+)
+from ipoc_tpu_torch.solvers.solution import IPSolution, solve
 from ipoc_tpu_torch.solvers.stream import (
     MultigridSolution,
     StreamSolution,
@@ -28,11 +46,25 @@ from ipoc_tpu_torch.solvers.stream import (
 
 __all__ = [
     "BATCH_CONFIG",
+    "BatchSolution",
     "DEFAULT_CONFIG",
     "FAST_CONFIG",
+    "IPSolution",
+    "LQT",
     "MultigridSolution",
     "SolverConfig",
     "StreamSolution",
+    "newton_lqt",
+    "par_bwd_pass",
+    "par_costates",
+    "par_fwd_pass",
+    "par_interior_point_optimal_control",
+    "seq_bwd_pass",
+    "seq_costates",
+    "seq_fwd_pass",
+    "seq_interior_point_optimal_control",
+    "solve",
+    "solve_batch",
     "solve_stream",
     "solve_stream_multigrid",
 ]

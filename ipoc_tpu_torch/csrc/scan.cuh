@@ -1,0 +1,240 @@
+// Associative-scan algebra and the block scan shared by the parallel-in-time
+// kernels (csrc/par_newton.cu).  Counterpart of the lane-layout helpers of
+// ipoc_tpu/ops/pallas/scan_kernels.py: _affine_combine_lanes,
+// _value_combine_lanes and the Hillis-Steele rounds of _scan_rounds.
+//
+// Elements are flat row-major arrays in registers or shared memory:
+//   affine  (F, c):             [F (N*N) | c (N)]             v -> F v + c
+//   value   (A, b, C, eta, J):  [A (N*N) | b (N) | C (N*N) | eta (N) | J (N*N)]
+// Identities (I, 0) and (I, 0, 0, 0, 0), as scan_kernels.py pads with.
+// Arithmetic follows the JAX lane kernels term by term (same products, same
+// summation order, unpivoted eliminations through riccati.cuh's
+// solve_track); nvcc may contract a product and a sum into one FMA.
+//
+// The block scan: a block of kScanThreads threads scans one scenario's
+// horizon.  Each thread owns a contiguous chunk of stages; the caller
+// combines its chunk serially into one aggregate, block_carry scans the
+// block's aggregates in shared memory (Hillis-Steele, log2(kScanThreads)
+// rounds, double-buffered so that no round holds a result in registers
+// across a barrier), and returns the combination of every aggregate on the
+// far side of the thread, which the caller carries into a second walk of
+// its chunk.  About 2T + 7 * kScanThreads combines per scenario, with a
+// critical path of 2 * ceil(T / kScanThreads) + 7; no cap on T.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "riccati.cuh"
+
+namespace ipoc {
+
+constexpr int kScanThreads = 128;
+
+template <typename scalar_t, int N>
+struct AffineOp {
+  static constexpr int E = N * N + N;
+
+  __device__ __forceinline__ static void identity(scalar_t* e) {
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      e[r] = (r < N * N && r / N == r % N) ? scalar_t(1) : scalar_t(0);
+  }
+
+  // out = x o y: v -> Fx (Fy v + cy) + cx.  out must not alias x or y.
+  __device__ __forceinline__ static void combine(const scalar_t* x,
+                                                 const scalar_t* y,
+                                                 scalar_t* out) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t acc = x[i * N] * y[j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + x[i * N + l] * y[l * N + j];
+        out[i * N + j] = acc;
+      }
+      scalar_t acc = x[i * N] * y[N * N];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + x[i * N + l] * y[N * N + l];
+      out[N * N + i] = acc + x[N * N + i];
+    }
+  }
+};
+
+template <typename scalar_t, int N>
+struct ValueOp {
+  static constexpr int E = 3 * N * N + 2 * N;
+  static constexpr int kA = 0, kB = N * N, kC = N * N + N;
+  static constexpr int kEta = 2 * N * N + N, kJ = 2 * N * N + 2 * N;
+
+  __device__ __forceinline__ static void identity(scalar_t* e) {
+#pragma unroll
+    for (int r = 0; r < E; ++r)
+      e[r] = (r < N * N && r / N == r % N) ? scalar_t(1) : scalar_t(0);
+  }
+
+  // Solves on L2 = I + Jj Ci for [etaj - Jj bi | Jj] (E_eta, E_J), then
+  // eta = Ai' E_eta + etai and J = (Ai' E_J) Ai + Ji.  `etaj` may be null
+  // (zero).  Shared by combine and the terminal fold.
+  __device__ __forceinline__ static void eta_J(const scalar_t* x,
+                                               const scalar_t* Jj,
+                                               const scalar_t* etaj,
+                                               scalar_t* eta_out,
+                                               scalar_t* J_out) {
+    constexpr int M2 = N + 1;
+    scalar_t L2[N * N], R2[N * M2];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t acc = Jj[i * N] * x[kC + j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + Jj[i * N + l] * x[kC + l * N + j];
+        L2[i * N + j] = (i == j ? scalar_t(1) : scalar_t(0)) + acc;
+        R2[i * M2 + 1 + j] = Jj[i * N + j];
+      }
+      scalar_t acc = Jj[i * N] * x[kB];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + Jj[i * N + l] * x[kB + l];
+      R2[i * M2] = (etaj ? etaj[i] : scalar_t(0)) - acc;
+    }
+    solve_track<scalar_t, N, M2>(L2, R2);
+    // eta = Ai' E_eta + etai;  J = (Ai' E_J) Ai + Ji.
+    scalar_t AE[N * N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      scalar_t acc = x[kA + i] * R2[0];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + x[kA + l * N + i] * R2[l * M2];
+      eta_out[i] = acc + x[kEta + i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t a2 = x[kA + i] * R2[1 + j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) a2 = a2 + x[kA + l * N + i] * R2[l * M2 + 1 + j];
+        AE[i * N + j] = a2;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t acc = AE[i * N] * x[kA + j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + AE[i * N + l] * x[kA + l * N + j];
+        J_out[i * N + j] = acc + x[kJ + i * N + j];
+      }
+    }
+  }
+
+  // out = combine(earlier x, later y) (parallel/lqt.py value_combine, the
+  // lane form of scan_kernels.py:156-181).  out must not alias x or y.
+  __device__ __forceinline__ static void combine(const scalar_t* x,
+                                                 const scalar_t* y,
+                                                 scalar_t* out) {
+    // L1 = I + Ci Jj against [Ai | bi + Ci etaj | Ci]: D_A, D_b, D_C.
+    constexpr int M1 = 2 * N + 1;
+    scalar_t L1[N * N], R1[N * M1];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t acc = x[kC + i * N] * y[kJ + j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + x[kC + i * N + l] * y[kJ + l * N + j];
+        L1[i * N + j] = (i == j ? scalar_t(1) : scalar_t(0)) + acc;
+        R1[i * M1 + j] = x[kA + i * N + j];
+        R1[i * M1 + N + 1 + j] = x[kC + i * N + j];
+      }
+      scalar_t acc = x[kC + i * N] * y[kEta];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + x[kC + i * N + l] * y[kEta + l];
+      R1[i * M1 + N] = x[kB + i] + acc;
+    }
+    solve_track<scalar_t, N, M1>(L1, R1);
+    // A = Aj D_A;  b = Aj D_b + bj;  C = (Aj D_C) Aj' + Cj.
+    scalar_t AD[N * N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t a1 = y[kA + i * N] * R1[j];
+        scalar_t a2 = y[kA + i * N] * R1[N + 1 + j];
+#pragma unroll
+        for (int l = 1; l < N; ++l) {
+          a1 = a1 + y[kA + i * N + l] * R1[l * M1 + j];
+          a2 = a2 + y[kA + i * N + l] * R1[l * M1 + N + 1 + j];
+        }
+        out[kA + i * N + j] = a1;
+        AD[i * N + j] = a2;
+      }
+      scalar_t acc = y[kA + i * N] * R1[N];
+#pragma unroll
+      for (int l = 1; l < N; ++l) acc = acc + y[kA + i * N + l] * R1[l * M1 + N];
+      out[kB + i] = acc + y[kB + i];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        scalar_t acc = AD[i * N] * y[kA + j * N];
+#pragma unroll
+        for (int l = 1; l < N; ++l) acc = acc + AD[i * N + l] * y[kA + j * N + l];
+        out[kC + i * N + j] = acc + y[kC + i * N + j];
+      }
+    }
+    eta_J(x, y + kJ, y + kEta, out + kEta, out + kJ);
+  }
+};
+
+template <typename scalar_t, int E>
+__device__ __forceinline__ void copy_elem(const scalar_t* src, scalar_t* dst) {
+#pragma unroll
+  for (int r = 0; r < E; ++r) dst[r] = src[r];
+}
+
+// The chunk [t0, t1) of stage indices that this thread owns, of
+// ceil(T / kScanThreads) stages (empty beyond the horizon).
+__device__ __forceinline__ void thread_chunk(int T, int& t0, int& t1) {
+  const int len = (T + kScanThreads - 1) / kScanThreads;
+  t0 = min(T, static_cast<int>(threadIdx.x) * len);
+  t1 = min(T, t0 + len);
+}
+
+// Inclusive scan of the block's per-thread aggregates `agg` (one per
+// thread, in thread order) in shared memory `buf` (2 * kScanThreads * E
+// scalars).  Writes to `carry` the combination of the aggregates beyond
+// this thread (REVERSE: of threads > tid, combined earlier-first, for a
+// suffix scan; else of threads < tid, later-first, for a prefix scan) and
+// returns false where there is none.  Every round combines in[tid] o
+// in[tid +- d]; the buffers are free again on return.
+template <class Op, typename scalar_t, bool REVERSE>
+__device__ bool block_carry(const scalar_t* agg, scalar_t* buf,
+                            scalar_t* carry) {
+  constexpr int E = Op::E;
+  const int tid = threadIdx.x;
+  scalar_t* in = buf;
+  scalar_t* out = buf + kScanThreads * E;
+  copy_elem<scalar_t, E>(agg, in + tid * E);
+  __syncthreads();
+  for (int d = 1; d < kScanThreads; d <<= 1) {
+    const int j = REVERSE ? tid + d : tid - d;
+    if (j >= 0 && j < kScanThreads)
+      Op::combine(in + tid * E, in + j * E, out + tid * E);
+    else
+      copy_elem<scalar_t, E>(in + tid * E, out + tid * E);
+    __syncthreads();
+    scalar_t* swap = in;
+    in = out;
+    out = swap;
+  }
+  const int c = REVERSE ? tid + 1 : tid - 1;
+  const bool has = c >= 0 && c < kScanThreads;
+  if (has) copy_elem<scalar_t, E>(in + c * E, carry);
+  __syncthreads();
+  return has;
+}
+
+}  // namespace ipoc

@@ -40,9 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # else.  Plain integers; reset with :func:`reset_launches`.
 launches = {"seq_newton_trial": 0, "seq_costates": 0, "fused_bwd": 0,
             "fused_fwd": 0, "rollout_cost": 0, "transition": 0,
-            "merged_trial": 0, "mega": 0}
+            "merged_trial": 0, "mega": 0, "affine_scan": 0, "value_scan": 0,
+            "par_newton_trial": 0}
 
-_lib = None
+_libs = {}
 
 
 class LibSpec(NamedTuple):
@@ -54,6 +55,7 @@ class LibSpec(NamedTuple):
 
 
 SEQ_NEWTON = LibSpec("seq_newton", (CSRC / "seq_newton.cu",))
+PAR_NEWTON = LibSpec("par_newton", (CSRC / "par_newton.cu",))
 
 
 def reset_launches() -> None:
@@ -129,18 +131,33 @@ def build(spec: LibSpec = SEQ_NEWTON) -> Path:
     return build_all([spec])[0]
 
 
-def library() -> ctypes.CDLL:
-    """The loaded seq-Newton kernel library, built at first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build(SEQ_NEWTON)))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ipoc_seq_trial.argtypes = [i, i, i] + [p] * 12 + [i, i, p]
-        lib.ipoc_seq_trial.restype = i
-        lib.ipoc_seq_costates.argtypes = [i, i] + [p] * 4 + [i, i, p]
-        lib.ipoc_seq_costates.restype = i
-        _lib = lib
-    return _lib
+def _bind(lib, signatures: dict) -> None:
+    """Set the ctypes argument and (int) return types of C entry points."""
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "seq_newton": {"ipoc_seq_trial": [_I] * 3 + [_P] * 12 + [_I, _I, _P],
+                   "ipoc_seq_costates": [_I] * 2 + [_P] * 4 + [_I, _I, _P]},
+    "par_newton": {
+        "ipoc_affine_scan": [_I] * 3 + [_P] * 4 + [_I, _I, _P],
+        "ipoc_value_scan": [_I] * 2 + [_P] * 10 + [_I, _I, _P],
+        "ipoc_par_newton_trial": [_I] * 3 + [_P] * 12 + [_I, _I, _P]},
+}
+
+
+def library(spec: LibSpec = SEQ_NEWTON) -> ctypes.CDLL:
+    """A loaded static kernel library (``SEQ_NEWTON`` or ``PAR_NEWTON``),
+    built at first use."""
+    if spec.name not in _libs:
+        lib = ctypes.CDLL(str(build(spec)))
+        _bind(lib, _SIGNATURES[spec.name])
+        _libs[spec.name] = lib
+    return _libs[spec.name]
 
 
 def disable_tf32() -> None:

@@ -1,0 +1,81 @@
+"""The one-launch parallel Newton trial: the kernel's wrapper and its plain
+version (counterpart of ``ipoc_tpu/ops/pallas/newton_kernel.py``).
+
+One trial of the parallel-in-time Newton step from the costate-contracted
+stage data ``(ru, Q, R, M, fx, fu)`` (R already regularized) and the
+terminal Hessian XT: the reference trick for ``s`` and ``r``, the value
+elements and their suffix scan, the terminal fold, the gains, and the
+closed-loop prefix scan from zero deviation, giving ``(du, dx, pred, ok)``
+per lane.  On a card that is one launch of ``par_newton_trial_kernel``
+(``csrc/par_newton.cu``); its plain version is the pipeline the JAX package
+runs off the TPU, ``newton_lqt`` -> ``par_bwd_pass`` -> ``par_fwd_pass``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ipoc_tpu_torch.ops import cuda
+from ipoc_tpu_torch.parallel.lqt import newton_lqt, par_bwd_pass, par_fwd_pass
+from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP
+
+# (nx, nu) instantiations: pendulum, cartpole, and the nu > 1 layout pin.
+TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2))
+
+
+def newton_pipeline(ru, Q, R, M, fx, fu, XT, plain: bool = False):
+    """``newton_lqt`` -> ``par_bwd_pass`` -> ``par_fwd_pass`` from zero
+    deviation: ``(du, dx, pred, ok)``.  On CUDA tensors the two passes
+    launch the value-scan and affine-scan kernels, unless ``plain``."""
+    d = Derivatives(None, None, None, None, None, fx, fu, None, None, None)
+    lqt = newton_lqt(LinearizedOCP(ru, Q, R, M), d, XT)
+    Kx, kff, _, _, pred, feasible = par_bwd_pass(lqt, plain=plain)
+    du, dx = par_fwd_pass(lqt, torch.zeros_like(XT[..., 0]), Kx, kff,
+                          plain=plain)
+    return du, dx, pred, feasible
+
+
+def fused_newton_step_plain(ru, Q, R, M, fx, fu, XT):
+    """Plain version of :func:`fused_newton_step`: the pipeline with the
+    scans' plain versions, whatever the device."""
+    return newton_pipeline(ru, Q, R, M, fx, fu, XT, plain=True)
+
+
+def fused_newton_step(ru, Q, R, M, fx, fu, XT):
+    """One parallel Newton trial per lane.
+
+    Shapes: ru (B,T,nu), Q (B,T,nx,nx), R (B,T,nu,nu) (regularized),
+    M (B,T,nx,nu), fx (B,T,nx,nx), fu (B,T,nx,nu), XT (B,nx,nx).  Returns
+    du (B,T,nu), dx (B,T+1,nx), pred (B,), ok (B,) bool: the full step from
+    zero deviation, its predicted cost change, and whether every stage's
+    ``Quu`` and R are positive definite with a finite prediction.  CPU
+    tensors take the plain version; CUDA tensors the kernel.
+    """
+    args = (ru, Q, R, M, fx, fu, XT)
+    if cuda.on_cpu("par_newton_trial", *args):
+        return fused_newton_step_plain(*args)
+    B, T, nx, nu = fu.shape
+    if (nx, nu) not in TRIAL_SHAPES:
+        raise NotImplementedError(
+            f"par_newton_trial: no kernel for (nx, nu) = ({nx}, {nu}); "
+            f"instantiated: {TRIAL_SHAPES}")
+    code = cuda.check_inputs("par_newton_trial", args, (
+        (B, T, nu), (B, T, nx, nx), (B, T, nu, nu), (B, T, nx, nu),
+        (B, T, nx, nx), (B, T, nx, nu), (B, nx, nx)))
+    kw = dict(dtype=fu.dtype, device=fu.device)
+    gains = torch.empty((B, T, nu * (1 + nx)), **kw)
+    du = torch.empty((B, T, nu), **kw)
+    dx = torch.empty((B, T + 1, nx), **kw)
+    pred = torch.empty((B,), **kw)
+    ok = torch.empty((B,), dtype=torch.bool, device=fu.device)
+    if B == 0 or T == 0:
+        return du, dx.zero_(), pred.zero_(), ok.fill_(True)
+    lib = cuda.library(cuda.PAR_NEWTON)
+    with torch.cuda.device(fu.device):
+        status = lib.ipoc_par_newton_trial(
+            code, nx, nu, *(a.data_ptr() for a in args), gains.data_ptr(),
+            du.data_ptr(), dx.data_ptr(), pred.data_ptr(), ok.data_ptr(),
+            B, T, torch.cuda.current_stream().cuda_stream)
+    cuda.check(status, "par_newton_trial")
+    cuda.launches["par_newton_trial"] += 1
+    return du, dx, pred, ok

@@ -1,10 +1,51 @@
-"""Scenario batches (counterpart of ``make_batch`` in
-``ipoc_tpu/solvers/batched.py``; the vmapped ``solve_batch`` is later
-work, ROADMAP)."""
+"""Batched interior-point solves (counterpart of
+``ipoc_tpu/solvers/batched.py``): ``solve_batch`` and ``make_batch``.
+
+JAX ``vmap``s the single solve over the scenarios; the port runs the
+solvers on a leading lane axis B, its loops in lockstep until every lane's
+predicate is false, each lane's updates masked, so each lane equals its
+single solve (early-converged lanes wait for the slowest one).
+"""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from ipoc_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
+from ipoc_tpu_torch.problem import OCP
+from ipoc_tpu_torch.solvers.ip_newton import (
+    par_solve_batched,
+    seq_solve_batched,
+)
+
+
+class BatchSolution(NamedTuple):
+    controls: torch.Tensor    # (B, T, nu)
+    iterations: torch.Tensor  # (B,) int32 total Newton iterations per scenario
+
+
+def solve_batch(
+    ocp: OCP,
+    controls,        # (B, T, nu) warm starts
+    initial_states,  # (B, nx)
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    method: str = "par",
+) -> BatchSolution:
+    """A full interior-point solve of every scenario, on the device of
+    ``controls``: ``method`` "par" (parallel-in-time Newton) or "seq"
+    (sequential Newton).  "ddp" is not ported (ROADMAP.md, modules item 6:
+    ``interior_point_ddp``)."""
+    solvers = {"par": par_solve_batched, "seq": seq_solve_batched}
+    if method == "ddp":
+        raise ValueError(
+            "solve_batch(method='ddp') is not ported (ROADMAP.md, modules "
+            "item 6: _ddp_stage and interior_point_ddp)")
+    if method not in solvers:
+        raise ValueError(f"unknown method {method!r}")
+    u, iters = solvers[method](ocp, controls, initial_states, cfg)
+    return BatchSolution(u, iters)
 
 
 def make_batch(generator: torch.Generator, base_state, n: int, horizon: int,

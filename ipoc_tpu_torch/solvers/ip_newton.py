@@ -1,17 +1,27 @@
-"""Interior-point Newton lanes (counterpart of
-``ipoc_tpu/solvers/ip_newton.py``): the subset the unpacked single-grid
-stream runs with ``newton_impl="seq"``.  (``"fused"`` and ``"ddp"`` run
-through the packed stream, ``solvers/packed_stream.py``.)
+"""Interior-point Newton solvers (counterpart of
+``ipoc_tpu/solvers/ip_newton.py``): the parallel-in-time solve
+``par_interior_point_optimal_control`` (retry or single-trial
+globalization, staged or flat barrier schedule), the sequential validation
+solve ``seq_interior_point_optimal_control``, and the flat-mode lanes that
+the unpacked stream runs with ``newton_impl="par"`` or ``"seq"``.
+(``"fused"`` and ``"ddp"`` run through the packed stream,
+``solvers/packed_stream.py``.)
 
-Everything is batched by hand over a leading lane axis B: a lane is one
-scenario's flat-mode solve, and what JAX wrote per lane under ``vmap`` is
-written here on ``(B, ...)`` tensors.  Per-lane values (barrier parameter,
-regularization, iteration counts) are ``(B,)`` tensors.
+Everything is batched by hand over a leading lane axis B: what JAX wrote
+per scenario under ``vmap`` is written here on ``(B, ...)`` tensors.  A
+while loop runs while any lane's predicate holds (one host read per
+predicate) and every per-lane update is masked, so per-lane results equal
+the single solves.  Per-lane values (regularization, iteration counts) are
+``(B,)`` tensors; the staged schedule's barrier parameter is one 0-dim
+tensor in the controls' dtype.
 
-On a card the two Pallas kernels of this path run as the hand-written CUDA
-kernels (``ops/cuda/seq_newton.py``): the costate recursion and the
-sequential Newton trial.  Derivatives, rollouts and the stage predictor's
-transition are plain tensor code, as they were plain XLA in the JAX arm.
+On a card the Pallas kernels of these paths run as hand-written CUDA
+kernels: the parallel trial as one launch of the fused trial kernel
+(``ops/newton_kernel.py``), the parallel costates as the affine-scan kernel
+(``ops/scan_kernels.py``), and, for ``"seq"``, the costate recursion and
+the sequential trial (``ops/cuda/seq_newton.py``).  Derivatives, rollouts
+and the sequential solver's Riccati recursion are plain tensor code, as
+they were plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,46 +29,47 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import grad, jacrev
 
-from ipoc_tpu_torch.config import SolverConfig
+from ipoc_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
+from ipoc_tpu_torch.ops import cuda, linalg
 from ipoc_tpu_torch.ops.cuda.seq_newton import seq_newton_trial_batched
 from ipoc_tpu_torch.ops.derivatives import (
     check_feasibility,
     compute_first_order,
     compute_hamiltonian_lqr,
     final_hessian,
+    over_leading,
 )
-from ipoc_tpu_torch.parallel.costates import seq_costates
+from ipoc_tpu_torch.ops.newton_kernel import fused_newton_step
+from ipoc_tpu_torch.parallel.costates import par_costates, seq_costates
 from ipoc_tpu_torch.problem import OCP, Derivatives, LinearizedOCP
-from ipoc_tpu_torch.solvers.barrier import n_barrier_stages
+from ipoc_tpu_torch.solvers.barrier import barrier_loop, n_barrier_stages
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
 from ipoc_tpu_torch.utils.integrators import rollout
 
-# Step evaluators of the JAX package that these flat lanes do not run, and
-# the ROADMAP.md item ("Modules to port") that will port each.  "fused" and
-# "ddp" run through the packed stream (solvers/packed_stream.py, reached
-# from solve_stream); their unpacked lane evaluators (the fused and ddp
-# arms of _trial_eval) are not ported.
+# Step evaluators of the JAX package that these lanes do not run, and the
+# ROADMAP.md item ("Modules to port") that will port each.  Both run
+# through the packed stream (solvers/packed_stream.py, reached from
+# solve_stream); their unpacked lane evaluators (the fused and ddp arms of
+# _trial_eval) are not ported.
 _NOT_PORTED = {
-    "par": "The parallel-in-time single-solve path",
     "fused": "The unpacked fused lane evaluator",
     "ddp": "The unpacked DDP lane evaluator",
 }
 
 
 def check_newton_impl(cfg: SolverConfig) -> None:
-    """The flat lanes run ``newton_impl="seq"`` only; nothing else is
-    substituted."""
-    if cfg.newton_impl == "seq":
+    """The lanes and the staged solves run ``newton_impl="par"`` or
+    ``"seq"``; nothing else is substituted."""
+    if cfg.newton_impl in ("par", "seq"):
         return
     if cfg.newton_impl in _NOT_PORTED:
-        hint = ("; solve_stream runs it through the packed stream"
-                if cfg.newton_impl in ("fused", "ddp") else "")
         raise ValueError(
             f"newton_impl={cfg.newton_impl!r} is not ported for the flat "
             f"lanes (ROADMAP.md, modules to port: "
-            f"{_NOT_PORTED[cfg.newton_impl]!r}){hint}; use "
-            "newton_impl='seq'")
+            f"{_NOT_PORTED[cfg.newton_impl]!r}); solve_stream runs it "
+            "through the packed stream; use newton_impl='par' or 'seq'")
     raise ValueError(f"unknown newton_impl {cfg.newton_impl!r}")
 
 
@@ -82,10 +93,14 @@ def _regularized(lin: LinearizedOCP, d: Derivatives, rp, scale_by_grad: bool,
 
 
 def _costates(ocp: OCP, x_last, d: Derivatives, cfg: SolverConfig):
-    """Costates matched to the step evaluator: the sequential recursion
-    (costate kernel on a card) for ``newton_impl="seq"``."""
+    """Costates matched to the step evaluator: the parallel-in-time scan
+    (affine-scan kernel on a card) for ``newton_impl="par"``, the
+    sequential recursion (costate kernel on a card) for ``"seq"``; the
+    same values either way."""
     check_newton_impl(cfg)
-    return seq_costates(ocp, x_last, d)
+    if cfg.newton_impl == "seq":
+        return seq_costates(ocp, x_last, d)
+    return par_costates(ocp, x_last, d)
 
 
 def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
@@ -93,9 +108,13 @@ def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
     """One regularized Newton trial step per lane.
 
     Returns ``(dx, du, pred_reduction, feasible, Hu)``; the forward pass
-    starts from zero deviation, so (dx, du) are additive updates.  With
-    ``newton_impl="seq"`` the trial is the sequential Riccati recursion:
-    the trial kernel on a card, its plain version on the CPU.
+    starts from zero deviation, so (dx, du) are additive updates.
+
+    * ``newton_impl="par"``: the parallel-in-time LQT solve, on a card one
+      launch of the fused trial kernel, on the CPU its plain version (the
+      ``newton_lqt`` -> ``par_bwd_pass`` -> ``par_fwd_pass`` pipeline).
+    * ``"seq"``: the sequential Riccati recursion, the trial kernel on a
+      card, its plain version on the CPU.
     """
     check_newton_impl(cfg)
     lin_reg = _regularized(lin, d, rp, cfg.scale_reg_by_grad,
@@ -104,7 +123,9 @@ def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
         XT = lin.Q[:, 0]  # reference quirk: the LQT terminal weight is Q[0]
     else:
         XT = final_hessian(ocp, x[:, -1])
-    du, dx, pred, feasible = seq_newton_trial_batched(
+    trial = (seq_newton_trial_batched if cfg.newton_impl == "seq"
+             else fused_newton_step)
+    du, dx, pred, feasible = trial(
         *(a.contiguous() for a in (lin_reg.r, lin_reg.Q, lin_reg.R,
                                    lin_reg.M, d.fx, d.fu, XT)))
     return dx, du, pred, feasible, lin.r
@@ -148,7 +169,8 @@ class FlatLane(NamedTuple):
 
 
 def _lane_rollout(ocp: OCP, cfg: SolverConfig):
-    """Open-loop rollout for the lane paths (plain with ``"seq"``)."""
+    """Open-loop rollout for the lane paths (plain with ``"par"`` and
+    ``"seq"``)."""
     check_newton_impl(cfg)
     return lambda u, x0: rollout(ocp.dynamics, u, x0)
 
@@ -230,8 +252,7 @@ def flat_lane_iter(ocp: OCP, lane: FlatLane, cfg: SolverConfig,
     x = torch.where(_lane_view(accept, x), temp_x, x)
     u = torch.where(_lane_view(accept, u), temp_u, u)
 
-    tol_s = torch.clamp(cfg.stage_tol_scale * bp, min=cfg.tol)
-    conv = Hu_norm < tol_s
+    conv = Hu_norm < _stage_tol(cfg, bp)
     if cfg.pred_floor > 0.0:
         conv = conv | (bwd_feasible
                        & (pred.abs() < cfg.pred_floor * (1.0 + cost.abs())))
@@ -283,3 +304,307 @@ def flat_total_cap(cfg: SolverConfig) -> int:
     """Upper bound on flat-mode iterations (every stage may run to its
     cap)."""
     return n_barrier_stages(cfg) * (cfg.max_newton_iters + 1)
+
+
+# ---------------------------------------------------------------------------
+# Staged solves: one barrier stage per call, lanes in lockstep
+# ---------------------------------------------------------------------------
+
+
+def _where(mask, new, old):
+    """Per-lane select of ``(B, ...)`` tensors by a ``(B,)`` mask."""
+    return torch.where(_lane_view(mask, new), new, old)
+
+
+def _stage_start(ocp: OCP, controls, initial_state, bp):
+    """A stage's opening rollout and gradient-norm carry: NaN for a lane
+    whose warm start has a non-finite barrier cost (infeasible), which then
+    takes no iteration and returns its input."""
+    states = rollout(ocp.dynamics, controls, initial_state)
+    start_ok = torch.isfinite(ocp.total_cost(states, controls, bp))
+    init_norm = torch.where(start_ok, torch.ones_like(start_ok, dtype=bp.dtype),
+                            torch.full_like(start_ok, float("nan"),
+                                            dtype=bp.dtype))
+    return states, init_norm
+
+
+def _lane_scalars(controls, cfg: SolverConfig):
+    """Per-lane ``(it, rp, r_inc)`` at a stage's start."""
+    B = controls.shape[0]
+    kw = dict(dtype=controls.dtype, device=controls.device)
+    return (torch.zeros((B,), dtype=torch.int32, device=controls.device),
+            torch.full((B,), cfg.reg_init, **kw),
+            torch.full((B,), cfg.reg_inc_init, **kw))
+
+
+def _stage_tol(cfg: SolverConfig, bp):
+    """``max(tol, stage_tol_scale * bp)`` in bp's dtype."""
+    return torch.clamp(cfg.stage_tol_scale * bp, min=cfg.tol)
+
+
+def _newton_stage_par(ocp: OCP, controls, initial_state, bp,
+                      cfg: SolverConfig):
+    """One barrier stage of the parallel Newton method with the retry
+    globalization: per Newton iteration the cost, derivatives, costates and
+    Newton stage data once, then trials with growing regularization until
+    one is accepted.  The trial is adopted on the retry loop's exit (as in
+    the reference), except after a stall or with non-finite values; a stall
+    ends the stage through a NaN gradient norm."""
+    x, Hu_norm = _stage_start(ocp, controls, initial_state, bp)
+    u = controls
+    it, rp, r_inc = _lane_scalars(controls, cfg)
+    tol = _stage_tol(cfg, bp)
+    inf = torch.tensor(float("inf"), dtype=u.dtype, device=u.device)
+    while True:
+        run = ~((Hu_norm < tol) | (it > cfg.max_newton_iters)
+                | ~torch.isfinite(Hu_norm))
+        if not bool(run.any()):
+            break
+        cost = ocp.total_cost(x, u, bp)
+        d = compute_first_order(ocp, x, u, bp)
+        costates = _costates(ocp, x[:, -1], d, cfg)
+        lin = compute_hamiltonian_lqr(ocp, x, u, costates, bp)
+        Hu_abs = lin.r.abs().flatten(1).amax(1)
+
+        tx, tu, hn = x, u, torch.zeros_like(Hu_norm)
+        success = torch.zeros_like(run)
+        stalled = torch.zeros_like(run)
+        rp_i, ri = rp, r_inc
+        k = torch.zeros_like(it)
+        while True:
+            stop = (success | (k > cfg.max_inner_iters) | stalled
+                    | ((k > 0) & ~torch.isfinite(hn)))
+            act = run & ~stop
+            if not bool(act.any()):
+                break
+            dx, du, pred, feasible, _ = par_newton_step(ocp, x, d, rp_i, lin,
+                                                        cfg)
+            ntx, ntu = x + dx, u + du
+            new_cost = torch.where(check_feasibility(ocp, ntx, ntu),
+                                   ocp.total_cost(ntx, ntu, bp), inf)
+            rho = gain_ratio(new_cost, cost, pred)
+            ok = (rho > 0.0) & feasible
+            # Stall: a rejected trial at maximum regularization.
+            stall = ~ok & (rp_i >= cfg.reg_max) & bool(cfg.stall_exit)
+            nrp, nri = lm_update(rp_i, ri, rho, ok, cfg)
+            tx, tu = _where(act, ntx, tx), _where(act, ntu, tu)
+            hn = torch.where(act, Hu_abs, hn)
+            success = torch.where(act, ok, success)
+            stalled = torch.where(act, stall, stalled)
+            rp_i, ri = torch.where(act, nrp, rp_i), torch.where(act, nri, ri)
+            k = k + act.to(k.dtype)
+
+        trial_ok = (torch.isfinite(tu.sum((1, 2)))
+                    & torch.isfinite(tx.sum((1, 2))) & ~stalled)
+        keep = run & trial_ok
+        x, u = _where(keep, tx, x), _where(keep, tu, u)
+        hn = torch.where(stalled, torch.full_like(hn, float("nan")), hn)
+        Hu_norm = torch.where(run, hn, Hu_norm)
+        rp, r_inc = torch.where(run, rp_i, rp), torch.where(run, ri, r_inc)
+        it = it + run.to(it.dtype)
+    return x, u, it
+
+
+def _newton_stage_par_single(ocp: OCP, controls, initial_state, bp,
+                             cfg: SolverConfig):
+    """One barrier stage with the single-trial globalization: one trial per
+    Newton iteration with explicit accept/reject, no retry loop."""
+    x, Hu_norm = _stage_start(ocp, controls, initial_state, bp)
+    u = controls
+    t, rp, r_inc = _lane_scalars(controls, cfg)
+    tol = _stage_tol(cfg, bp)
+    while True:
+        run = ~((Hu_norm < tol) | (t > cfg.max_newton_iters)
+                | ~torch.isfinite(Hu_norm))
+        if not bool(run.any()):
+            break
+        cost, temp_x, temp_u, pred, feasible, hn, new_cost = _trial_eval(
+            ocp, x, u, bp, rp, cfg)
+        rho = gain_ratio(new_cost, cost, pred)
+        accept = (rho > 0.0) & feasible
+        stalled = ~accept & (rp >= cfg.reg_max) & bool(cfg.stall_exit)
+        nrp, nri = lm_update(rp, r_inc, rho, accept, cfg)
+        keep = run & accept
+        x, u = _where(keep, temp_x, x), _where(keep, temp_u, u)
+        hn = torch.where(stalled, torch.full_like(hn, float("nan")), hn)
+        if cfg.pred_floor > 0.0:
+            # Negligible predicted reduction at a convex step: numerically
+            # stationary for this precision.
+            tiny = feasible & (pred.abs()
+                               < cfg.pred_floor * (1.0 + cost.abs()))
+            hn = torch.where(tiny, torch.zeros_like(hn), hn)
+        Hu_norm = torch.where(run, hn, Hu_norm)
+        rp, r_inc = torch.where(run, nrp, rp), torch.where(run, nri, r_inc)
+        t = t + run.to(t.dtype)
+    return x, u, t
+
+
+def _newton_flat_single(ocp: OCP, controls, initial_state, cfg: SolverConfig):
+    """The whole solve as one loop with a per-lane barrier parameter
+    (``barrier_mode="flat"``): :func:`flat_lane_iter` on the lanes that are
+    not done and under the total iteration cap."""
+    total_cap = flat_total_cap(cfg)
+    lane = flat_lane_init(ocp, controls, initial_state, cfg)
+    while True:
+        adv = ~lane.done & (lane.it < total_cap)
+        if not bool(adv.any()):
+            break
+        lane = flat_lane_iter(ocp, lane, cfg, adv)
+    return lane.u, lane.it
+
+
+def par_solve_batched(ocp: OCP, controls, initial_states,
+                      cfg: SolverConfig = DEFAULT_CONFIG):
+    """The parallel-in-time solve of every lane of ``controls (B, T, nu)``
+    from ``initial_states (B, nx)``: ``(controls (B, T, nu), iterations
+    (B,) int32)``, each lane equal to its single solve."""
+    if controls.device.type == "cuda":
+        cuda.disable_tf32()
+    if cfg.barrier_mode == "flat":
+        if cfg.globalization != "single":
+            raise ValueError(
+                "barrier_mode='flat' requires globalization='single' "
+                "(the retry loop is itself a lockstep barrier across lanes)")
+        return _newton_flat_single(ocp, controls, initial_states, cfg)
+    stage_fn = (_newton_stage_par_single if cfg.globalization == "single"
+                else _newton_stage_par)
+
+    def stage(u, bp):
+        _, u, iters = stage_fn(ocp, u, initial_states, bp, cfg)
+        return u, iters
+
+    return barrier_loop(stage, controls, cfg)
+
+
+def par_interior_point_optimal_control(ocp: OCP, controls, initial_state,
+                                       cfg: SolverConfig = DEFAULT_CONFIG):
+    """Parallel-in-time interior-point Newton solve of one scenario, the
+    flagship entry point: ``controls (T, nu)``, ``initial_state (nx,)`` ->
+    ``(optimal controls (T, nu), total Newton iterations)`` (a 0-dim int32
+    tensor).  Runs on the device of ``controls``."""
+    u, it = par_solve_batched(ocp, controls[None], initial_state[None], cfg)
+    return u[0], it[0]
+
+
+# ---------------------------------------------------------------------------
+# Sequential Newton solver (validation spine)
+# ---------------------------------------------------------------------------
+
+
+def seq_bwd_newton(final_cost, xN, lin: LinearizedOCP, d: Derivatives, rp):
+    """Sequential Riccati backward pass on Newton stage data, per lane.
+
+    ``rp (B,)`` is added to Quu unscaled.  Cholesky solves, a Cholesky-
+    success convexity flag, and the terminal condition ``Vxx =
+    hessian(final_cost)(xN)``, ``Vx = 0`` (the costates carry the gradient
+    part).  Returns ``K (B,T,nu,nx)``, ``k (B,T,nu)``, the predicted
+    reduction ``(B,)`` and the convexity flag ``(B,)``.
+    """
+    Vxx = over_leading(jacrev(grad(final_cost)), xN.shape[:-1], xN)
+    Vx = torch.zeros_like(xN)
+    T, nu = lin.R.shape[1], lin.R.shape[-1]
+    eye = torch.eye(nu, dtype=lin.R.dtype, device=lin.R.device)
+    reg = rp[:, None, None] * eye
+    Ks, ks, dvs = [None] * T, [None] * T, [None] * T
+    convex = torch.ones_like(rp, dtype=torch.bool)
+    for t in range(T - 1, -1, -1):
+        r, Q, R, M = lin.r[:, t], lin.Q[:, t], lin.R[:, t], lin.M[:, t]
+        fx, fu = d.fx[:, t], d.fu[:, t]
+        fxT, fuT = fx.transpose(-1, -2), fu.transpose(-1, -2)
+        Qxx = Q + fxT @ Vxx @ fx
+        Quu = R + fuT @ Vxx @ fu + reg
+        Qxu = M + fxT @ Vxx @ fu
+        Qu = r + (fuT @ Vx[..., None])[..., 0]
+        Qx = (fxT @ Vx[..., None])[..., 0]
+        convex = convex & linalg.is_posdef(Quu, batch_dims=1)
+        # One factorization for both gains: Quu [k | K] = -[Qu | Qxu^T].
+        sol = linalg.cholesky_solve(
+            Quu, torch.cat([Qu[..., None], Qxu.transpose(-1, -2)], dim=-1))
+        k, K = -sol[..., 0], -sol[..., 1:]
+        Vx = Qx + (Qxu @ k[..., None])[..., 0]
+        Vxx = linalg.sym(Qxx + Qxu @ K)
+        dvs[t] = ((k * Qu).sum(-1)
+                  + 0.5 * (k * (Quu @ k[..., None])[..., 0]).sum(-1))
+        Ks[t], ks[t] = K, k
+    return (torch.stack(Ks, dim=1), torch.stack(ks, dim=1),
+            torch.stack(dvs, dim=1).sum(-1), convex)
+
+
+def seq_fwd_newton(K, k, d: Derivatives):
+    """Linear deviation rollout: ``dx0 = 0``, ``dx+ = (fx + fu K) dx +
+    fu k``, ``du = K dx + k``, per lane."""
+    dx = [torch.zeros(K.shape[:1] + K.shape[-1:], dtype=K.dtype,
+                      device=K.device)]
+    for t in range(K.shape[1]):
+        fx, fu = d.fx[:, t], d.fu[:, t]
+        nxt = ((fx + fu @ K[:, t]) @ dx[-1][..., None])[..., 0] \
+            + (fu @ k[:, t, :, None])[..., 0]
+        dx.append(nxt)
+    dx = torch.stack(dx, dim=1)
+    du = (K @ dx[:, :-1, :, None])[..., 0] + k
+    return du, dx
+
+
+def _newton_stage_seq(ocp: OCP, controls, initial_state, bp,
+                      cfg: SolverConfig):
+    """One barrier stage of the sequential Newton method: one trial per
+    iteration with explicit accept/reject; it stops on convergence with a
+    convex backward pass, at ``max_newton_iters``, or on a non-finite
+    gradient norm (a stall sets it NaN)."""
+    x, Hu_norm = _stage_start(ocp, controls, initial_state, bp)
+    u = controls
+    t, mu, nu_ = _lane_scalars(controls, cfg)
+    bp_feasible = torch.ones_like(Hu_norm, dtype=torch.bool)
+    tol = _stage_tol(cfg, bp)
+    inf = torch.tensor(float("inf"), dtype=u.dtype, device=u.device)
+    while True:
+        converged = (Hu_norm < tol) & bp_feasible
+        run = ~(converged | (t >= cfg.max_newton_iters)
+                | ~torch.isfinite(Hu_norm))
+        if not bool(run.any()):
+            break
+        cost = ocp.total_cost(x, u, bp)
+        d = compute_first_order(ocp, x, u, bp)
+        costates = seq_costates(ocp, x[:, -1], d)
+        lin = compute_hamiltonian_lqr(ocp, x, u, costates, bp)
+        K, k, pred, feasible = seq_bwd_newton(ocp.final_cost, x[:, -1], lin,
+                                              d, mu)
+        du, dx = seq_fwd_newton(K, k, d)
+        hn = lin.r.abs().flatten(1).amax(1)
+        temp_x, temp_u = x + dx, u + du
+        new_cost = torch.where(check_feasibility(ocp, temp_x, temp_u),
+                               ocp.total_cost(temp_x, temp_u, bp), inf)
+        rho = gain_ratio(new_cost, cost, pred)
+        accept = (rho > 0) & feasible
+        stalled = ~accept & (mu >= cfg.reg_max) & bool(cfg.stall_exit)
+        nmu, nnu = lm_update(mu, nu_, rho, accept, cfg)
+        keep = run & accept
+        x, u = _where(keep, temp_x, x), _where(keep, temp_u, u)
+        hn = torch.where(stalled, torch.full_like(hn, float("nan")), hn)
+        Hu_norm = torch.where(run, hn, Hu_norm)
+        bp_feasible = torch.where(run, feasible, bp_feasible)
+        mu, nu_ = torch.where(run, nmu, mu), torch.where(run, nnu, nu_)
+        t = t + run.to(t.dtype)
+    return x, u, t
+
+
+def seq_solve_batched(ocp: OCP, controls, initial_states,
+                      cfg: SolverConfig = DEFAULT_CONFIG):
+    """The sequential solve of every lane: ``(controls (B, T, nu),
+    iterations (B,) int32)``."""
+    if controls.device.type == "cuda":
+        cuda.disable_tf32()
+
+    def stage(u, bp):
+        _, u, iters = _newton_stage_seq(ocp, u, initial_states, bp, cfg)
+        return u, iters
+
+    return barrier_loop(stage, controls, cfg)
+
+
+def seq_interior_point_optimal_control(ocp: OCP, controls, initial_state,
+                                       cfg: SolverConfig = DEFAULT_CONFIG):
+    """Sequential interior-point Newton solve of one scenario (the
+    validation path): ``(controls (T, nu), iterations)``."""
+    u, it = seq_solve_batched(ocp, controls[None], initial_state[None], cfg)
+    return u[0], it[0]

@@ -390,3 +390,164 @@ def test_mega_raises_on_aliased_lane(card):
         mega.mega_k_iterations(ocp, lane._replace(u_prev=lane.u),
                                torch.ones(8, dtype=torch.bool, device=card),
                                cfg, 2)
+
+
+# ---------------------------------------------------------------------------
+# The parallel-in-time kernels: affine scan, value scan, one-launch trial
+# ---------------------------------------------------------------------------
+
+SCAN_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+def _rel_err(got, ref):
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+def _random_lqt(B, T, nx, nu, seed, dtype, device):
+    """A random well-conditioned LQT (tests/conftest.py make_random_lqt's
+    recipe) with a leading lane axis."""
+    from ipoc_tpu_torch.parallel.lqt import LQT
+
+    rng = np.random.default_rng(seed)
+
+    def psd(n, scale, *lead):
+        A = rng.normal(size=lead + (n, n))
+        return scale * (A @ np.swapaxes(A, -1, -2) + n * np.eye(n))
+
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    eye = lambda n, *lead: t(np.broadcast_to(np.eye(n), lead + (n, n)))
+    return LQT(
+        A=t(0.5 * rng.normal(size=(B, T, nx, nx))),
+        B=t(rng.normal(size=(B, T, nx, nu))),
+        c=t(0.3 * rng.normal(size=(B, T, nx))),
+        XT=t(psd(nx, 1.0, B)), HT=eye(nx, B), rT=t(rng.normal(size=(B, nx))),
+        X=t(psd(nx, 0.5, B, T)), H=eye(nx, B, T),
+        r=t(rng.normal(size=(B, T, nx))),
+        U=t(psd(nu, 1.0, B, T)), Z=eye(nu, B, T),
+        s=t(rng.normal(size=(B, T, nu))),
+        M=t(0.2 * rng.normal(size=(B, T, nx, nu))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_scan_kernels_match_plain(card, n, dtype):
+    """Both affine-scan directions and the value scan against their plain
+    versions (the associative scan) on the same card, at horizons below,
+    at and above a multiple of the block's 128 threads."""
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+    from ipoc_tpu_torch.parallel.lqt import _elements
+
+    tol = SCAN_TOL[dtype]
+    rng = np.random.default_rng(n)
+    for T in (5, 128, 130, 1001):
+        F = torch.tensor(0.5 * rng.normal(size=(3, T, n, n)), dtype=dtype,
+                         device=card)
+        c = torch.tensor(rng.normal(size=(3, T, n)), dtype=dtype,
+                         device=card)
+        for reverse in (True, False):
+            cuda.reset_launches()
+            got = sk.affine_scan(F, c, reverse)
+            assert cuda.launches["affine_scan"] == 1
+            ref = sk.affine_scan_plain(F, c, reverse)
+            for g, r in zip(got, ref):
+                assert _rel_err(g, r) <= tol, (T, reverse)
+        if T > 300:
+            continue
+        elems = [e.contiguous() for e in _elements(
+            _random_lqt(3, T, n, 2, T, dtype, card))]
+        cuda.reset_launches()
+        got = sk.value_scan(*elems)
+        assert cuda.launches["value_scan"] == 1
+        for g, r in zip(got, sk.value_scan_plain(*elems)):
+            assert _rel_err(g, r) <= tol, T
+
+
+def _trial_data(case, dtype, device):
+    if case == "cartpole_T100":
+        return _model_data(cartpole, 64, 100, 0, dtype, device)[0]
+    if case == "cartpole_T1000":
+        return _model_data(cartpole, 4, 1000, 5, dtype, device)[0]
+    if case == "pendulum_T130":
+        return _model_data(pendulum, 16, 130, 1, dtype, device)[0]
+    return _random_data(16, 129, 3, 2, 2, dtype, device)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["cartpole_T100", "cartpole_T1000",
+                                  "pendulum_T130", "random_nx3_nu2"])
+def test_par_newton_trial_matches_plain(card, case, dtype):
+    """The one-launch trial against its plain version (the pipeline on the
+    scans' plain versions) and against the pipeline on the scan kernels:
+    du/dx within the kernels' tolerance of du's scale, pred relative,
+    equal ok flags."""
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+
+    tol = SCAN_TOL[dtype]
+    args = _trial_data(case, dtype, card)
+    cuda.reset_launches()
+    du, dx, pred, ok = nk.fused_newton_step(*args)
+    assert cuda.launches["par_newton_trial"] == 1
+    for ref in (nk.fused_newton_step_plain(*args),
+                nk.newton_pipeline(*args)):
+        du_p, dx_p, pred_p, ok_p = ref
+        assert torch.equal(ok, ok_p) and bool(ok.all())
+        scale = float(du_p.abs().max())
+        assert float((du - du_p).abs().max()) <= tol * scale
+        assert float((dx - dx_p).abs().max()) <= tol * scale
+        assert float(((pred - pred_p).abs() / pred_p.abs()).max()) <= tol
+    assert cuda.launches["value_scan"] == cuda.launches["affine_scan"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_par_newton_trial_indefinite_lane(card, dtype):
+    """An indefinite R on one stage of one lane fails that lane only."""
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+
+    ru, Q, R, M, fx, fu, XT = _trial_data("cartpole_T100", dtype, card)
+    R = R.clone()
+    R[3, 17] = -1.0
+    ok = nk.fused_newton_step(ru, Q, R, M, fx, fu, XT)[3]
+    ok_p = nk.fused_newton_step_plain(ru, Q, R, M, fx, fu, XT)[3]
+    assert torch.equal(ok, ok_p)
+    assert not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1
+
+
+def test_scan_kernels_raise_on_uninstantiated_shape(card):
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    F = torch.zeros((2, 5, 5, 5), device=card)
+    with pytest.raises(NotImplementedError):
+        sk.affine_scan(F, torch.zeros((2, 5, 5), device=card))
+    with pytest.raises(NotImplementedError):
+        nk.fused_newton_step(*_random_data(2, 5, 5, 1, 3, torch.float32,
+                                           card)[0])
+
+
+def test_par_solve_on_card_matches_cpu(card):
+    """The parallel-in-time solve of a float64 pendulum batch on the card
+    (kernels) against the CPU (plain versions): equal iterations and
+    controls within 1e-8 on every lane; in a single solve every Newton
+    iteration is one affine scan and every trial one launch of the trial
+    kernel."""
+    from ipoc_tpu_torch import par_interior_point_optimal_control
+    from ipoc_tpu_torch import DEFAULT_CONFIG, solve_batch
+
+    T = 20
+    ocp = pendulum.make_ocp(1.0 / T)
+    rng = np.random.default_rng(6)
+    x0 = pendulum.initial_state(torch.float64).numpy()
+    u0 = torch.tensor(0.1 * rng.normal(size=(3, T, 1)))
+    x0b = torch.tensor(x0 + 0.01 * rng.normal(size=(3, 2)))
+    got = solve_batch(ocp, u0.to(card), x0b.to(card), DEFAULT_CONFIG)
+    ref = solve_batch(ocp, u0, x0b, DEFAULT_CONFIG)
+    assert torch.equal(got.iterations.cpu(), ref.iterations)
+    np.testing.assert_allclose(got.controls.cpu().numpy(),
+                               ref.controls.numpy(), rtol=0, atol=1e-8)
+    cuda.reset_launches()
+    _, it = par_interior_point_optimal_control(ocp, u0[0].to(card),
+                                               x0b[0].to(card))
+    assert int(it) == int(ref.iterations[0])
+    assert cuda.launches["affine_scan"] == int(it)
+    assert cuda.launches["par_newton_trial"] >= int(it)

@@ -166,19 +166,33 @@ def test_transition_runs_only_on_rolling_lanes(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["par", "fused", "ddp"])
 def test_other_evaluators_raise(impl):
-    """The flat lanes run newton_impl='seq' only; the others name their
+    """The flat lanes run newton_impl='seq' and 'par'; the others name their
     ROADMAP item instead of being substituted.  ('fused' and 'ddp' run
     through the packed stream, tests/test_torch_packed_stream.py; their
-    unpacked lane evaluators are not ported.)"""
+    unpacked lane evaluators are not ported.)  The 'par' case, which used
+    to raise, now checks the parallel-in-time evaluator's stream against
+    JAX's: equal per-scenario iterations and steps, controls within 1e-9."""
     tocp = t_pendulum.make_ocp(0.1)
     u = torch.zeros((2, 10, 1), dtype=torch.float64)
     x = torch.zeros((2, 2), dtype=torch.float64)
     cfg = T_CFG.replace(newton_impl=impl)
+    if impl == "par":
+        T = 12
+        u0, x0b = _pool(j_pendulum, 5, T, seed=7)
+        jocp, tocp = j_pendulum.make_ocp(1.0 / T), t_pendulum.make_ocp(1.0 / T)
+        ref = jax.jit(lambda u, x: j_solve_stream(
+            jocp, u, x, CFG.replace(newton_impl="par"), lanes=LANES,
+            refill_every=REFILL))(jnp.asarray(u0), jnp.asarray(x0b))
+        got = to_numpy(solve_stream(tocp, *pool_from_numpy(u0, x0b), cfg,
+                                    lanes=LANES, refill_every=REFILL))
+        np.testing.assert_array_equal(got.iterations,
+                                      np.asarray(ref.iterations))
+        assert got.steps == int(ref.steps)
+        np.testing.assert_allclose(got.controls, np.asarray(ref.controls),
+                                   rtol=0, atol=1e-9)
+        return
     with pytest.raises(ValueError, match="ROADMAP"):
-        if impl in ("fused", "ddp"):
-            ip_newton.flat_lane_init(tocp, u, x, cfg)
-        else:
-            solve_stream(tocp, u, x, cfg)
+        ip_newton.flat_lane_init(tocp, u, x, cfg)
 
 
 def test_stream_requires_single_globalization():
