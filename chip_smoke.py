@@ -7,8 +7,10 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``ipoc_tpu_torch/csrc`` (the seq
 and parallel-in-time libraries and one fused library per model and time
-step, generated from the model; parallel ``nvcc`` calls) and then runs its phases,
-each printing one JSON line:
+step, generated from the model: cartpole at dt 0.01, 0.04, 0.001 and 0.004,
+pendulum at 0.01, each model traced in a worker process of its own;
+parallel ``nvcc`` calls) and then runs its phases, each printing one JSON
+line:
 
   0. the device: its name, power limit, the kernels' build time, and the
      registers and spills ``ptxas`` reports for the mega kernel, the
@@ -25,10 +27,11 @@ each printing one JSON line:
      32, a pool of 1 x 4096 scenarios (cut from 4 x 4096 to keep the
      script inside its time limit: this host-bound path takes some 60 s at
      4 x 4096);
-  D. the four fused kernels against their plain versions on the fused
+  D. the five fused kernels against their plain versions on the fused
      slice's data (cartpole T=100, the pool's first 4096 lanes, at bp=0.1
      and at bp=0.004), float64 then float32, and on pendulum at B=256;
-     then each kernel's time beside its plain version's;
+     the rollout kernel also on cartpole T=1000 at B=256 (float64 within
+     1e-12 of scale); then each kernel's time beside its plain version's;
   E. ``solve_stream`` with ``BATCH_CONFIG`` (the packed stream on its mega
      executor) on 256 cartpole scenarios in float64: the card against the
      CPU;
@@ -64,21 +67,43 @@ each printing one JSON line:
   L. ``par_interior_point_optimal_control``: the goldens (pendulum and
      cartpole H=100, float64) against tests/golden/*.npz and the CPU run,
      the seq solve beside them; cartpole H=1000 under FAST_CONFIG in
-     float32 and float64 with iterations, trials, wall time (median of 5),
-     host reads and launches per solve, and the busy share over the first
-     barrier stage;
+     float32 and float64 with iterations, trials, wall time (median of 3,
+     cut from 5 when phases N and O came), host reads and launches per
+     solve, and the busy share over the first barrier stage;
   M. ``solve_batch(method="par")`` on the pool's first 1024 scenarios in
      float32 under FAST_CONFIG (the busy share over its first 11 lockstep
-     iterations); then 256 scenarios in float64, the card against the
-     CPU.
+     iterations); then 128 scenarios (cut from 256) in float64, the card
+     against the CPU;
+  N. bench.py's batch mode: ``solve_batch(ocp, u, x0, cfg)`` on the pool's
+     first 4096 cartpole H=100 scenarios in float32 under ``BATCH_CONFIG``
+     (staged), its flat schedule, ``newton_impl="ddp"`` and flat DDP
+     without the stage predictor: wall, iterations, lockstep iterations,
+     host reads, the busy share over the first 11 lockstep iterations, and
+     every kernel's launches held to their exact counts (the fused trial's
+     kernels or the merged trial once per lockstep iteration, the rollout
+     kernel once per flat open and once per rollover iteration without the
+     predictor, the transition kernel once per rollover iteration with
+     it); the flat batch against the packed stream on the same scenarios;
+     then (Nflat, Nddp) 128 scenarios in float64, the card against the CPU;
+  O. the long horizon, cartpole H=1000 (dt 1e-3), where the JAX package
+     runs its streamed mega kernel: the mega kernel against its plain
+     version with that kernel's test matrix (Newton and DDP, two k-blocks
+     of 2, two iterations per stage) on 256 lanes, float64 then float32;
+     one k=2 launch on 4096 lanes beside its plain version and bound, and
+     k=32 launches (DDP at T=250); ``solve_stream(BATCH_CONFIG)`` on a pool
+     of 1 x 4096 and ``solve_stream_multigrid`` (a DDP coarse level at
+     T=250) on the same pool, with launch counts; in float64 on 256
+     scenarios the mega executor against the two-launch arm, Newton and
+     DDP.
 
-Phases B, E, J and the second half of M run last: their CPU halves (and
-L's CPU golden solves) run meanwhile, in one child process each, started
-at the beginning.  A failed check fails its phase; the other phases still
+Phases B, E, J and the second halves of M and N run last: their CPU halves
+(and L's CPU golden solves) run meanwhile, in one child process each,
+started at the beginning.  A failed check fails its phase; the other phases still
 run, and any failure exits non-zero.  The line before the last holds the
 kernels' record; the last line is ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset of A-M (default: all; phase 0, the device and
-the build, always runs).  Without a card, or outside a checkout of the
+``--phases`` runs a subset of A-O (default: all; phase 0, the device and
+the build, always runs).  The line before the kernels' record gives the
+script's total seconds.  Without a card, or outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
 
@@ -113,20 +138,30 @@ F32_TOL = 1e-4
 # runs in float32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# The parallel-in-time slice: the goldens' horizon and the reference
-# sweep's longest (H * dt = 1 s), and the batch of phase M.
-PAR_HORIZONS = (T, 1000)
+# The reference sweep's longest horizon (H * dt = 1 s): phase L's single
+# solve and phase O's streams.
+LONG_T = 1000
+# The parallel-in-time slice: the goldens' horizon and the longest, and
+# the batch of phase M.
+PAR_HORIZONS = (T, LONG_T)
 PAR_BATCH = 1024
+# Scenarios of the card-against-CPU phases (256 unless listed).
+CARD_VS_CPU_SCENARIOS = {"M": 128, "Nflat": 128, "Nddp": 128}
+
+
+def model_ocp(name, coarsen=1, horizon=T):
+    """One OCP object per model, horizon and coarsening (the time step is
+    ``coarsen / horizon``: H * dt = 1 s), shared by every phase: the fused
+    library and its generated code are cached per OCP object."""
+    return _model_ocp(name, coarsen, horizon)
 
 
 @functools.lru_cache(maxsize=None)
-def model_ocp(name, coarsen=1):
-    """One OCP object per model and time step, shared by every phase: the
-    fused library and its generated code are cached per OCP object."""
+def _model_ocp(name, coarsen, horizon):
     from ipoc_tpu_torch.models import cartpole, pendulum
 
     model = {"cartpole": cartpole, "pendulum": pendulum}[name]
-    return model.make_ocp(coarsen * DT)
+    return model.make_ocp(coarsen * (1.0 / horizon))
 
 
 def check(cond, msg):
@@ -361,7 +396,26 @@ def compare_costates(args, tol, label):
     return {"max_abs_err": err, "scale": scale}
 
 
+# The fused libraries phase 0 builds: (model, coarsen, horizon, nx).
+FUSED_MODELS = (("cartpole", 1, T, 4), ("cartpole", COARSEN, T, 4),
+                ("pendulum", 1, T, 2), ("cartpole", 1, LONG_T, 4),
+                ("cartpole", COARSEN, LONG_T, 4))
+
+
+def traced_programs(name, coarsen, horizon, nx):
+    """One model's scalarized stage programs, traced in a worker process
+    (``phase_device`` runs one per model, all at once)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ipoc_tpu_torch.ops import fused_iter
+
+    return fused_iter.scalar_programs(model_ocp(name, coarsen, horizon), nx,
+                                      1)
+
+
 def phase_device():
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     from ipoc_tpu_torch.ops import cuda
@@ -375,10 +429,16 @@ def phase_device():
     power = smi.stdout.strip().splitlines()[0]
     print(power, flush=True)
     t0 = time.perf_counter()
-    specs = [cuda.SEQ_NEWTON, cuda.PAR_NEWTON,
-             fused_iter.model_spec(model_ocp("cartpole"), 4, 1),
-             fused_iter.model_spec(model_ocp("cartpole", COARSEN), 4, 1),
-             fused_iter.model_spec(model_ocp("pendulum"), 2, 1)]
+    # The codegen traces each model's stage programs (some 15 s of Python
+    # per model on the card's host): one worker process per model.
+    with ProcessPoolExecutor(len(FUSED_MODELS), multiprocessing.get_context(
+            "spawn")) as pool:
+        traced = list(pool.map(traced_programs, *zip(*FUSED_MODELS)))
+    specs = [cuda.SEQ_NEWTON, cuda.PAR_NEWTON]
+    for (model, coarsen, horizon, nx), progs in zip(FUSED_MODELS, traced):
+        ocp = model_ocp(model, coarsen, horizon)
+        fused_iter.scalar_programs(ocp, nx, 1, traced=progs)
+        specs.append(fused_iter.model_spec(ocp, nx, 1))
     codegen_s = time.perf_counter() - t0
     paths = cuda.build_all(specs)
     build_s = time.perf_counter() - t0
@@ -511,14 +571,17 @@ CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
                "E": "BATCH_CONFIG",
                "J": "solve_stream_multigrid(coarsen=4, coarse_impl='ddp'), "
                     "BATCH_CONFIG",
-               "M": "solve_batch(method='par'), FAST_CONFIG"}
+               "M": "solve_batch(method='par'), FAST_CONFIG",
+               "Nflat": "solve_batch, BATCH_CONFIG.replace(barrier_mode="
+                        "'flat')",
+               "Nddp": "solve_batch, BATCH_CONFIG.replace(newton_impl='ddp')"}
 
 
 def card_vs_cpu_solve(phase, u, x0):
-    """The solve that phase B, E, J or M runs on both sides: 256 scenarios
-    (through 64 lanes for the streams; in one lockstep batch for M).
-    Returns ``(controls, iterations, steps, extra)``, ``extra`` the coarse
-    level's iterations and steps for J."""
+    """The solve that phase B, E, J, M or N runs on both sides: 256
+    scenarios through 64 lanes for the streams, 128 in one lockstep batch
+    for M and N.  Returns ``(controls, iterations, steps, extra)``,
+    ``extra`` the coarse level's iterations and steps for J."""
     from ipoc_tpu_torch import (
         BATCH_CONFIG,
         FAST_CONFIG,
@@ -528,8 +591,10 @@ def card_vs_cpu_solve(phase, u, x0):
     )
 
     ocp = model_ocp("cartpole")
-    if phase == "M":
-        sol = solve_batch(ocp, u, x0, FAST_CONFIG, method="par")
+    if phase in ("M", "Nflat", "Nddp"):
+        cfg = (FAST_CONFIG if phase == "M" else
+               batch_cfg("flat" if phase == "Nflat" else "ddp"))
+        sol = solve_batch(ocp, u, x0, cfg, method="par")
         return sol.controls, sol.iterations.cpu(), None, {}
     if phase == "J":
         sol = solve_stream_multigrid(
@@ -545,34 +610,40 @@ def card_vs_cpu_solve(phase, u, x0):
 
 
 def cpu_reference_solve(phase):
-    """The CPU half of phase B, E, J or M: the solve with the plain
-    versions on the 256 float64 scenarios.  Runs in a child process
-    (``--cpu-reference B|E|J|M``, one thread) while the card works through
-    the other phases; returns ``(controls, iterations, steps, extra,
-    wall_s)``.  For L, the goldens' parallel solves
-    (:func:`golden_par_cpu`)."""
+    """The CPU half of phase B, E, J, M or N: the solve with the plain
+    versions on the float64 scenarios.  Runs in a child process
+    (``--cpu-reference B|E|J|M|N``) while the card works through the other
+    phases; returns ``(controls, iterations, steps, extra, wall_s)``, for N
+    a dict of those for Nflat and Nddp, which one process runs in turn.
+    For L, the goldens' parallel solves (:func:`golden_par_cpu`)."""
     import torch
 
     from ipoc_tpu_torch.models import cartpole
 
     # M's lockstep batch does larger tensor ops than the streams' 64
-    # lanes; a few threads keep its CPU half off the script's critical path.
-    torch.set_num_threads(4 if phase == "M" else 1)
+    # lanes; a second thread keeps its CPU half off the script's critical
+    # path.
+    torch.set_num_threads(2 if phase == "M" else 1)
     if phase == "L":
         return golden_par_cpu()
-    u, x0 = (a[:256].double() for a in make_pool(cartpole, POOL,
-                                                  torch.float32))
-    t0 = time.perf_counter()
-    out = card_vs_cpu_solve(phase, u, x0)
-    return (*out, time.perf_counter() - t0)
+    pool = make_pool(cartpole, POOL, torch.float32)
+    out = {}
+    for ph in ("Nflat", "Nddp") if phase == "N" else (phase,):
+        n = CARD_VS_CPU_SCENARIOS.get(ph, 256)
+        u, x0 = (a[:n].double() for a in pool)
+        t0 = time.perf_counter()
+        out[ph] = (*card_vs_cpu_solve(ph, u, x0), time.perf_counter() - t0)
+    return out if phase == "N" else out[phase]
 
 
 def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
     """Phases B (seq stream), E (packed stream), J (multigrid) and the
-    second half of M (solve_batch): 256 float64 scenarios, the card
-    (kernels) against the CPU (plain versions, ``cpu_ref``)."""
+    second halves of M and N (solve_batch): 256 float64 scenarios, 128 for
+    M and N, the card (kernels) against the CPU (plain versions,
+    ``cpu_ref``)."""
     ocp = model_ocp("cartpole")
-    u, x0 = (a[:256] for a in pool64)
+    n = CARD_VS_CPU_SCENARIOS.get(phase, 256)
+    u, x0 = (a[:n] for a in pool64)
     t0 = time.perf_counter()
     u_card, it_card, steps_card, extra_card = card_vs_cpu_solve(
         phase, u.to(dev), x0.to(dev))
@@ -587,8 +658,8 @@ def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
     odd = (~same | (du_lane > 1e-9)).nonzero().squeeze(1)
     c_card = raw_costs(ocp, u_card[odd], x0[odd])
     c_cpu = raw_costs(ocp, u_cpu[odd], x0[odd])
-    emit({"phase": phase, "config": CARD_VS_CPU[phase], "scenarios": 256,
-          "lanes": 256 if phase == "M" else 64, "dtype": "float64",
+    emit({"phase": phase, "config": CARD_VS_CPU[phase], "scenarios": n,
+          "lanes": 64 if steps_card is not None else n, "dtype": "float64",
           "lanes_with_different_iterations": n_diff,
           "max_abs_du_on_equal_lanes": du,
           "equal_lanes_with_du_above": {
@@ -727,7 +798,7 @@ def two_launch_at_width(ocp, u, x0, cfg, lanes):
 
 def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
                           lane_fns=None, counters=None, solve=solve_at_width,
-                          whole_run_busy=False):
+                          whole_run_busy=False, ocp=None):
     """Phases C (seq), F (two-launch arm) and H (mega executor): a stream at
     the bench's width on ``pool32``, float32, its launch counts, the
     quality of what comes out, the first 512 raw costs against the float64
@@ -740,8 +811,9 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
     import torch
 
     from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
 
-    ocp = model_ocp("cartpole")
+    ocp = ocp or model_ocp("cartpole")
     u, x0 = (a.to(dev) for a in pool32)
     n = u.shape[0]
     # Warm-up: a small stream (library load, allocator, torch.func caches).
@@ -759,6 +831,7 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
 
     costs = raw_costs(ocp, sol.controls, x0).double().cpu()
     iters = sol.iterations.cpu().double()
+    cap = flat_total_cap(cfg)
     finite = bool(torch.isfinite(sol.controls).all())
     umax = float(sol.controls.abs().max())
     nonfinite = float((~torch.isfinite(costs)).double().mean())
@@ -770,7 +843,7 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
                   .double().mean())
 
     record = {
-        "phase": phase, "model": "cartpole", "horizon": T,
+        "phase": phase, "model": "cartpole", "horizon": u.shape[1],
         "dtype": "float32", "config": cfg_name, "lanes": LANES,
         "refill_every": REFILL, "scenarios": n,
         "pool_note": f"{n // LANES} x lanes (the bench's pool is 32 x "
@@ -779,6 +852,7 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
         "ms_per_step_whole_run": wall / max(sol.steps, 1) * 1e3,
         "mean_iterations": float(iters.mean()),
         "max_iterations": int(iters.max()),
+        "lanes_at_iteration_cap": {f"{cap}": int((iters >= cap).sum())},
         "mean_raw_cost": float(costs.mean()),
         "frac_nonfinite_cost": nonfinite, "launches": counts, **events,
         "max_abs_u": umax,
@@ -867,8 +941,32 @@ def fused_inputs(pool, dtype, device, bp, rp=100.0):
     return u, u_other, x0, bpt, rp
 
 
+def rollout_tol(dtype):
+    """The rollout kernel's tolerance against its plain version, relative to
+    each output's scale: no reduction and no Riccati sweep, only the
+    dynamics' rounding carried through T steps."""
+    import torch
+
+    return 1e-12 if dtype == torch.float64 else F32_TOL
+
+
+def compare_rollout(ocp, u, x0, label):
+    """The rollout kernel against its plain version; the first stage must
+    be x0 itself."""
+    import torch
+
+    from ipoc_tpu_torch.ops import fused_iter as tf
+
+    got = tf.rollout_packed(ocp, u, x0)
+    check(torch.equal(got[0][0], x0), f"{label} rollout: xs[0] != x0")
+    errs = [compare_out(f"{label} rollout[{i}]", g, r, rollout_tol(u.dtype))
+            for i, (g, r) in enumerate(zip(got, tf.rollout_plain(ocp, u, x0)))]
+    return {"max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs)}
+
+
 def compare_fused(ocp, pool, dtype, device, bp, tol, label):
-    """All four kernels against their plain versions on one input set;
+    """All five kernels against their plain versions on one input set;
     returns each kernel's largest absolute and relative error over its
     outputs."""
     import torch
@@ -894,7 +992,7 @@ def compare_fused(ocp, pool, dtype, device, bp, tol, label):
         "transition": zip(range(8), tf.transition_packed(ocp, u, up, x0, bpt),
                           tf.transition_plain(ocp, u, up, x0, bpt)),
     }
-    out = {}
+    out = {"rollout": compare_rollout(ocp, u, x0, label)}
     for kernel, triples in outputs.items():
         errs = [compare_out(f"{label} {kernel}[{n}]", g, r, tol)
                 for n, g, r in triples]
@@ -909,10 +1007,10 @@ def compare_fused(ocp, pool, dtype, device, bp, tol, label):
 
 
 def phase_fused_kernels(pool32, dev):
-    """Phase D: the four fused kernels against their plain versions."""
+    """Phase D: the five fused kernels against their plain versions."""
     import torch
 
-    from ipoc_tpu_torch.models import pendulum
+    from ipoc_tpu_torch.models import cartpole, pendulum
     from ipoc_tpu_torch.ops import fused_iter as tf
 
     out = {"phase": "D"}
@@ -927,6 +1025,12 @@ def phase_fused_kernels(pool32, dev):
         pp = make_pool(pendulum, 512, torch.float32, seed=SEED + 1)
         out[f"pendulum_{tag}"] = compare_fused(
             pd, pp, dtype, dev, 0.1, tol, f"pendulum {tag}")
+        # The rollout kernel at the reference sweep's longest horizon.
+        u1k, x1k = (a.to(dev, dtype) for a in make_pool(
+            cartpole, 256, torch.float32, horizon=LONG_T))
+        out[f"cartpole_T{LONG_T}_B256_{tag}_rollout"] = compare_rollout(
+            model_ocp("cartpole", 1, LONG_T), u1k.permute(1, 2, 0)
+            .contiguous(), x1k.T.contiguous(), f"cartpole T={LONG_T} {tag}")
 
     # Times at the slice's shape (cartpole, B=4096, T=100, float32).
     u, u_other, x0, bpt, rp = fused_inputs(pool, torch.float32, dev, 0.1)
@@ -945,6 +1049,9 @@ def phase_fused_kernels(pool32, dev):
             "ms": cuda_ms(lambda: tf.fused_fwd_launch(
                 cp, xs, xT, u, bpt, Kk), 20),
             "plain_ms": plain_iter},
+        "rollout": {
+            "ms": cuda_ms(lambda: tf.rollout_packed(cp, u, x0), 20),
+            "plain_ms": cuda_ms(lambda: tf.rollout_plain(cp, u, x0), 3)},
         "rollout_cost": {
             "ms": cuda_ms(lambda: tf.rollout_cost_packed(cp, u, x0, bpt), 20),
             "plain_ms": cuda_ms(lambda: tf.rollout_cost_plain(cp, u, x0, bpt),
@@ -970,6 +1077,8 @@ def phase_fused_kernels(pool32, dev):
         "fused_fwd": ((xs, xT, u, bpt, Kk),
                       tf.fused_fwd_launch(cp, xs, xT, u, bpt, Kk),
                       T_ * ops["stage_fwd"] + ops["term_fwd"]),
+        "rollout": ((u, x0), tf.rollout_packed(cp, u, x0),
+                    T_ * ops["dynamics"]),
         "rollout_cost": ((u, x0, bpt), tf.rollout_cost_packed(cp, u, x0, bpt),
                          T_ * ops["roll_cost"] + ops["final_cost"]),
         "transition": ((u, up, x0, bpt),
@@ -987,6 +1096,7 @@ def phase_fused_kernels(pool32, dev):
     out["errors"] = ("largest absolute error, and error / largest |plain|, "
                      "over each kernel's outputs")
     out["float32_tolerance"] = F32_TOL
+    out["rollout_float64_tolerance"] = rollout_tol(torch.float64)
     emit(out)
     return record
 
@@ -1357,11 +1467,13 @@ def phase_mega_stream(pool32, pool64, dev):
     return counts, sol
 
 
-def phase_multigrid(pool32, dev, single_grid):
-    """Phase I: ``solve_stream_multigrid`` at bench.py's default, its
-    launch counts and quality against the single-grid solutions
-    ``single_grid`` (phase H); then the coarse level on the two-launch arm,
-    the merged trial's path."""
+def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
+    """``solve_stream_multigrid`` at bench.py's default (coarsen 4, a DDP
+    coarse level, 4096 lanes, refill every 32) on ``pool32``, float32, at
+    ``horizon`` (H * dt = 1 s on both levels): its launch counts (the mega
+    executor's), the whole run's busy share and the quality against the
+    single-grid solutions ``single_grid``.  Returns ``(record, solution,
+    solve, raw costs)``; ``solve(u, x0, **kw)`` runs it again."""
     import torch
 
     from ipoc_tpu_torch import BATCH_CONFIG, solve_stream_multigrid
@@ -1370,7 +1482,8 @@ def phase_multigrid(pool32, dev, single_grid):
     from ipoc_tpu_torch.solvers import packed_stream as ps
 
     cfg = BATCH_CONFIG
-    ocp, ocp_c = model_ocp("cartpole"), model_ocp("cartpole", COARSEN)
+    ocp = model_ocp("cartpole", 1, horizon)
+    ocp_c = model_ocp("cartpole", COARSEN, horizon)
     u, x0 = (a.to(dev) for a in pool32)
     n = u.shape[0]
 
@@ -1400,10 +1513,10 @@ def phase_multigrid(pool32, dev, single_grid):
     it_f, it_c = (a.cpu().double() for a in (sol.iterations,
                                                sol.iterations_coarse))
     rec = {
-        "phase": "I", "model": "cartpole", "horizon": T, "coarsen": COARSEN,
-        "coarse_impl": "ddp", "dtype": "float32", "config": "BATCH_CONFIG",
-        "lanes": LANES, "refill_every": REFILL, "scenarios": n,
-        "wall_s": wall, "solves_per_s": n / wall,
+        "phase": phase, "model": "cartpole", "horizon": horizon,
+        "coarsen": COARSEN, "coarse_impl": "ddp", "dtype": "float32",
+        "config": "BATCH_CONFIG", "lanes": LANES, "refill_every": REFILL,
+        "scenarios": n, "wall_s": wall, "solves_per_s": n / wall,
         "coarse": {"steps": sol.steps_coarse,
                    "mean_iterations": float(it_c.mean()),
                    "max_iterations": int(it_c.max())},
@@ -1411,13 +1524,42 @@ def phase_multigrid(pool32, dev, single_grid):
                  "max_iterations": int(it_f.max())},
         "launches": counts, "refill_rounds": n_rounds,
         "lane_openings": n_open, "max_abs_u": umax,
-        "basin_switch_frac_vs_H": float(switched.double().mean()),
+        "basin_switch_frac_vs_single_grid": float(switched.double().mean()),
         "mean_signed_rel_cost_delta_switched": float(
             ((c_mg - c_sg) / c_sg.abs().clamp(min=1e-12))[switched].mean())
         if bool(switched.any()) else 0.0,
         "max_rel_cost_delta_matched": float(rel[~switched].max()),
+        "finite_controls": finite,
         "device_busy_share_whole_run": busy,
         "whole_run_device_ms_top_kernels": top}
+    return rec, sol, solve, c_mg
+
+
+def check_multigrid(rec, hold_switch=True):
+    """The checks of a :func:`multigrid_at_width` record (after it is
+    emitted); ``hold_switch`` holds the basin-switch fraction to bench.py's
+    5%, which was measured at H=100 only."""
+    check(rec["finite_controls"], "non-finite controls")
+    check(rec["max_abs_u"] <= 50.0 + 1e-4,
+          f"|u| = {rec['max_abs_u']} exceeds the bound 50")
+    check(not hold_switch or rec["basin_switch_frac_vs_single_grid"] <= 0.05,
+          "basin-switch fraction "
+          f"{rec['basin_switch_frac_vs_single_grid']} > 5%")
+    check_mega_path(rec["launches"], rec["refill_rounds"],
+                    rec["lane_openings"], gates=1)
+
+
+def phase_multigrid(pool32, dev, single_grid):
+    """Phase I: ``solve_stream_multigrid`` at bench.py's default, its
+    launch counts and quality against the single-grid solutions
+    ``single_grid`` (phase H); then the coarse level on the two-launch arm,
+    the merged trial's path."""
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+
+    ocp = model_ocp("cartpole")
+    u, x0 = (a.to(dev) for a in pool32)
+    rec, sol, solve, c_mg = multigrid_at_width("I", pool32, dev, single_grid)
 
     # The coarse level on the two-launch arm: the merged trial once per
     # coarse step; the fine level stays on the mega executor.
@@ -1441,11 +1583,7 @@ def phase_multigrid(pool32, dev, single_grid):
         "frac_equal_fine_iterations_vs_mega": float(same_f.double().mean()),
         "frac_raw_cost_within_1e-3_vs_mega": near}
     emit(rec)
-    check(finite, "non-finite controls")
-    check(umax <= 50.0 + 1e-4, f"|u| = {umax} exceeds the bound 50")
-    check(rec["basin_switch_frac_vs_H"] <= 0.05,
-          f"basin-switch fraction {rec['basin_switch_frac_vs_H']} > 5%")
-    check_mega_path(counts, n_rounds, n_open, gates=1)
+    check_multigrid(rec)
     check(counts2["merged_trial"] == counts2["transition"]
           == sol2.steps_coarse > 0,
           f"merged_trial launched {counts2['merged_trial']} times in "
@@ -1455,7 +1593,7 @@ def phase_multigrid(pool32, dev, single_grid):
     # another basin: the solutions are held to the basin-switch bound.
     check(near >= 0.95, f"only {near} of the two-launch coarse arm's "
           "solutions within 1e-3 of the mega run's raw costs")
-    return counts, counts2
+    return rec["launches"], counts2
 
 
 # ---------------------------------------------------------------------------
@@ -1504,12 +1642,9 @@ GOLDEN_WARM_START = (
 PAR_TRIAL_TOL = {"float64": (1e-10, 1e-10), "float32": (2e-5, 1e-4)}
 
 
-@functools.lru_cache(maxsize=None)
 def horizon_ocp(T_):
     """Cartpole at horizon ``T_`` with H * dt = 1 s (the reference sweep)."""
-    from ipoc_tpu_torch.models import cartpole
-
-    return model_ocp("cartpole") if T_ == T else cartpole.make_ocp(1.0 / T_)
+    return model_ocp("cartpole", 1, T_)
 
 
 def par_inputs(T_, B, dtype, dev, seed=SEED):
@@ -1805,7 +1940,7 @@ def phase_single_solve(dev, cpu_ref):
     goldens (pendulum and cartpole H=100, float64, PARITY_CFG) against
     tests/golden/*.npz and against the CPU run's iterations, with the seq
     solve beside them; then cartpole at H=1000 under FAST_CONFIG in float32
-    and float64: iterations, trials, wall time (median of 5), host reads
+    and float64: iterations, trials, wall time (median of 3), host reads
     and each kernel's launches per solve, and the busy share over the first
     barrier stage."""
     import numpy as np
@@ -1864,17 +1999,17 @@ def phase_single_solve(dev, cpu_ref):
             u, it = par(ocp, uu, xx, FAST_CONFIG)
             return u.cpu(), int(it)
 
-        # Five timed solves, the first also counted (the counters cost a
+        # Three timed solves, the first also counted (the counters cost a
         # Python call per counted event, well inside the spread).
         times = []
-        for i in range(5):
+        for i in range(3):
             t0 = time.perf_counter()
             if i == 0:
                 (u, it), launches, trials, scans, reads = counted_solve(solve)
             else:
                 solve()
             times.append(time.perf_counter() - t0)
-        wall = sorted(times)[2]
+        wall = sorted(times)[1]
         first = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99)
         busy, wall_first, top = window_busy(
             lambda: par(ocp, uu, xx, first)[0].cpu())
@@ -1886,7 +2021,7 @@ def phase_single_solve(dev, cpu_ref):
         out[f"H{T_}_{tag}"] = {
             "config": "FAST_CONFIG", "iterations": it, "trials": trials,
             "costate_scans": scans, "launches_per_solve": launches,
-            "wall_s_median_of_5": wall, "wall_s": times,
+            "wall_s_median_of_3": wall, "wall_s": times,
             "host_reads_per_solve": reads,
             "device_busy_share_first_stage": busy,
             "first_stage_wall_s": wall_first,
@@ -1955,24 +2090,376 @@ def phase_batch_solve(pool32, dev):
     return launches
 
 
-def make_pool(model, n, dtype, seed=SEED):
+# ---------------------------------------------------------------------------
+# bench.py's batch mode and the long horizon: phases N, O
+# ---------------------------------------------------------------------------
+
+# bench.py's batch mode (IPOC_BENCH_MODE=batch): BATCH_CONFIG, and its
+# IPOC_BENCH_BARRIER=flat, IPOC_BENCH_IMPL=ddp and IPOC_BENCH_DDP_PREDICTOR=0
+# variants.
+BATCH_MODES = {
+    "staged": ("BATCH_CONFIG", {}),
+    "flat": ("BATCH_CONFIG.replace(barrier_mode='flat')",
+             {"barrier_mode": "flat"}),
+    "ddp": ("BATCH_CONFIG.replace(newton_impl='ddp')",
+            {"newton_impl": "ddp"}),
+    "ddp_flat_no_predictor": (
+        "BATCH_CONFIG.replace(newton_impl='ddp', barrier_mode='flat', "
+        "stage_predictor=False)",
+        {"newton_impl": "ddp", "barrier_mode": "flat",
+         "stage_predictor": False}),
+}
+
+
+def batch_cfg(mode):
+    from ipoc_tpu_torch import BATCH_CONFIG
+
+    return BATCH_CONFIG.replace(**BATCH_MODES[mode][1])
+
+
+class rolling:
+    """Inside the ``with`` block, keep for each call of
+    ``ip_newton.flat_lane_iter`` whether some lane rolled over to a new
+    barrier stage (its bp changed and it is not done), as a device flag
+    (no host read); :meth:`count` sums them afterwards."""
+
+    def __enter__(self):
+        from ipoc_tpu_torch.solvers import ip_newton
+
+        self.module, self.real, self.flags = (ip_newton,
+                                              ip_newton.flat_lane_iter, [])
+
+        def wrapped(ocp, lane, cfg, adv=None):
+            new = self.real(ocp, lane, cfg, adv)
+            self.flags.append(((new.bp != lane.bp) & ~new.done).any())
+            return new
+
+        ip_newton.flat_lane_iter = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flat_lane_iter = self.real
+
+    def count(self):
+        import torch
+
+        return int(torch.stack(self.flags).sum()) if self.flags else 0
+
+
+def expected_batch_launches(cfg, lockstep, rolls):
+    """The exact launches of one ``solve_batch`` with the fused evaluators:
+    the trial's kernels once per lockstep iteration; with the flat
+    schedule the rollout kernel once to open the lanes and, without the
+    predictor, once per iteration in which some lane rolls over, and the
+    transition kernel once per such iteration with it."""
+    from ipoc_tpu_torch.ops import cuda
+
+    want = dict.fromkeys(cuda.launches, 0)
+    if cfg.newton_impl == "ddp":
+        want["merged_trial"] = lockstep
+    else:
+        want["fused_bwd"] = want["fused_fwd"] = lockstep
+    if cfg.barrier_mode == "flat":
+        want["rollout"] = 1 + (0 if cfg.stage_predictor else rolls)
+        want["transition"] = rolls if cfg.stage_predictor else 0
+    return want
+
+
+def phase_batch_modes(pool32, dev):
+    """Phase N: bench.py's batch mode, ``solve_batch(ocp, u, x0, cfg)`` on
+    the pool's first 4096 cartpole H=100 scenarios, float32, in its four
+    configurations (``BATCH_MODES``): wall, iterations, lockstep
+    iterations, host reads, the busy share over the first 11 lockstep
+    iterations of the first barrier stage, and every kernel's launches,
+    held to their exact counts; then the flat configuration against the
+    packed stream (``solve_stream``, the mega executor) on the same
+    scenarios.  Returns the rollout kernel's launches."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_batch, solve_stream
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import ip_newton
+
+    ocp = model_ocp("cartpole")
+    u, x0 = (a[:LANES].to(dev) for a in pool32)
+    out = {"phase": "N", "model": "cartpole", "horizon": T,
+           "dtype": "float32", "scenarios": LANES,
+           "busy_window": "the first 11 lockstep iterations of the first "
+                          "barrier stage"}
+    problems, sols, rollouts = [], {}, 0
+    for mode, (name, _) in BATCH_MODES.items():
+        cfg = batch_cfg(mode)
+        window = cfg.replace(bp_min=cfg.bp_init * 0.99, max_newton_iters=10)
+        solve_batch(ocp, u[:64], x0[:64], window).iterations.cpu()  # warm-up
+        with counting(ip_newton, "_trial_eval") as trials, \
+                rolling() as rolls, \
+                counting(torch.Tensor, "__bool__") as reads, \
+                counting(torch.Tensor, "nonzero") as nonzero:
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            sol = solve_batch(ocp, u, x0, cfg)
+            it = sol.iterations.cpu().double()
+            wall = time.perf_counter() - t0
+            launches = dict(cuda.launches)
+        sols[mode] = sol
+        lockstep, n_roll = len(trials.calls), rolls.count()
+        busy, wall_window, top = window_busy(
+            lambda: solve_batch(ocp, u, x0, window).iterations.cpu())
+        costs = raw_costs(ocp, sol.controls, x0).double().cpu()
+        umax = float(sol.controls.abs().max())
+        nonfinite = float((~torch.isfinite(costs)).double().mean())
+        out[mode] = {
+            "config": name, "wall_s": wall, "solves_per_s": LANES / wall,
+            "mean_iterations": float(it.mean()),
+            "max_iterations": int(it.max()),
+            "lockstep_iterations": lockstep,
+            "iterations_with_a_rollover": n_roll,
+            "host_reads": len(reads.calls) + len(nonzero.calls),
+            "launches": {k: v for k, v in launches.items() if v},
+            "device_busy_share_window": busy, "window_wall_s": wall_window,
+            "window_device_ms_top_kernels": top, "max_abs_u": umax,
+            "frac_nonfinite_cost": nonfinite,
+            "mean_raw_cost": float(costs.mean())}
+        want = expected_batch_launches(cfg, lockstep, n_roll)
+        if launches != want:
+            problems.append(f"{mode}: launches {out[mode]['launches']}, "
+                            f"expected { {k: v for k, v in want.items() if v} }")
+        if not (bool(torch.isfinite(sol.controls).all())
+                and umax <= 50.0 + 1e-4 and nonfinite == 0.0):
+            problems.append(f"{mode}: |u| {umax}, non-finite cost share "
+                            f"{nonfinite}")
+        if cfg.barrier_mode == "flat":
+            rollouts += launches["rollout"]
+
+    # The flat batch and the packed stream run the same per-lane semantics
+    # but for the summation order of ||cu||: in float64 equal iterations
+    # and controls within 1e-6 (the first 128 scenarios); in float32 the
+    # order flips accept and convergence decisions near the cost's
+    # rounding (pred_floor's 1e-7 of the cost is that rounding's size), so
+    # iteration counts are reported and the converged raw costs held to
+    # 1e-3.
+    stream = solve_stream(ocp, u, x0, BATCH_CONFIG, lanes=LANES,
+                          refill_every=REFILL)
+    c_stream = raw_costs(ocp, stream.controls, x0).double().cpu()
+    c_flat = raw_costs(ocp, sols["flat"].controls, x0).double().cpu()
+    same = stream.iterations.cpu() == sols["flat"].iterations.cpu()
+    near = (c_flat - c_stream).abs() <= 1e-3 * c_stream.abs()
+    u64, x64 = u[:128].double(), x0[:128].double()
+    flat64 = solve_batch(ocp, u64, x64, batch_cfg("flat"))
+    stream64 = solve_stream(ocp, u64, x64, BATCH_CONFIG, lanes=128,
+                            refill_every=REFILL)
+    same64 = (flat64.iterations == stream64.iterations).cpu()
+    du64 = (flat64.controls - stream64.controls).abs().flatten(1).amax(1)
+    agree64 = same64 & (du64.cpu() <= 1e-6)
+    cross = {
+        "float32_frac_equal_iterations": float(same.double().mean()),
+        "float32_mean_iterations_batch_stream": [
+            float(sols["flat"].iterations.double().mean()),
+            float(stream.iterations.double().mean())],
+        "float32_frac_raw_cost_within_1e-3": float(near.double().mean()),
+        "float32_stream_steps": stream.steps,
+        "float64_first128_frac_equal_iterations": float(
+            same64.double().mean()),
+        "float64_first128_frac_agreeing": float(agree64.double().mean())}
+    out["flat_vs_packed_stream"] = cross
+    if (cross["float32_frac_raw_cost_within_1e-3"] < 0.99
+            or cross["float64_first128_frac_agreeing"] < 0.99):
+        problems.append(f"flat batch against the packed stream: {cross}")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, "; ".join(problems))
+    return {"rollout": rollouts}
+
+
+def phase_long_horizon(dev):
+    """Phase O: cartpole at H=1000 (dt=1e-3), the horizons at which the JAX
+    package runs the streamed mega kernel.  (1) The mega kernel against its
+    plain version with the streamed kernel's test matrix on 256 lanes,
+    float64 then float32; (2) one k=2 launch on 4096 lanes beside its plain
+    version and its bound, and one k=32 launch (DDP: at T=250, the coarse
+    level); (3) ``solve_stream(BATCH_CONFIG)`` on a pool of 1 x 4096;
+    (4) ``solve_stream_multigrid`` with a DDP coarse level at T=250 on the
+    same pool; (5) float64, the first 256 scenarios: the mega executor
+    against the two-launch arm, Newton and DDP.  Returns ``(record of the
+    kernel at T=1000, launches)``."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.models import cartpole
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+    from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
+
+    ocp = model_ocp("cartpole", 1, LONG_T)
+    pool32 = make_pool(cartpole, LANES, torch.float32, horizon=LONG_T)
+    pool64 = tuple(a.double() for a in pool32)
+    out = {"phase": "O", "model": "cartpole", "horizon": LONG_T,
+           "replaces": "mega_kernel.py:1240 _mega_streamed_kernel"}
+    problems = []
+
+    # 1. Newton and DDP, max_newton_iters=2 with the predictor, two k-blocks
+    #    of 2 with the lane carried across the launches.
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, F32_TOL)):
+        tag = str(dtype).split(".")[-1]
+        u, x0 = (a[:256].to(dev, dtype) for a in pool32)
+        for level, ddp in (("newton", False), ("ddp", True)):
+            cfg = BATCH_CONFIG.replace(max_newton_iters=2,
+                                       newton_impl="ddp" if ddp else "fused")
+            lane0 = open_packed(ocp, u, x0, cfg, cfg.bp_init)
+            active = torch.ones_like(lane0.done)
+            got, ref, steps = mega.clone_lane(lane0), lane0, []
+            for _ in range(2):
+                got, st = mega.mega_k_iterations(ocp, got, active, cfg, 2,
+                                                 ddp)
+                ref, rs = mega.mega_k_iterations_plain(ocp, ref, active,
+                                                       cfg, 2, ddp)
+                steps.append((int(st), int(rs)))
+            cmp = compare_lanes(got, ref, tol)
+            rolled = float((got.bp < lane0.bp).double().mean())
+            label = f"{level} {tag}"
+            out[f"matrix_{level}_{tag}"] = {
+                "steps_kernel_plain": steps, "rolled_over_frac": rolled,
+                "ended_bad": {"kernel": int(ended_bad(got, cfg).sum()),
+                              "plain": int(ended_bad(ref, cfg).sum())},
+                **cmp}
+            held = (cmp["agree_frac"] if dtype == torch.float64
+                    else cmp["decisions_equal_frac"])
+            if held < (1.0 if dtype == torch.float64 else 0.99):
+                problems.append(f"{label}: {cmp}")
+            if steps != [(2, 2), (2, 2)] or rolled == 0:
+                problems.append(f"{label}: steps {steps}, rolled {rolled}")
+
+    # 2. Times, float32, 4096 lanes opened at bp_init: k=2 beside its plain
+    #    version, and k=32; DDP k=32 at T=250, the multigrid's coarse level.
+    timing = {}
+    ops_cp = program_ops(ocp, 4, 1)
+    for level, lv_ocp, ddp in (
+            ("newton", ocp, False),
+            ("ddp", model_ocp("cartpole", COARSEN, LONG_T), True)):
+        u, x0 = (a.to(dev) for a in pool32)
+        if ddp:
+            u = u[:, ::COARSEN].contiguous()
+        cfg = BATCH_CONFIG.replace(newton_impl="ddp" if ddp else "fused")
+        lane0 = open_packed(lv_ocp, u, x0, cfg, cfg.bp_init)
+        active = torch.ones_like(lane0.done)
+        ws = mega.mega_workspace(lane0)
+        rec = {"horizon": u.shape[1]}
+        ks = (2, REFILL) if not ddp else (REFILL,)
+        for k in ks:
+            rec[f"k{k}_ms"] = event_ms(
+                lambda ln: mega.mega_k_iterations(lv_ocp, ln, active,
+                                                  cfg, k, ddp, ws),
+                3, lambda: mega.clone_lane(lane0))
+            ran, _ = mega.mega_k_iterations(lv_ocp,
+                                            mega.clone_lane(lane0), active,
+                                            cfg, k, ddp, ws)
+            lane_iters = int((ran.it - lane0.it).sum())
+            rec[f"k{k}_lane_iterations"] = lane_iters
+            if not ddp:
+                rec[f"k{k}_bound"] = bound(
+                    2 * nbytes(tuple(lane0)),
+                    lane_iters * (LONG_T * (ops_cp["stage_bwd"]
+                                            + riccati_ops(4, 1)
+                                            + ops_cp["stage_fwd"])
+                                  + ops_cp["term"] + ops_cp["term_fwd"]))
+        if not ddp:
+            rec["k2_plain_ms"] = event_ms(
+                lambda ln: mega.mega_k_iterations_plain(ocp, ln, active, cfg,
+                                                        2),
+                1, lambda: lane0, warm=False)
+        timing[level] = rec
+    out["timing"] = timing
+    out["timing_shape"] = ("4096 lanes opened at bp_init, float32, CUDA "
+                           "events; newton T=1000, ddp T=250")
+
+    # 3. The single-grid stream on the mega executor.
+    with counting(ps, "packed_lane_init") as opened, \
+            counting(mega, "mega_k_iterations") as rounds:
+        rec3, single = phase_stream_at_width(
+            "O3", BATCH_CONFIG, "BATCH_CONFIG (mega executor)", pool32,
+            pool64, dev, counters={"lane_openings": opened.calls,
+                                   "refill_rounds": rounds.calls},
+            whole_run_busy=True, ocp=ocp)
+    check_mega_path(rec3["launches"], rec3["refill_rounds"],
+                    rec3["lane_openings"])
+
+    # 4. The multigrid, a DDP coarse level at T=250.
+    rec4, _, _, _ = multigrid_at_width("O4", pool32, dev, single,
+                                       horizon=LONG_T)
+    emit(rec4)
+    check_multigrid(rec4, hold_switch=False)
+
+    # 5. Float64, the first 256 scenarios: the mega executor against the
+    #    two-launch arm, two independent executors of the same lanes.  A
+    #    lane that runs to the iteration cap (every stage to its cap: it
+    #    never converges) ends wherever its last iterate is, which rounding
+    #    moves: those lanes are counted, and the lanes that converge in both
+    #    are held to equal iterations and controls within 1e-6 on 99%.
+    u, x0 = (a[:256].to(dev) for a in pool64)
+    cap = flat_total_cap(BATCH_CONFIG)
+    for impl in ("fused", "ddp"):
+        cfg = BATCH_CONFIG.replace(newton_impl=impl)
+        a, b = (ps.solve_stream_packed(ocp, u, x0, cfg, lanes=256,
+                                       refill_every=REFILL, mega=m)
+                for m in (True, False))
+        it_a, it_b = a.iterations.cpu(), b.iterations.cpu()
+        conv = (it_a < cap) & (it_b < cap)
+        du = (a.controls - b.controls).abs().flatten(1).amax(1).cpu()
+        agree = (it_a == it_b) & (du <= 1e-6)
+        odd = (~agree).nonzero().squeeze(1)
+        c_a = raw_costs(ocp, a.controls[odd], x0[odd]).cpu()
+        c_b = raw_costs(ocp, b.controls[odd], x0[odd]).cpu()
+        rec = {"frac_equal_iterations": float((it_a == it_b).double().mean()),
+               "lanes_at_cap_mega_two_launch": [int((it_a >= cap).sum()),
+                                                int((it_b >= cap).sum())],
+               "frac_agreeing_of_converged": float(
+                   agree[conv].double().mean()),
+               "lanes_not_agreeing": [
+                   {"scenario": int(i), "iterations": [int(it_a[i]),
+                                                       int(it_b[i])],
+                    "max_abs_du": float(du[i]),
+                    "raw_costs": [float(ca), float(cb)]}
+                   for i, ca, cb in zip(odd, c_a, c_b)],
+               "steps": [a.steps, b.steps],
+               "mean_iterations": float(it_a.double().mean())}
+        out[f"mega_vs_two_launch_{impl}_float64"] = rec
+        if rec["frac_agreeing_of_converged"] < 0.99:
+            problems.append(f"mega vs two-launch {impl}: {rec}")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, "; ".join(problems))
+    f32 = [out[f"matrix_{lv}_float32"] for lv in ("newton", "ddp")]
+    newton = timing["newton"]
+    record = {"max_abs_err": max(r["max_abs_err"] for r in f32),
+              "ms": newton["k2_ms"], "plain_ms": newton["k2_plain_ms"],
+              **newton["k2_bound"]}
+    launches = rec3["launches"]["mega"] + rec4["launches"]["mega"]
+    return record, launches
+
+
+def make_pool(model, n, dtype, seed=SEED, horizon=T):
     """The bench's pool recipe (bench.py make_batch call), on the CPU."""
     import torch
 
     from ipoc_tpu_torch.solvers.batched import make_batch
 
     return make_batch(torch.Generator().manual_seed(seed),
-                      model.initial_state(dtype), n, T, 1,
+                      model.initial_state(dtype), n, horizon, 1,
                       state_scale=0.01, control_scale=0.1)
+
+
+# The child processes of the card-against-CPU phases (N's one runs both of
+# its configurations) and of L's goldens.
+CPU_CHILDREN = ["B", "E", "J", "M", "N", "L"]
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJKLM",
-                        help="subset of phases A-M to run after phase 0, "
-                             "which always runs (default: ABCDEFGHIJKLM); I "
-                             "needs H")
-    parser.add_argument("--cpu-reference", choices=list(CARD_VS_CPU) + ["L"],
+    parser.add_argument("--phases", default="ABCDEFGHIJKLMNO",
+                        help="subset of phases A-O to run after phase 0, "
+                             "which always runs (default: ABCDEFGHIJKLMNO); "
+                             "I needs H")
+    parser.add_argument("--cpu-reference", choices=CPU_CHILDREN,
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
 
@@ -1993,18 +2480,23 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
-    children = {}
+    children, references = {}, {}
 
     def reference(phase):
-        out, _ = children[phase].communicate()
-        check(children[phase].returncode == 0,
-              f"the CPU reference process of phase {phase} failed")
-        return pickle.loads(out)
+        """The CPU half of ``phase`` (Nflat and Nddp: of N's child)."""
+        child = phase[0]
+        if child not in references:
+            out, _ = children[child].communicate()
+            check(children[child].returncode == 0,
+                  f"the CPU reference process of phase {child} failed")
+            references[child] = pickle.loads(out)
+        ref = references[child]
+        return ref[phase] if child == "N" else ref
 
     failures, record, counts = [], {}, {}
 
     def run(phase, fn, *a):
-        if phase not in args.phases:
+        if phase[0] not in args.phases:
             return None
         t0 = time.perf_counter()
         try:
@@ -2019,14 +2511,14 @@ def main(argv=None):
 
     try:
         name, _ = phase_device()
-        # The CPU halves of phases B, E and J run meanwhile, one child
-        # process each (started after the build, which they would slow
-        # down).
+        # The CPU halves of phases B, E, J, M, N and L run meanwhile, one
+        # child process each (started after the build, which they would
+        # slow down).
         children.update({
             ph: subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--cpu-reference",
                  ph], stdout=subprocess.PIPE)
-            for ph in list(CARD_VS_CPU) + ["L"] if ph in args.phases})
+            for ph in CPU_CHILDREN if ph in args.phases})
         # The bench's pool recipe (bench.py make_batch call), on the CPU;
         # the float64 runs take the float32 pool's exact values.
         pool32 = make_pool(cartpole, POOL, torch.float32)
@@ -2067,6 +2559,13 @@ def main(argv=None):
             counts["value_scan"] = lqt_counts["value_scan"]
         run("L", lambda: phase_single_solve(dev, reference("L")))
         counts.update(run("M", phase_batch_solve, pool32, dev) or {})
+        # bench.py's batch mode (the rollout kernel's count) and the long
+        # horizon (the mega kernel at T=1000, row 14's record and count).
+        counts.update(run("N", phase_batch_modes, pool32, dev) or {})
+        long_record, long_launches = run("O", phase_long_horizon,
+                                         dev) or ({}, None)
+        record["mega_streamed"] = long_record
+        counts["mega_streamed"] = long_launches
         for ph in CARD_VS_CPU:
             run(ph, lambda ph=ph: phase_card_vs_cpu(ph, pool64, dev,
                                                     reference(ph)))
@@ -2081,20 +2580,24 @@ def main(argv=None):
         "seq_costates": ("seq_newton.cu", "seq_newton_kernel.py:622"),
         "fused_bwd": ("fused_iter.cuh", "fused_iter_kernel.py:1261"),
         "fused_fwd": ("fused_iter.cuh", "fused_iter_kernel.py:1298"),
+        "rollout": ("fused_iter.cuh", "fused_iter_kernel.py:1577"),
         "rollout_cost": ("fused_iter.cuh", "fused_iter_kernel.py:1956"),
         "transition": ("fused_iter.cuh", "fused_iter_kernel.py:2053"),
         "merged_trial": ("mega.cuh", "fused_iter_kernel.py:1206"),
         "mega": ("mega.cuh", "mega_kernel.py:1148"),
+        "mega_streamed": ("mega.cuh", "mega_kernel.py:1240"),
         "affine_scan": ("par_newton.cu", "scan_kernels.py:252"),
         "value_scan": ("par_newton.cu", "scan_kernels.py:252"),
         "par_newton_trial": ("par_newton.cu", "newton_kernel.py:229"),
     }
-    print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
+    total_s = time.perf_counter() - t_start
+    print(f"# total {total_s:.1f} s", file=sys.stderr)
     if failures:
         print("chip_smoke: FAILED\n" + "\n".join(failures), file=sys.stderr)
         return 1
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    emit({"total_s": total_s, "phases": args.phases})
     emit({"kernels": [
         {"name": k, "route": "cuda",
          "source": f"ipoc_tpu_torch/csrc/{src}",

@@ -12,8 +12,11 @@ associative-scan kernels and the one-launch parallel trial; the bench's
 default path, ``solve_stream_multigrid`` with a DDP coarse level, and the
 single-grid scenario stream, ``solve_stream``, under ``BATCH_CONFIG`` (the
 packed stream on the mega kernel, with per-stage code generated from the
-model), with ``newton_impl="ddp"``, ``"seq"`` and ``"par"``; their models
-and derivatives.  ROADMAP.md lists what is still to port.
+model, at any horizon), with ``newton_impl="ddp"``, ``"seq"`` and
+``"par"``; the bench's batch mode, ``solve_batch`` under ``BATCH_CONFIG``
+(staged or flat, Newton or DDP) on the fused trial's, rollout and
+transition kernels; their models and derivatives.  ROADMAP.md lists what
+is still to port.
 """
 
 from ipoc_tpu_torch.config import (

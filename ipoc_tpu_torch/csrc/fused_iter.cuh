@@ -1,5 +1,5 @@
-// The packed fused stream's four kernels for Hopper (sm_90a), one thread per
-// scenario, templated on a generated model.
+// The fused lane evaluators' five kernels for Hopper (sm_90a), one thread
+// per scenario, templated on a generated model.
 //
 // Replaces, from ipoc_tpu/ops/pallas/fused_iter_kernel.py:
 //   * fused_bwd_kernel     <- _fused_bwd_kernel (:1261): in-kernel stage
@@ -8,6 +8,9 @@
 //   * fused_fwd_kernel     <- _fused_fwd_kernel (:1298, with_cu): deviation
 //     rollout fused with the trial's barrier cost, maximum constraint value
 //     and sum ||cu||^2;
+//   * rollout_kernel       <- _rollout_kernel (:1577): the open-loop rollout
+//     alone (the flat lanes' open and their re-rollout at a stage
+//     transition without the predictor);
 //   * rollout_cost_kernel  <- _rollout_cost_packed_kernel (:1956): rollout,
 //     barrier cost and sum ||cu||^2 (lane open and refill);
 //   * transition_kernel    <- _transition_packed_kernel (:2053): both
@@ -173,6 +176,32 @@ fused_fwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
   cun_o[b] = cun;
 }
 
+// Open-loop rollout x_{t+1} = f(x_t, u_t), x kept in registers.  Bound by
+// bytes: each thread reads its u column once and writes its x column once,
+// (T*(NU+NX) + 2*NX) values per lane, coalesced across the warp.
+template <typename Model, typename scalar_t>
+__global__ void __launch_bounds__(kFusedThreads)
+rollout_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
+               const scalar_t* __restrict__ x0,  // (NX, B)
+               scalar_t* __restrict__ xs_o,      // (T, NX, B) stages 0..T-1
+               scalar_t* __restrict__ xT_o,      // (NX, B)
+               int B, int T) {
+  constexpr int NX = Model::NX, NU = Model::NU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  scalar_t x[NX];
+  load_col<scalar_t, NX>(x, x0, B, b);
+  for (int t = 0; t < T; ++t) {
+    scalar_t u[NU], xn[NX];
+    load_col<scalar_t, NU>(u, us + (size_t)t * NU * B, B, b);
+    store_col<scalar_t, NX>(xs_o + (size_t)t * NX * B, x, B, b);
+    Model::template dynamics<scalar_t>(x, u, xn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xn[i];
+  }
+  store_col<scalar_t, NX>(xT_o, x, B, b);
+}
+
 // Open-loop rollout fused with the barrier total cost and sum ||cu||^2.
 template <typename Model, typename scalar_t>
 __global__ void __launch_bounds__(kFusedThreads)
@@ -291,6 +320,16 @@ int launch_fused_fwd(const void* const* in, void* const* out, int B, int T,
 }
 
 template <typename Model, typename scalar_t>
+int launch_rollout(const void* const* in, void* const* out, int B, int T,
+                   cudaStream_t s) {
+  using P = const scalar_t*;
+  rollout_kernel<Model, scalar_t><<<fused_blocks(B), kFusedThreads, 0, s>>>(
+      P(in[0]), P(in[1]), static_cast<scalar_t*>(out[0]),
+      static_cast<scalar_t*>(out[1]), B, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Model, typename scalar_t>
 int launch_rollout_cost(const void* const* in, void* const* out, int B,
                         int T, cudaStream_t s) {
   using P = const scalar_t*;
@@ -337,6 +376,7 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
 #define IPOC_FUSED_ENTRY_POINTS(MODEL)                                 \
   IPOC_FUSED_ENTRY(ipoc_fused_bwd, launch_fused_bwd, MODEL)            \
   IPOC_FUSED_ENTRY(ipoc_fused_fwd, launch_fused_fwd, MODEL)            \
+  IPOC_FUSED_ENTRY(ipoc_rollout, launch_rollout, MODEL)                \
   IPOC_FUSED_ENTRY(ipoc_rollout_cost, launch_rollout_cost, MODEL)      \
   IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)          \
   IPOC_MERGED_ENTRY(MODEL)                                             \

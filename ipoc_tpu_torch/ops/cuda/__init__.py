@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch count per kernel: each wrapper adds one where it launches, nowhere
 # else.  Plain integers; reset with :func:`reset_launches`.
 launches = {"seq_newton_trial": 0, "seq_costates": 0, "fused_bwd": 0,
-            "fused_fwd": 0, "rollout_cost": 0, "transition": 0,
+            "fused_fwd": 0, "rollout": 0, "rollout_cost": 0, "transition": 0,
             "merged_trial": 0, "mega": 0, "affine_scan": 0, "value_scan": 0,
             "par_newton_trial": 0}
 

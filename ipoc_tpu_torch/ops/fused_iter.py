@@ -1,9 +1,10 @@
-"""The fused Newton and DDP trials and the packed rollout kernels: stage
-programs, plain versions and wrappers (counterpart of
-``ipoc_tpu/ops/pallas/fused_iter_kernel.py``, its packed-stream part).
+"""The fused Newton and DDP trials and the rollout kernels: stage programs,
+plain versions and wrappers (counterpart of
+``ipoc_tpu/ops/pallas/fused_iter_kernel.py``).
 
 Hand-written CUDA kernels (``csrc/fused_iter.cuh``, ``csrc/mega.cuh``)
-carry the packed stream on a card:
+carry the packed stream and the flat lanes' fused and DDP evaluators
+(``solvers/ip_newton.py``) on a card:
 
 * ``fused_bwd`` and ``fused_fwd`` -- one Newton trial from the iterate
   ``(x, u)`` and the per-lane ``(bp, reg)``: in-kernel stage derivatives,
@@ -13,6 +14,8 @@ carry the packed stream on a card:
 * ``merged_trial`` -- the same trial in one launch, in Newton mode or in
   DDP mode (the stage data contracted with the value gradient, then the
   nonlinear closed-loop re-rollout): the DDP evaluator;
+* ``rollout`` -- the open-loop rollout alone (the flat lanes' open and
+  their re-rollout at a stage transition without the predictor);
 * ``rollout_cost`` -- rollout, barrier cost and sum ||cu||^2 (lane open and
   refill);
 * ``transition`` -- both stage-transition candidates, ``u`` and the
@@ -217,15 +220,21 @@ def stage_programs(ocp: OCP, nx: int, nu: int) -> dict:
         "transition": (_stage_transition_fn(ocp),
                        [(nx,), (nx,), (nu,), (nu,), ()]),
         "final_cost": (ocp.final_cost, [(nx,)]),
+        "dynamics": (ocp.dynamics, [(nx,), (nu,)]),
     }
 
 
 _PROGRAMS: dict = {}
 
 
-def scalar_programs(ocp: OCP, nx: int, nu: int) -> dict:
-    """The scalarized stage programs (traced once per model and shape)."""
+def scalar_programs(ocp: OCP, nx: int, nu: int, traced=None) -> dict:
+    """The scalarized stage programs (traced once per model and shape).
+    ``traced``, this function's result for the same model and time step
+    from another process (the programs pickle), is taken as ``ocp``'s
+    instead of tracing here."""
     key = (ocp, nx, nu)
+    if traced is not None:
+        _PROGRAMS[key] = traced
     if key not in _PROGRAMS:
         _PROGRAMS[key] = {name: scalarize(fn, shapes, name)
                           for name, (fn, shapes)
@@ -259,10 +268,10 @@ def model_spec(ocp: OCP, nx: int, nu: int) -> cuda.LibSpec:
 
 
 _LIBS: dict = {}
-# The four kernels with the uniform entry point (dtype, ins, outs, B, T,
+# The five kernels with the uniform entry point (dtype, ins, outs, B, T,
 # stream); the merged trial and the mega kernel (``ops/mega.py``) take a
 # mode and more.
-KERNELS = ("fused_bwd", "fused_fwd", "rollout_cost", "transition")
+KERNELS = ("fused_bwd", "fused_fwd", "rollout", "rollout_cost", "transition")
 
 
 def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
@@ -353,12 +362,18 @@ def merged_trial_launch(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _cu_sq(ocp: OCP, x, u, bp):
-    """``sum ||cu||^2`` over each trajectory's stages: ``x (B, T+1, nx)``,
-    ``u (B, T, nu)``, ``bp (B,)`` -> ``(B,)``."""
+def stage_cu(ocp: OCP, x, u, bp):
+    """The barrier stage cost's control gradient ``cu (B, T, nu)`` along
+    each trajectory: ``x (B, T+1, nx)``, ``u (B, T, nu)``, ``bp`` ``(B,)``
+    or 0-dim."""
     lead = u.shape[:-1]
-    cu = over_leading(grad(ocp.stage_cost, argnums=1), lead, x[..., :-1, :],
-                      u, stage_barrier(bp, lead, u))
+    return over_leading(grad(ocp.stage_cost, argnums=1), lead,
+                        x[..., :-1, :], u, stage_barrier(bp, lead, u))
+
+
+def _cu_sq(ocp: OCP, x, u, bp):
+    """``sum ||cu||^2`` over each trajectory's stages -> ``(B,)``."""
+    cu = stage_cu(ocp, x, u, bp)
     return (cu * cu).sum((-2, -1))
 
 
@@ -410,13 +425,13 @@ def _fused_ddp_reference(ocp: OCP, x, u, bp, reg):
     return temp_x, temp_u, cost, new_cost, max_c, pred, ok, hu, piv, cun
 
 
-def _lanes_first(xs, xT):
+def lanes_first(xs, xT):
     """Batch-last stages ``(T, nx, B)`` and terminal ``(nx, B)`` ->
     ``(B, T+1, nx)``."""
     return torch.cat([xs, xT[None]], 0).permute(2, 0, 1)
 
 
-def _lanes_last(x):
+def lanes_last(x):
     """``(B, T+1, nx)`` -> batch-last stages and terminal state."""
     return (x[:, :-1].permute(1, 2, 0).contiguous(),
             x[:, -1].T.contiguous())
@@ -427,10 +442,16 @@ def fused_newton_iter_plain(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
     :func:`fused_newton_iter_packed`)."""
     ref = _fused_ddp_reference if ddp else _fused_reference
     temp_x, temp_u, cost, nc, mc, pred, _, hu, piv, cun = ref(
-        ocp, _lanes_first(xs, xT), u.permute(2, 0, 1), bp, reg)
-    tx, txT = _lanes_last(temp_x)
+        ocp, lanes_first(xs, xT), u.permute(2, 0, 1), bp, reg)
+    tx, txT = lanes_last(temp_x)
     return (temp_u.permute(1, 2, 0).contiguous(), tx, txT, cost, nc, mc,
             pred, piv, hu, cun)
+
+
+def rollout_plain(ocp: OCP, u, x0):
+    """Plain version of the rollout kernel (same contract as
+    :func:`rollout_packed`)."""
+    return lanes_last(rollout(ocp.dynamics, u.permute(2, 0, 1), x0.T))
 
 
 def rollout_cost_plain(ocp: OCP, u, x0, bp):
@@ -438,7 +459,7 @@ def rollout_cost_plain(ocp: OCP, u, x0, bp):
     :func:`rollout_cost_packed`)."""
     ub = u.permute(2, 0, 1)
     x = rollout(ocp.dynamics, ub, x0.T)
-    xs, xT = _lanes_last(x)
+    xs, xT = lanes_last(x)
     return xs, xT, ocp.total_cost(x, ub, bp), _cu_sq(ocp, x, ub, bp)
 
 
@@ -474,6 +495,21 @@ def fused_newton_iter_packed(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
     Kk, cost, dv, piv, hu = fused_bwd_launch(ocp, xs, xT, u, bp, reg)
     tu, tx, txT, nc, mc, cun = fused_fwd_launch(ocp, xs, xT, u, bp, Kk)
     return tu, tx, txT, cost, nc, mc, dv, piv, hu, cun
+
+
+def rollout_packed(ocp: OCP, u, x0):
+    """The open-loop rollout, one launch (JAX ``rollout_batched``).
+
+    Shapes: ``u (T, nu, B)``, ``x0 (nx, B)`` -> ``(xs (T, nx, B) stages
+    0..T-1, xT (nx, B))``; JAX's ``(B, T+1, nx)`` is
+    ``lanes_first(xs, xT)``.
+    """
+    if cuda.on_cpu("rollout", u, x0):
+        return rollout_plain(ocp, u, x0)
+    T, nu, B = u.shape
+    nx = x0.shape[0]
+    return _launch(ocp, "rollout", (u, x0), [(T, nu, B), (nx, B)],
+                   [(T, nx, B), (nx, B)], nx, nu)
 
 
 def rollout_cost_packed(ocp: OCP, u, x0, bp):

@@ -12,10 +12,17 @@ once per stream.  The plain version, :func:`mega_k_iterations_plain`, is
 ``k`` masked ``packed_lane_iter`` steps on the plain evaluators; the
 wrapper takes it for lanes on the CPU only.
 
-Not ported, being TPU machinery: the VMEM gates (``mega_fits``,
-``_mega_sublanes``), the time blocks, and the parking of the predictor's
-candidate in the dead gains ring; the kernel has no horizon cap, so the
-streamed twin (``_mega_streamed_kernel``) has no counterpart yet.
+The one kernel covers both of the JAX package's forms, the resident
+``_mega_kernel`` and the streamed ``_mega_streamed_kernel``: the TPU kernel
+streams the lane state through VMEM in time windows once it no longer fits
+there (``mega_fits``), at T >= 600 and at every long horizon in DDP mode,
+while this kernel reads the lane and its workspace from device memory at
+any T.  ``chip_smoke.py`` holds it to its plain version at T=1000 with the
+streamed kernel's test matrix (Newton and DDP, two k-blocks of 2,
+``max_newton_iters=2``).  Not ported, being TPU machinery: the VMEM gates
+(``mega_fits``, ``_mega_sublanes``, ``stream_window``), the time blocks,
+the windows' DMA and lazy accept merge, and the parking of the predictor's
+candidate in the dead gains ring.
 """
 
 from __future__ import annotations

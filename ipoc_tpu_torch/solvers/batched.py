@@ -34,9 +34,11 @@ def solve_batch(
     method: str = "par",
 ) -> BatchSolution:
     """A full interior-point solve of every scenario, on the device of
-    ``controls``: ``method`` "par" (parallel-in-time Newton) or "seq"
-    (sequential Newton).  "ddp" is not ported (ROADMAP.md, modules item 6:
-    ``interior_point_ddp``)."""
+    ``controls``: ``method`` "par" (the Newton solve with ``cfg``'s step
+    evaluator: "par", "seq", or, with ``globalization="single"``, the fused
+    "fused" and "ddp" trials, bench.py's batch mode under
+    ``BATCH_CONFIG``) or "seq" (the sequential validation solve).  "ddp"
+    is not ported (ROADMAP.md, modules item 6: ``interior_point_ddp``)."""
     solvers = {"par": par_solve_batched, "seq": seq_solve_batched}
     if method == "ddp":
         raise ValueError(

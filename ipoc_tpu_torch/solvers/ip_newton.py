@@ -3,9 +3,8 @@
 ``par_interior_point_optimal_control`` (retry or single-trial
 globalization, staged or flat barrier schedule), the sequential validation
 solve ``seq_interior_point_optimal_control``, and the flat-mode lanes that
-the unpacked stream runs with ``newton_impl="par"`` or ``"seq"``.
-(``"fused"`` and ``"ddp"`` run through the packed stream,
-``solvers/packed_stream.py``.)
+the unpacked stream and the batch solves run with every step evaluator
+(``newton_impl`` "par", "seq", "fused" or "ddp").
 
 Everything is batched by hand over a leading lane axis B: what JAX wrote
 per scenario under ``vmap`` is written here on ``(B, ...)`` tensors.  A
@@ -18,10 +17,15 @@ tensor in the controls' dtype.
 On a card the Pallas kernels of these paths run as hand-written CUDA
 kernels: the parallel trial as one launch of the fused trial kernel
 (``ops/newton_kernel.py``), the parallel costates as the affine-scan kernel
-(``ops/scan_kernels.py``), and, for ``"seq"``, the costate recursion and
-the sequential trial (``ops/cuda/seq_newton.py``).  Derivatives, rollouts
-and the sequential solver's Riccati recursion are plain tensor code, as
-they were plain XLA in the JAX package.
+(``ops/scan_kernels.py``), for ``"seq"`` the costate recursion and the
+sequential trial (``ops/cuda/seq_newton.py``), and for ``"fused"`` and
+``"ddp"`` the whole trial evaluation (two launches; DDP: the merged
+kernel's one), the flat lanes' rollout and their stage transition
+(``ops/fused_iter.py``).  Those kernels are batch-last, ``(T, rows, B)``;
+the lanes stay batch-first, so each call transposes its inputs and
+outputs.  Derivatives, the staged solves' stage-start rollouts and the
+sequential solver's Riccati recursion are plain tensor code, as they were
+plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +45,14 @@ from ipoc_tpu_torch.ops.derivatives import (
     final_hessian,
     over_leading,
 )
+from ipoc_tpu_torch.ops.fused_iter import (
+    fused_newton_iter_packed,
+    lanes_first,
+    lanes_last,
+    rollout_packed,
+    stage_cu,
+    transition_packed,
+)
 from ipoc_tpu_torch.ops.newton_kernel import fused_newton_step
 from ipoc_tpu_torch.parallel.costates import par_costates, seq_costates
 from ipoc_tpu_torch.problem import OCP, Derivatives, LinearizedOCP
@@ -48,29 +60,14 @@ from ipoc_tpu_torch.solvers.barrier import barrier_loop, n_barrier_stages
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
 from ipoc_tpu_torch.utils.integrators import rollout
 
-# Step evaluators of the JAX package that these lanes do not run, and the
-# ROADMAP.md item ("Modules to port") that will port each.  Both run
-# through the packed stream (solvers/packed_stream.py, reached from
-# solve_stream); their unpacked lane evaluators (the fused and ddp arms of
-# _trial_eval) are not ported.
-_NOT_PORTED = {
-    "fused": "The unpacked fused lane evaluator",
-    "ddp": "The unpacked DDP lane evaluator",
-}
+_IMPLS = ("par", "seq", "fused", "ddp")
 
 
 def check_newton_impl(cfg: SolverConfig) -> None:
-    """The lanes and the staged solves run ``newton_impl="par"`` or
-    ``"seq"``; nothing else is substituted."""
-    if cfg.newton_impl in ("par", "seq"):
-        return
-    if cfg.newton_impl in _NOT_PORTED:
-        raise ValueError(
-            f"newton_impl={cfg.newton_impl!r} is not ported for the flat "
-            f"lanes (ROADMAP.md, modules to port: "
-            f"{_NOT_PORTED[cfg.newton_impl]!r}); solve_stream runs it "
-            "through the packed stream; use newton_impl='par' or 'seq'")
-    raise ValueError(f"unknown newton_impl {cfg.newton_impl!r}")
+    """The step evaluators of the lanes and the solves; nothing else is
+    substituted."""
+    if cfg.newton_impl not in _IMPLS:
+        raise ValueError(f"unknown newton_impl {cfg.newton_impl!r}")
 
 
 def _lane_view(mask, like):
@@ -115,8 +112,25 @@ def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
       ``newton_lqt`` -> ``par_bwd_pass`` -> ``par_fwd_pass`` pipeline).
     * ``"seq"``: the sequential Riccati recursion, the trial kernel on a
       card, its plain version on the CPU.
+
+    ``"fused"`` and ``"ddp"`` evaluate the whole trial in
+    :func:`_trial_eval` and raise here: the retry loop re-solves with new
+    regularization, which only the single-trial globalization avoids.
     """
     check_newton_impl(cfg)
+    if cfg.newton_impl == "fused":
+        raise ValueError(
+            "newton_impl='fused' evaluates the whole trial in one fused "
+            "kernel and requires globalization='single' (the single-trial "
+            "staged or flat drivers); the retry loop re-solves with new "
+            "regularization, which the fused evaluation covers via "
+            "_trial_eval instead")
+    if cfg.newton_impl == "ddp":
+        raise ValueError(
+            "newton_impl='ddp' evaluates the whole trial (derivatives + "
+            "Vx-contracted backward pass + nonlinear re-rollout) per "
+            "iteration and requires globalization='single'; use "
+            "interior_point_ddp for the reference retry-loop structure")
     lin_reg = _regularized(lin, d, rp, cfg.scale_reg_by_grad,
                            cfg.reg_scale_floor)
     if cfg.terminal_hessian == "reference":
@@ -131,9 +145,41 @@ def par_newton_step(ocp: OCP, x, d: Derivatives, rp, lin: LinearizedOCP,
     return dx, du, pred, feasible, lin.r
 
 
+def _fused_trial_eval(ocp: OCP, x, u, bp, rp, cfg: SolverConfig):
+    """The ``"fused"`` and ``"ddp"`` arms of :func:`_trial_eval`: the whole
+    evaluation in the fused trial's kernels (Newton two launches, DDP the
+    merged kernel's one), the Levenberg scale ``||cu||_F`` computed here on
+    the lanes, as JAX computes it outside its kernel.  The lanes go to the
+    kernels batch-last and come back batch-first."""
+    ddp = cfg.newton_impl == "ddp"
+    if not ddp and cfg.terminal_hessian != "exact":
+        raise ValueError(
+            "newton_impl='fused' computes the terminal Hessian in-kernel and "
+            "requires terminal_hessian='exact'")
+    B = u.shape[0]
+    bp = torch.broadcast_to(bp, (B,)).contiguous()
+    reg = rp
+    # DDP scales the Levenberg parameter by ||cu|| unconditionally.
+    if ddp or cfg.scale_reg_by_grad:
+        cu_norm = torch.linalg.vector_norm(stage_cu(ocp, x, u, bp),
+                                           dim=(-2, -1))
+        reg = rp * torch.clamp(cu_norm, min=cfg.reg_scale_floor)
+    xs, xT = lanes_last(x)
+    tu, tx, txT, cost, nc, mc, pred, piv, hu, _ = fused_newton_iter_packed(
+        ocp, xs, xT, u.permute(1, 2, 0).contiguous(), bp, reg, ddp=ddp)
+    ok = torch.isfinite(piv) & (piv > 0) & torch.isfinite(pred)
+    new_cost = torch.where(mc <= 0.0, nc, torch.full_like(nc, float("inf")))
+    return (cost, lanes_first(tx, txT), tu.permute(2, 0, 1), pred, ok, hu,
+            new_cost)
+
+
 def _trial_eval(ocp: OCP, x, u, bp, rp, cfg: SolverConfig):
     """One Newton trial evaluation per lane: ``(cost, temp_x, temp_u, pred,
-    bwd_feasible, Hu_norm, new_cost)``, the unfused composition."""
+    bwd_feasible, Hu_norm, new_cost)``; the unfused composition for
+    ``"par"`` and ``"seq"``, the fused trial for ``"fused"`` and
+    ``"ddp"``."""
+    if cfg.newton_impl in ("fused", "ddp"):
+        return _fused_trial_eval(ocp, x, u, bp, rp, cfg)
     cost = ocp.total_cost(x, u, bp)
     d = compute_first_order(ocp, x, u, bp)
     costates = _costates(ocp, x[:, -1], d, cfg)
@@ -168,17 +214,34 @@ class FlatLane(NamedTuple):
     done: torch.Tensor      # (B,) bool: solve complete (u holds the solution)
 
 
-def _lane_rollout(ocp: OCP, cfg: SolverConfig):
-    """Open-loop rollout for the lane paths (plain with ``"par"`` and
-    ``"seq"``)."""
+def _fused_evaluator(cfg: SolverConfig) -> bool:
     check_newton_impl(cfg)
+    return cfg.newton_impl in ("fused", "ddp")
+
+
+def _lane_rollout(ocp: OCP, cfg: SolverConfig):
+    """Open-loop rollout for the lane paths: ``u (B, T, nu)``, ``x0 (B,
+    nx)`` -> ``(B, T+1, nx)``; the rollout kernel with the fused and DDP
+    evaluators, plain with ``"par"`` and ``"seq"``."""
+    if _fused_evaluator(cfg):
+        return lambda u, x0: lanes_first(*rollout_packed(
+            ocp, u.permute(1, 2, 0).contiguous(), x0.T.contiguous()))
     return lambda u, x0: rollout(ocp.dynamics, u, x0)
 
 
 def _lane_transition(ocp: OCP, cfg: SolverConfig):
     """Two-candidate stage transition (plain warm start and central-path
-    prediction): both rollouts and their barrier costs at the new bp."""
-    check_newton_impl(cfg)
+    prediction): both rollouts and their barrier costs at the new bp; one
+    launch of the transition kernel with the fused and DDP evaluators."""
+    if _fused_evaluator(cfg):
+        def fused(u, up, x0, bp):
+            xa, xb, xaT, xbT, ca, cb, _, _ = transition_packed(
+                ocp, u.permute(1, 2, 0).contiguous(),
+                up.permute(1, 2, 0).contiguous(), x0.T.contiguous(),
+                bp.contiguous())
+            return lanes_first(xa, xaT), lanes_first(xb, xbT), ca, cb
+
+        return fused
 
     def f(u, up, x0, bp):
         xa = rollout(ocp.dynamics, u, x0)

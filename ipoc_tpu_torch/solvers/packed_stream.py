@@ -30,8 +30,9 @@ evaluator; the one numerical difference is the summation order of
 ``||cu||_F``, which can flip an accept decision within rounding
 (converged solutions agree to solver tolerance).  On the CPU every kernel
 is its plain version.  The JAX package's TPU machinery is not ported: the
-sublane and VMEM gates, the streamed mega kernel's dispatch and the
-environment switches (``mega=False`` replaces ``IPOC_MEGA_KERNEL=0``).
+sublane and VMEM gates, the streamed mega kernel's dispatch (the one mega
+kernel takes every horizon, ``ops/mega.py``) and the environment switches
+(``mega=False`` replaces ``IPOC_MEGA_KERNEL=0``).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
 ``newton_impl="fused"`` (``BATCH_CONFIG``, what the bench runs) and
 ``"ddp"`` go to the packed stream, ``solvers/packed_stream.py``, as in the
 JAX package.  This module's own loop is the unpacked stream, which runs
-``newton_impl="seq"``.  :func:`solve_stream_multigrid`, the bench's default
+``newton_impl="seq"`` or ``"par"``.  :func:`solve_stream_multigrid`, the bench's default
 mode, runs two streams: a coarse grid, then the fine grid warm-started
 from it.
 
@@ -63,7 +63,7 @@ def solve_stream(
     Runs on the device of ``controls``.  Requires
     ``cfg.globalization == "single"``; ``newton_impl="fused"`` and
     ``"ddp"`` run the packed stream on its mega-kernel executor, ``"seq"``
-    the unpacked one (the lane functions raise on any other evaluator).
+    and ``"par"`` the unpacked one.
     """
     if cfg.globalization != "single":
         raise ValueError(

@@ -39,7 +39,7 @@ RTOL = 1e-12
 MODELS = {"cartpole": (j_cartpole, t_cartpole, 4, 1),
           "pendulum": (j_pendulum, t_pendulum, 2, 0)}
 PROGRAMS = ("stage_bwd", "term", "stage_fwd", "term_fwd", "roll_cost",
-            "transition", "final_cost")
+            "transition", "final_cost", "dynamics")
 ANGLES = (0.0, 1e-13, -1e-13, 2 * np.pi, 2 * np.pi - 1e-12,
           2 * np.pi + 1e-12, np.pi, -3.0, 7.0)
 
@@ -53,6 +53,7 @@ def _jax_program(name, jocp, nx, nu):
         "roll_cost": jf._stage_roll_cost_cu_fn(jocp),
         "transition": jf._stage_transition_fn(jocp, with_cu=True),
         "final_cost": jocp.final_cost,
+        "dynamics": jocp.dynamics,
     }[name]
 
 

@@ -21,7 +21,12 @@ steps), equal NaN and inf entries, ok flags equal; the merged trial
 (``ops/mega.py``) against its plain version in float64: on all lanes but
 at most one (an accept decision may flip within rounding), equal
 iteration counts, stage iterations and done flags and every float field
-within 1e-10 of its scale; inactive lanes untouched; equal ``steps``.
+within 1e-10 of its scale; inactive lanes untouched; equal ``steps``; at
+T=1000 (the streamed TPU kernel's horizons) likewise over two k-blocks of
+2.  The rollout kernel: within 1e-12 (float64) and 1e-4 (float32) of its
+plain version's scale, the first stage equal to x0.  ``solve_batch`` with
+the fused and DDP evaluators on the card against the CPU: at most one lane
+with other iterations, converged raw costs to rtol 1e-8.
 """
 
 import numpy as np
@@ -45,6 +50,7 @@ from ipoc_tpu_torch.ops.derivatives import (
     final_gradient,
     final_hessian,
 )
+from ipoc_tpu_torch.solvers import ip_newton
 from ipoc_tpu_torch.solvers import packed_stream as ps
 from ipoc_tpu_torch.solvers.ip_newton import _regularized
 from ipoc_tpu_torch.utils.integrators import rollout
@@ -390,6 +396,113 @@ def test_mega_raises_on_aliased_lane(card):
         mega.mega_k_iterations(ocp, lane._replace(u_prev=lane.u),
                                torch.ones(8, dtype=torch.bool, device=card),
                                cfg, 2)
+
+
+ROLLOUT_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", [17, 100, 1000])
+@pytest.mark.parametrize("B", [1, 33, 4096])
+def test_rollout_kernel_matches_plain(card, B, T, dtype):
+    ocp, u, _, x0 = _lanes(cartpole, B, T, 10, dtype, card)
+    cuda.reset_launches()
+    got = tf.rollout_packed(ocp, u, x0)
+    torch.cuda.synchronize()
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0), rollout=1)
+    ref = tf.rollout_plain(ocp, u, x0)
+    assert torch.equal(got[0][0], x0)
+    for g, r in zip(got, ref):
+        _close(g, r, ROLLOUT_TOL[dtype])
+
+
+def test_rollout_kernel_raises_on_what_it_does_not_take(card):
+    ocp, u, _, x0 = _lanes(pendulum, 8, 5, 6, torch.float64, card)
+    with pytest.raises(NotImplementedError):
+        tf.rollout_packed(ocp, u.half(), x0.half())
+    with pytest.raises(ValueError):
+        tf.rollout_packed(ocp, u.transpose(0, 2).contiguous()
+                          .transpose(0, 2), x0)
+    with pytest.raises(ValueError):
+        tf.rollout_packed(ocp, u, x0.float())
+    with pytest.raises(ValueError):
+        tf.rollout_packed(ocp, u, x0.cpu())
+    with pytest.raises(ValueError):
+        tf.rollout_packed(ocp, u, torch.cat([x0, x0[:, :1]], 1))
+
+
+@pytest.mark.parametrize("ddp", [False, True], ids=["newton", "ddp"])
+def test_mega_kernel_matches_plain_at_T1000(card, ddp):
+    """The streamed TPU kernel's matrix at T=1000: two k-blocks of 2 with
+    the lane carried across the launches, two iterations per barrier stage
+    with the predictor on, float64, cartpole, B=64."""
+    B, T = 64, 1000
+    cfg = BATCH_CONFIG.replace(max_newton_iters=2,
+                               newton_impl="ddp" if ddp else "fused")
+    ocp, u, _, x0 = _lanes(cartpole, B, T, 12, torch.float64, card)
+    bp0 = torch.full((B,), cfg.bp_init, dtype=torch.float64, device=card)
+    lane = ps.packed_lane_init(ocp, u, x0, bp0,
+                               torch.full_like(bp0, cfg.reg_init), cfg)
+    active = torch.ones(B, dtype=torch.bool, device=card)
+    ref = lane
+    for _ in range(2):
+        ref, ref_steps = mega.mega_k_iterations_plain(ocp, ref, active, cfg,
+                                                      2, ddp)
+        cuda.reset_launches()
+        lane, steps = mega.mega_k_iterations(ocp, lane, active, cfg, 2, ddp)
+        torch.cuda.synchronize()
+        assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0), mega=1)
+        assert int(steps) == int(ref_steps) == 2
+    assert int(_agreeing_lanes(lane, ref, 1e-10).sum()) >= B - 1
+    assert bool((lane.bp < cfg.bp_init).any()), "no lane rolled over"
+
+
+@pytest.mark.parametrize("case", ["fused_staged", "fused_flat", "ddp_flat",
+                                  "ddp_flat_no_predictor"])
+def test_batch_on_card_matches_cpu(card, case, monkeypatch):
+    """bench.py's batch mode (``solve_batch`` with the fused evaluators) on
+    a float64 pendulum batch, card against CPU; on the card the trial is
+    the fused kernels' once per lockstep iteration (DDP: the merged
+    kernel), and the flat schedule opens its lanes with the rollout
+    kernel."""
+    from ipoc_tpu_torch import solve_batch
+
+    impl, mode = case.split("_")[:2]
+    cfg = BATCH_CONFIG.replace(newton_impl=impl, barrier_mode=mode,
+                               stage_predictor=not case.endswith("predictor"))
+    T = 20
+    ocp = pendulum.make_ocp(1.0 / T)
+    rng = np.random.default_rng(4)
+    x0 = pendulum.initial_state(torch.float64).numpy()
+    u0 = torch.tensor(0.1 * rng.normal(size=(8, T, 1)))
+    x0b = torch.tensor(x0 + 0.01 * rng.normal(size=(8, 2)))
+    trials = []
+    real = ip_newton._trial_eval
+
+    def counted(*a, **k):
+        trials.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ip_newton, "_trial_eval", counted)
+    cuda.reset_launches()
+    got = solve_batch(ocp, u0.to(card), x0b.to(card), cfg)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    monkeypatch.undo()
+    trial_kernels = ({"merged_trial": len(trials)} if impl == "ddp" else
+                     {"fused_bwd": len(trials), "fused_fwd": len(trials)})
+    assert {k: launches[k] for k in trial_kernels} == trial_kernels
+    assert (launches["rollout"] >= 1) == (mode == "flat")
+    assert launches["seq_newton_trial"] == launches["par_newton_trial"] == 0
+    ref = solve_batch(ocp, u0, x0b, cfg)
+    assert int((got.iterations.cpu() != ref.iterations).sum()) <= 1
+
+    def raw(u):
+        return ocp.total_cost(rollout(ocp.dynamics, u, x0b), u,
+                              torch.tensor(1e-9, dtype=torch.float64))
+
+    np.testing.assert_allclose(raw(got.controls.cpu()).numpy(),
+                               raw(ref.controls).numpy(), rtol=1e-8)
 
 
 # ---------------------------------------------------------------------------

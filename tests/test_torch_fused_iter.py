@@ -11,6 +11,10 @@ On the CPU the wrappers run the plain versions, held here to
   ``transition_packed``), pendulum, T=6, B=1024 lanes (8 sublanes x 128)
   in float32, at the JAX suite's own kernel-vs-reference tolerance
   (rtol 5e-5, atol 5e-5; tests/test_fused_iter.py);
+* the rollout kernel's JAX original, ``rollout_batched`` (interpret mode,
+  one sublane, cartpole and pendulum, T=17, B=3, float32): the port's
+  ``rollout_packed`` (its plain version here) within atol 1e-6
+  (test_rollout_kernel_matches_scan);
 * the unpacked twins of the last two, ``rollout_cost_batched`` and
   ``transition_batched`` (interpret mode, cartpole and pendulum, float32),
   whose outputs the packed kernels compute too: states 1e-6, costs
@@ -247,3 +251,22 @@ def test_packed_kernels_cover_the_unpacked_twins(model, kernel):
         np.testing.assert_array_equal(x[:, 0], ref_x[:, 0])
         np.testing.assert_allclose(cost.numpy(), ref_c, rtol=2e-5,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_rollout_plain_matches_jax_kernel(model):
+    jm, tm = MODELS[model]
+    Tn, Bn = 17, 3
+    jocp, tocp = jm.make_ocp(1.0 / Tn), tm.make_ocp(1.0 / Tn)
+    u, x0 = _pool(jm, Bn, Tn, seed=2, dtype=np.float32)
+    with jax.enable_x64(False):
+        ref = np.asarray(jf.rollout_batched(jocp.dynamics, jnp.asarray(u),
+                                            jnp.asarray(x0), sublanes=1,
+                                            interpret=True))
+    cuda.reset_launches()
+    xs, xT = tf.rollout_packed(tocp, _to_port(u), torch.as_tensor(x0.T.copy()))
+    assert cuda.launches["rollout"] == 0
+    assert xs.shape == (Tn, x0.shape[1], Bn) and xs.dtype == torch.float32
+    got = tf.lanes_first(xs, xT).numpy()
+    np.testing.assert_array_equal(got[:, 0], ref[:, 0])
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)

@@ -166,15 +166,14 @@ def test_transition_runs_only_on_rolling_lanes(monkeypatch):
 
 @pytest.mark.parametrize("impl", ["par", "fused", "ddp"])
 def test_other_evaluators_raise(impl):
-    """The flat lanes run newton_impl='seq' and 'par'; the others name their
-    ROADMAP item instead of being substituted.  ('fused' and 'ddp' run
-    through the packed stream, tests/test_torch_packed_stream.py; their
-    unpacked lane evaluators are not ported.)  The 'par' case, which used
-    to raise, now checks the parallel-in-time evaluator's stream against
-    JAX's: equal per-scenario iterations and steps, controls within 1e-9."""
-    tocp = t_pendulum.make_ocp(0.1)
-    u = torch.zeros((2, 10, 1), dtype=torch.float64)
-    x = torch.zeros((2, 2), dtype=torch.float64)
+    """The flat lanes with the evaluators other than 'seq', which all used
+    to raise and now run.  'par': the parallel-in-time evaluator's stream
+    against JAX's, equal per-scenario iterations and steps, controls within
+    1e-9.  'fused' and 'ddp' (the fused trial's kernels and the rollout and
+    transition kernels on a card, their plain versions here): the port's
+    flat lanes against JAX's vmapped flat_lane_init/flat_lane_iter over 12
+    iterations, every field within 1e-10, lanes rolling over both with and
+    without the stage predictor."""
     cfg = T_CFG.replace(newton_impl=impl)
     if impl == "par":
         T = 12
@@ -191,8 +190,29 @@ def test_other_evaluators_raise(impl):
         np.testing.assert_allclose(got.controls, np.asarray(ref.controls),
                                    rtol=0, atol=1e-9)
         return
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ip_newton.flat_lane_init(tocp, u, x, cfg)
+    T = 12
+    u0, x0b = _pool(j_pendulum, 4, T, seed=5)
+    jocp, tocp = j_pendulum.make_ocp(1.0 / T), t_pendulum.make_ocp(1.0 / T)
+    for jcfg in (CFG.replace(newton_impl=impl, max_newton_iters=2),
+                 CFG.replace(newton_impl=impl, max_newton_iters=2,
+                             stage_predictor=False)):
+        tcfg = config_from_jax(jcfg)
+        j_step = jax.jit(jax.vmap(
+            lambda ln: j_flat_lane_iter(jocp, ln, jcfg, ~ln.done)))
+        j_lane = jax.vmap(lambda u, x: j_flat_lane_init(jocp, u, x, jcfg))(
+            jnp.asarray(u0), jnp.asarray(x0b))
+        lane = ip_newton.flat_lane_init(tocp, *pool_from_numpy(u0, x0b),
+                                        tcfg)
+        bp0 = lane.bp
+        for _ in range(12):
+            lane = ip_newton.flat_lane_iter(tocp, lane, tcfg, ~lane.done)
+            j_lane = j_step(j_lane)
+            for field, a in zip(lane._fields, lane):
+                np.testing.assert_allclose(
+                    a.numpy(), np.asarray(getattr(j_lane, field)), rtol=0,
+                    atol=1e-10, err_msg=field)
+        assert bool((lane.bp < bp0 / jcfg.bp_decay).any()), \
+            "no lane reached a third stage"
 
 
 def test_stream_requires_single_globalization():
