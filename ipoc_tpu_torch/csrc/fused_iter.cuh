@@ -48,26 +48,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lane.h"  // load_col, store_col
 #include "riccati.cuh"
 #include "scalar_math.h"
 
 namespace ipoc {
 
 constexpr int kFusedThreads = 32;
-
-template <typename scalar_t, int N>
-__device__ __forceinline__ void load_col(scalar_t* dst, const scalar_t* src,
-                                         int B, int b) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) dst[i] = src[(size_t)i * B + b];
-}
-
-template <typename scalar_t, int N>
-__device__ __forceinline__ void store_col(scalar_t* dst, const scalar_t* src,
-                                          int B, int b) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) dst[(size_t)i * B + b] = src[i];
-}
 
 // Costates + stage data + Riccati gains in one reverse sweep.
 template <typename Model, typename scalar_t>

@@ -9,28 +9,34 @@
 // the upper triangle and mirrored, one unpivoted elimination for [k | K]
 // with the interleaved right-hand side, the minimum pivot over Quu and the
 // regularized R, NaN-propagating like jnp.minimum.  Matrices are row-major
-// flat arrays; generic in dtype, templated on (NX, NU).
+// flat arrays; generic in dtype, templated on (NX, NU).  Host and device
+// (IPOC_HD): the mega kernel's lane iteration (lane.h) also compiles with a
+// host C++ compiler for the CPU tests.
 
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <math.h>
+
+#include "scalar_math.h"
 
 namespace ipoc {
 
 template <typename scalar_t>
-__device__ __forceinline__ scalar_t nan_min(scalar_t a, scalar_t b) {
+IPOC_HD scalar_t nan_min(scalar_t a, scalar_t b) {
   // jnp.minimum / torch.minimum semantics: a NaN operand wins (fmin would
   // drop it and could let a NaN pivot pass the PD test).
-  if (isnan(a)) return a;
-  if (isnan(b)) return b;
+  if (a != a) return a;
+  if (b != b) return b;
   return a < b ? a : b;
 }
 
 // Unpivoted elimination on an (N x N) matrix `a` with an (N x MC) RHS `b`,
 // both row-major, in place; returns the minimum pivot (_solve_track).
 template <typename scalar_t, int N, int MC>
-__device__ __forceinline__ scalar_t solve_track(scalar_t* a, scalar_t* b) {
+IPOC_HD scalar_t solve_track(scalar_t* a, scalar_t* b) {
   scalar_t minpiv = a[0];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -64,7 +70,7 @@ __device__ __forceinline__ scalar_t solve_track(scalar_t* a, scalar_t* b) {
 
 // Minimum leading pivot of an unpivoted elimination (_pivots_only).
 template <typename scalar_t, int N>
-__device__ __forceinline__ scalar_t pivots_only(const scalar_t* A) {
+IPOC_HD scalar_t pivots_only(const scalar_t* A) {
   if (N == 1) return A[0];
   scalar_t a[N * N];
 #pragma unroll
@@ -102,7 +108,7 @@ __device__ __forceinline__ scalar_t pivots_only(const scalar_t* A) {
 // 1/2 k'Qu (= -1/2 Qu' Quu^-1 Qu); the pivots are Quu's alone.  The caller
 // starts Vx at the terminal gradient.
 template <typename scalar_t, int NX, int NU, bool DDP = false>
-__device__ __forceinline__ void riccati_step(
+IPOC_HD void riccati_step(
     const scalar_t* ru, const scalar_t* Q, const scalar_t* R,
     const scalar_t* M, const scalar_t* fx, const scalar_t* fu,
     scalar_t* Vxx, scalar_t* Vx, scalar_t* k, scalar_t* K, scalar_t& dv,

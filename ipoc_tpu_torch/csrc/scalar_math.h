@@ -77,3 +77,11 @@ IPOC_HD T ipoc_min(T a, T b) {
   if (b != b) return b;
   return b < a ? b : a;
 }
+
+// isfinite without <cmath>'s overload sets, so one spelling serves nvcc's
+// host and device passes and g++ (a - a is NaN for an inf or a NaN).
+template <typename T>
+IPOC_HD bool ipoc_isfinite(T a) {
+  const T d = a - a;
+  return d == d;
+}

@@ -289,6 +289,8 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
         lib.ipoc_merged_trial.restype = i
         lib.ipoc_mega.argtypes = [i, i, p, p, p, i, i, i, p]
         lib.ipoc_mega.restype = i
+        lib.ipoc_ring_layout.argtypes = [i, p]
+        lib.ipoc_ring_layout.restype = i
         _LIBS[key] = lib
     return _LIBS[key]
 

@@ -17,12 +17,18 @@ The one kernel covers both of the JAX package's forms, the resident
 streams the lane state through VMEM in time windows once it no longer fits
 there (``mega_fits``), at T >= 600 and at every long horizon in DDP mode,
 while this kernel reads the lane and its workspace from device memory at
-any T.  ``chip_smoke.py`` holds it to its plain version at T=1000 with the
+any T, through a ``cp.async`` ring in shared memory that fetches stages
+ahead of each sweep (the windows' counterpart).  An accept copies nothing:
+the iterate ping-pongs between the lane's fields ``(xs, u)`` and the
+workspace's ``(tx, tu)`` (the lazy accept merge's counterpart), and a lane
+that ends a launch in the workspace is copied back once, so the lane's
+fields hold the iterate between launches.  The lane's iteration is
+``csrc/lane.h``, which the CPU tests also compile with the host compiler.
+``chip_smoke.py`` holds the kernel to its plain version at T=1000 with the
 streamed kernel's test matrix (Newton and DDP, two k-blocks of 2,
 ``max_newton_iters=2``).  Not ported, being TPU machinery: the VMEM gates
-(``mega_fits``, ``_mega_sublanes``, ``stream_window``), the time blocks,
-the windows' DMA and lazy accept merge, and the parking of the predictor's
-candidate in the dead gains ring.
+(``mega_fits``, ``_mega_sublanes``, ``stream_window``), the time blocks and
+the parking of the predictor's candidate in the dead gains ring.
 """
 
 from __future__ import annotations
@@ -40,13 +46,13 @@ from ipoc_tpu_torch.solvers.packed_stream import PackedLane, packed_lane_iter
 
 
 class MegaWorkspace(NamedTuple):
-    """The mega kernel's scratch arrays, batch-last like the lane."""
+    """The mega kernel's scratch arrays, batch-last like the lane: the
+    other half of each lane's ping-pong iterate (a trial point or the
+    predictor's candidate) and the gains."""
 
-    tx: torch.Tensor     # (T, nx, B) trial states
-    tu: torch.Tensor     # (T, nu, B) trial controls
+    tx: torch.Tensor     # (T, nx, B) states
+    tu: torch.Tensor     # (T, nu, B) controls
     Kk: torch.Tensor     # (T, (1+nx)*nu, B) gains [k | K]
-    xb: torch.Tensor     # (T, nx, B) the predictor candidate's states
-    upred: torch.Tensor  # (T, nu, B) the predicted controls
 
 
 def mega_workspace(lane: PackedLane) -> MegaWorkspace:
@@ -57,8 +63,7 @@ def mega_workspace(lane: PackedLane) -> MegaWorkspace:
     kw = dict(dtype=lane.xs.dtype, device=lane.xs.device)
     return MegaWorkspace(
         torch.empty((T, nx, B), **kw), torch.empty((T, nu, B), **kw),
-        torch.empty((T, (1 + nx) * nu, B), **kw),
-        torch.empty((T, nx, B), **kw), torch.empty((T, nu, B), **kw))
+        torch.empty((T, (1 + nx) * nu, B), **kw))
 
 
 def lane_scalars(cfg: SolverConfig) -> tuple:
@@ -124,8 +129,7 @@ def mega_k_iterations(ocp: OCP, lane: PackedLane, active, cfg: SolverConfig,
     code = cuda.check_inputs(
         "mega", floats,
         [(T, nx, B), (nx, B), (T, nu, B), (T, nu, B), (B,), (B,), (B,),
-         (B,), (nx, B), (B,), (T, nx, B), (T, nu, B), (T, ng, B),
-         (T, nx, B), (T, nu, B)])
+         (B,), (nx, B), (B,), (T, nx, B), (T, nu, B), (T, ng, B)])
     for t, dtype in ((lane.it, torch.int32), (lane.stage_it, torch.int32),
                      (lane.done, torch.bool), (active, torch.bool)):
         if (t.dtype != dtype or tuple(t.shape) != (B,)
@@ -156,3 +160,13 @@ def mega_k_iterations(ocp: OCP, lane: PackedLane, active, cfg: SolverConfig,
     cuda.check(status, "mega")
     cuda.launches["mega"] += 1
     return lane, steps[0]
+
+
+def ring_layout(ocp: OCP, nx: int, nu: int, dtype: torch.dtype) -> dict:
+    """The stage ring of the mega kernel and the merged trial in one
+    model's library (``csrc/mega.cuh``): stages per slot ``W``, slots
+    ``S`` and the dynamic shared memory per block in bytes."""
+    out = (ctypes.c_int * 3)()
+    cuda.check(fused_iter.library(ocp, nx, nu).ipoc_ring_layout(
+        cuda.dtype_code(dtype), out), "ring_layout")
+    return {"W": out[0], "S": out[1], "shared_bytes_per_block": out[2]}

@@ -23,7 +23,17 @@ at most one (an accept decision may flip within rounding), equal
 iteration counts, stage iterations and done flags and every float field
 within 1e-10 of its scale; inactive lanes untouched; equal ``steps``; at
 T=1000 (the streamed TPU kernel's horizons) likewise over two k-blocks of
-2.  The rollout kernel: within 1e-12 (float64) and 1e-4 (float32) of its
+2.  The mega kernel's stage ring and ping-pong iterate over T in {7, 25,
+100, 1000} (none a multiple of the ring's slot in stages but 100 and 1000;
+7 shorter than the ring) and B in {1, 33, 4096}, float64 and float32,
+Newton and DDP, predictor on and off, two k-blocks of 2 carried across
+launches: in float64 every lane equal, within 1e-12 of each field's scale,
+to the two-launch kernels (the same generated code) and all but 1% (at
+least one) within 1e-10 of the plain version; in float32 the same
+decisions (it, stage_it, done) on all but 1% of lanes against both; in
+DDP mode the lanes that the plain version ends as bad (its Cholesky
+fails on an indefinite Quu, where the kernels reject the step) held to
+the two-launch kernels only; the last lane inactive and untouched.  The rollout kernel: within 1e-12 (float64) and 1e-4 (float32) of its
 plain version's scale, the first stage equal to x0.  ``solve_batch`` with
 the fused and DDP evaluators on the card against the CPU: at most one lane
 with other iterations, converged raw costs to rtol 1e-8.
@@ -392,10 +402,90 @@ def test_mega_raises_on_aliased_lane(card):
     ocp, u, _, x0 = _lanes(pendulum, 8, 5, 9, torch.float64, card)
     bp0 = torch.full((8,), cfg.bp_init, dtype=torch.float64, device=card)
     lane = ps.packed_lane_init(ocp, u, x0, bp0, bp0.clone(), cfg)
+    active = torch.ones(8, dtype=torch.bool, device=card)
     with pytest.raises(ValueError, match="share"):
-        mega.mega_k_iterations(ocp, lane._replace(u_prev=lane.u),
-                               torch.ones(8, dtype=torch.bool, device=card),
+        mega.mega_k_iterations(ocp, lane._replace(u_prev=lane.u), active,
                                cfg, 2)
+    ws = mega.mega_workspace(lane)
+    assert ws._fields == ("tx", "tu", "Kk")
+    for bad in (ws._replace(tu=lane.u), ws._replace(tx=lane.xs)):
+        with pytest.raises(ValueError, match="share"):
+            mega.mega_k_iterations(ocp, lane, active, cfg, 2,
+                                   workspace=bad)
+
+
+# One cartpole model (dt 0.01) for every horizon of the ring matrix: one
+# library.
+RING_OCP = cartpole.make_ocp(0.01)
+
+
+def _decisions_equal(a, b):
+    return (a.it == b.it) & (a.stage_it == b.stage_it) & (a.done == b.done)
+
+
+@pytest.mark.parametrize("T", [7, 25, 100, 1000])
+@pytest.mark.parametrize("B", [1, 33, 4096])
+def test_mega_ring_matches_two_launch_and_plain(card, B, T):
+    rng = np.random.default_rng(13)
+    x0 = cartpole.initial_state(torch.float64).numpy()
+    u0 = 0.1 * rng.normal(size=(T, 1, B))
+    x0b = x0[:, None] + 0.01 * rng.normal(size=(4, B))
+    active = torch.arange(B, device=card) != B - 1 if B > 1 else \
+        torch.ones(B, dtype=torch.bool, device=card)
+    slack = B // 100
+    for dtype in (torch.float64, torch.float32):
+        u = torch.tensor(u0, dtype=dtype, device=card)
+        x = torch.tensor(x0b, dtype=dtype, device=card)
+        for ddp in (False, True):
+            for predictor in (True, False):
+                cfg = BATCH_CONFIG.replace(
+                    max_newton_iters=2, stage_predictor=predictor,
+                    newton_impl="ddp" if ddp else "fused")
+                label = (dtype, ddp, predictor)
+                bp0 = torch.full((B,), cfg.bp_init, dtype=dtype, device=card)
+                lane = ps.packed_lane_init(
+                    RING_OCP, u, x, bp0, torch.full_like(bp0, cfg.reg_init),
+                    cfg)
+                before = mega.clone_lane(lane)
+                plain = two = mega.clone_lane(lane)
+                ws = mega.mega_workspace(lane)
+                for _ in range(2):
+                    cuda.reset_launches()
+                    lane, steps = mega.mega_k_iterations(
+                        RING_OCP, lane, active, cfg, 2, ddp, ws)
+                    torch.cuda.synchronize()
+                    assert cuda.launches["mega"] == 1, label
+                    plain, plain_steps = mega.mega_k_iterations_plain(
+                        RING_OCP, plain, active, cfg, 2, ddp)
+                    for _ in range(2):
+                        two = ps.packed_lane_iter(RING_OCP, two, cfg,
+                                                  active & ~two.done)
+                    assert int(steps) == int(plain_steps), label
+                for name, a, b in zip(ps.PackedLane._fields, lane, before):
+                    assert torch.equal(a[..., ~active], b[..., ~active]), \
+                        (label, name)
+                # The plain DDP trial solves Quu by Cholesky and ends a lane
+                # whose Quu is indefinite as bad; the kernels (mega and
+                # merged alike) eliminate without pivoting and reject the
+                # step, so the lane goes on.  Those lanes, a small share,
+                # are held to the two-launch kernels only.
+                held = ~(plain.done & (plain.bp > cfg.bp_min)) if ddp \
+                    else torch.ones_like(plain.done)
+                dropped = int((~held).sum())
+                assert dropped <= B // 10, (label, dropped)
+                assert not bool((lane.done & ~held).any()), label
+                if dtype == torch.float64:
+                    assert bool(_agreeing_lanes(lane, two, 1e-12).all()), \
+                        label
+                    same = _agreeing_lanes(lane, plain, 1e-10)
+                else:
+                    assert int(_decisions_equal(lane, two).sum()) >= \
+                        B - slack, label
+                    same = _decisions_equal(lane, plain)
+                n, m = int((same & held).sum()), int(held.sum())
+                assert n >= m - slack, (label, n, m)
+                if B > 1:
+                    assert bool((lane.bp < cfg.bp_init).any()), label
 
 
 ROLLOUT_TOL = {torch.float64: 1e-12, torch.float32: 1e-4}

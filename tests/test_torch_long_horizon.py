@@ -18,6 +18,21 @@ here to
 
 The card runs the kernel itself at T=1000 against the plain version
 (tests/test_torch_cuda.py, chip_smoke.py phase O).
+
+Run as a script, the file solves some of ``chip_smoke.py`` phase O's
+scenarios (cartpole H=1000, the pool's recipe and seed, float64) with JAX's
+vmapped ``flat_lane_init``/``flat_lane_iter`` under ``BATCH_CONFIG`` on the
+CPU, and with the port's flat lanes (the same semantics, the plain
+evaluators), and prints each scenario's iterations, to hold against the
+card's (phase O5 reports the lanes that run to the iteration cap):
+
+    PYTHONPATH=. python tests/test_torch_long_horizon.py 3 17 40
+
+With ``--trace`` it steps the two in lockstep instead and prints where
+their controls and decisions part, and JAX's iterations from controls
+nudged by one unit in the last place (``phase_o_trace``):
+
+    PYTHONPATH=. python tests/test_torch_long_horizon.py --trace 48 50
 """
 
 import jax
@@ -142,3 +157,133 @@ def test_mega_plain_matches_jax_streamed_kernel(monkeypatch):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(_unpack_scal(ref, B)),
                                       err_msg=name)
+
+
+def _phase_o_pool(scenarios, horizon, seed):
+    """Scenarios of ``chip_smoke.py`` phase O's pool (``make_batch`` with
+    the seed, 4096 scenarios, float32 drawn), in float64 numpy."""
+    from ipoc_tpu_torch.models import cartpole as t_cartpole
+    from ipoc_tpu_torch.solvers.batched import make_batch
+
+    u0, x0 = make_batch(torch.Generator().manual_seed(seed),
+                        t_cartpole.initial_state(torch.float32), 4096,
+                        horizon, 1, state_scale=0.01, control_scale=0.1)
+    idx = list(scenarios)
+    return idx, u0[idx].double().numpy(), x0[idx].double().numpy()
+
+
+def _jax_lanes(u0, x0, horizon):
+    """JAX's vmapped flat lanes under ``BATCH_CONFIG`` on cartpole: the
+    opened lanes and the jitted iteration."""
+    from ipoc_tpu.models import cartpole as j_cartpole
+
+    cfg = ipoc_tpu.BATCH_CONFIG
+    ocp = j_cartpole.make_ocp(1.0 / horizon)
+    step = jax.jit(jax.vmap(lambda ln: j_flat_lane_iter(ocp, ln, cfg,
+                                                        ~ln.done)))
+    lane = jax.vmap(lambda u, x: j_flat_lane_init(ocp, u, x, cfg))(
+        jnp.asarray(u0), jnp.asarray(x0))
+    return lane, step
+
+
+def _port_lanes_flat(u0, x0, horizon):
+    """The port's flat lanes (plain evaluators) on the same scenarios: the
+    opened lanes and one iteration."""
+    from ipoc_tpu_torch.models import cartpole as t_cartpole
+    from ipoc_tpu_torch.solvers import ip_newton
+
+    tcfg = config_from_jax(ipoc_tpu.BATCH_CONFIG)
+    tocp = t_cartpole.make_ocp(1.0 / horizon)
+    lane = ip_newton.flat_lane_init(tocp, *pool_from_numpy(u0, x0), tcfg)
+    return lane, lambda ln: ip_newton.flat_lane_iter(tocp, ln, tcfg,
+                                                     ~ln.done)
+
+
+def phase_o_iterations(scenarios, horizon=1000, seed=1):
+    """JAX's flat lanes, then the port's, on scenarios of phase O's pool,
+    solved in float64 under ``BATCH_CONFIG``: each scenario's iterations
+    when it finished, or at the cap."""
+    import time
+
+    from ipoc_tpu.solvers.ip_newton import flat_total_cap
+
+    idx, u0, x0 = _phase_o_pool(scenarios, horizon, seed)
+    cap = flat_total_cap(ipoc_tpu.BATCH_CONFIG)
+    out = {"scenarios": idx, "cap": cap}
+    for name, (lane, step) in (("jax", _jax_lanes(u0, x0, horizon)),
+                               ("port", _port_lanes_flat(u0, x0, horizon))):
+        t0 = time.perf_counter()
+        for _ in range(cap):
+            if bool(np.asarray(lane.done).all()):
+                break
+            lane = step(lane)
+        out[f"{name}_iterations"] = np.asarray(lane.it).tolist()
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_o_trace(scenarios, horizon=1000, seed=1):
+    """JAX's and the port's float64 flat lanes in lockstep on scenarios of
+    phase O's pool.  Per scenario: the gap between the two controls, max
+    |u_jax - u_port| / max |u_jax|, after iterations 1, 10, 100, ..., the
+    first iteration at which it passes each of 1e-12 ... 1e-3, the first
+    iteration whose decisions differ (``it``, ``stage_it``, ``done``, or
+    ``bp`` beyond 1e-12 relative), and both final iteration counts.  Then
+    JAX alone from the same controls nudged by one unit in the last place
+    (``np.nextafter`` up and down): the iterations each reaches."""
+    from ipoc_tpu.solvers.ip_newton import flat_total_cap
+
+    idx, u0, x0 = _phase_o_pool(scenarios, horizon, seed)
+    cap = flat_total_cap(ipoc_tpu.BATCH_CONFIG)
+    (j, j_step), (t, t_step) = (_jax_lanes(u0, x0, horizon),
+                                _port_lanes_flat(u0, x0, horizon))
+    n = len(idx)
+    marks = (1e-12, 1e-9, 1e-6, 1e-3)
+    gap_at, crossed, parted = ([{} for _ in idx] for _ in range(3))
+    for i in range(1, cap + 1):
+        if bool(np.asarray(j.done).all()) and bool(t.done.all()):
+            break
+        j, t = j_step(j), t_step(t)
+        uj = np.asarray(j.u)
+        gap = (np.abs(uj - t.u.numpy()).max(axis=(1, 2))
+               / np.abs(uj).max(axis=(1, 2)))
+        same = ((np.asarray(j.it) == t.it.numpy())
+                & (np.asarray(j.stage_it) == t.stage_it.numpy())
+                & (np.asarray(j.done) == t.done.numpy())
+                & np.isclose(np.asarray(j.bp), t.bp.numpy(), rtol=1e-12,
+                             atol=0))
+        for s in range(n):
+            if i in (1, 10, 100, 200, 500, 1000) or i == cap:
+                gap_at[s][i] = float(gap[s])
+            for m in marks:
+                if gap[s] > m and m not in crossed[s]:
+                    crossed[s][m] = i
+            if not same[s] and "iteration" not in parted[s]:
+                parted[s] = {"iteration": i, "gap": float(gap[s]),
+                             "jax": [int(np.asarray(j.it)[s]),
+                                     int(np.asarray(j.stage_it)[s])],
+                             "port": [int(t.it[s]), int(t.stage_it[s])]}
+    out = {"scenarios": idx, "cap": cap,
+           "jax_iterations": np.asarray(j.it).tolist(),
+           "port_iterations": t.it.tolist(),
+           "gap_after": gap_at, "gap_first_above": crossed,
+           "decisions_first_differ": parted}
+    for name, way in (("up", np.inf), ("down", -np.inf)):
+        lane, step = _jax_lanes(np.nextafter(u0, way), x0, horizon)
+        for _ in range(cap):
+            if bool(np.asarray(lane.done).all()):
+                break
+            lane = step(lane)
+        out[f"jax_iterations_nudged_{name}"] = np.asarray(lane.it).tolist()
+    return out
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    args = sys.argv[1:]
+    run = phase_o_trace if args[:1] == ["--trace"] else phase_o_iterations
+    print(json.dumps(run(int(a) for a in args if a != "--trace")))

@@ -18,9 +18,24 @@ stream's mega executor against the JAX package, on the CPU.
   default) against the two-launch arm (``mega=False``) and against JAX
   ``solve_stream`` on ``tests/test_torch_packed_stream.py``'s pools: equal
   iterations on every scenario, equal steps, controls within 1e-8.
+* The kernel's lane iteration (``csrc/lane.h``: trial, accept, convergence,
+  transition, the ping-pong iterate and its copy-back), compiled with the
+  host C++ compiler against the generated model source and run lane by
+  lane with plain loads, against ``mega_k_iterations_plain`` in float64:
+  pendulum and cartpole, B=8, T=12, two blocks of k=6 with the lane
+  carried across them, ``max_newton_iters=2`` so that lanes roll over,
+  Newton and DDP, predictor on and off.  Equal ``it``, ``stage_it``,
+  ``done`` and ``steps``; every float field within 1e-12 of its scale
+  (the same float64 program up to summation order and constant folding);
+  lanes ending the block with the iterate in either buffer; an inactive
+  lane left untouched.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
+
+import ctypes
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -44,8 +59,10 @@ from ipoc_tpu.solvers.packed_stream import _pack_scal, _unpack_scal
 from ipoc_tpu.solvers.packed_stream import packed_lane_init as j_lane_init
 from ipoc_tpu.solvers.stream import solve_stream as j_solve_stream
 from ipoc_tpu_torch.interop import config_from_jax, pool_from_numpy, to_numpy
+from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.ops import cuda
+from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import mega
 from ipoc_tpu_torch.solvers import packed_stream as ps
 from ipoc_tpu_torch.solvers.stream import solve_stream
@@ -221,3 +238,112 @@ def test_mega_stream_matches_two_launch_arm_and_jax(solved):
         np.testing.assert_allclose(got.controls, np.asarray(other.controls),
                                    rtol=0, atol=1e-8, equal_nan=True,
                                    err_msg=label)
+
+
+# --- the lane iteration's host build (csrc/lane.h) ---------------------------
+
+HOST_MODELS = {"pendulum": (t_pendulum, 2), "cartpole": (t_cartpole, 4)}
+HB, HT, HK = 8, 12, 6
+INACTIVE = 3
+
+
+def _host_mega_source(progs, nx, nu):
+    """lane.h with the generated Model and an extern "C" float64 entry in
+    the kernel's argument order (``ops/mega.py``), plus each lane's parity
+    at the end."""
+    lines = ['#include "lane.h"', "struct Model {",
+             f"  static constexpr int NX = {nx};",
+             f"  static constexpr int NU = {nu};"]
+    lines += [p.c_source(indent="  ") for p in progs.values()]
+    lines += [
+        "};",
+        'extern "C" void host_mega(int ddp, void* const* lane, '
+        "void* const* ws, const double* cfg, int k, int B, int T, "
+        "unsigned char* odd) {",
+        "  const auto a = ipoc::mega_arrays<double>(lane, ws, B, T);",
+        "  const auto c = ipoc::lane_scalars(cfg);",
+        "  if (ddp) ipoc::mega_host<Model, double, true>(a, c, k, odd);",
+        "  else ipoc::mega_host<Model, double, false>(a, c, k, odd);",
+        "}"]
+    return "\n".join(lines) + "\n"
+
+
+@pytest.fixture(scope="module", params=list(HOST_MODELS))
+def host_lane(request, tmp_path_factory):
+    """One model's generated source and lane.h compiled with the host C++
+    compiler; returns (model module, ocp, the loaded library)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    model, nx = HOST_MODELS[request.param]
+    ocp = model.make_ocp(1.0 / HT)
+    out = tmp_path_factory.mktemp(f"lane_{request.param}")
+    src, so = out / "lane_host.cpp", out / "lane_host.so"
+    src.write_text(_host_mega_source(tf.scalar_programs(ocp, nx, 1), nx, 1))
+    res = subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                          "-I", str(cuda.CSRC), "-o", str(so), str(src)],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.host_mega.argtypes = [i, p, p, p, i, i, i, p]
+    lib.host_mega.restype = None
+    return model, ocp, lib
+
+
+def _host_mega(lib, lane, active, cfg, k, ddp):
+    """k iterations of the host build on ``lane`` in place; returns
+    ``(steps, parity (B,) bool)``."""
+    T, nx, B = lane.xs.shape
+    ws = mega.mega_workspace(lane)
+    steps = torch.zeros((1,), dtype=torch.int32)
+    odd = torch.zeros((B,), dtype=torch.uint8)
+    scalars = mega.lane_scalars(cfg)
+    lib.host_mega(
+        int(ddp),
+        tf.pointers((lane.xs, lane.xT, lane.u, lane.u_prev, lane.cun,
+                     lane.it, lane.stage_it, lane.rp, lane.r_inc, lane.bp,
+                     lane.done, lane.x0, lane.bp0, active, steps)),
+        tf.pointers(ws), (ctypes.c_double * len(scalars))(*scalars), k, B,
+        T, odd.data_ptr())
+    return int(steps[0]), odd.bool()
+
+
+@pytest.mark.parametrize("ddp,predictor", [(False, True), (False, False),
+                                           (True, True), (True, False)],
+                         ids=["newton-predictor", "newton", "ddp-predictor",
+                              "ddp"])
+def test_lane_host_build_matches_plain(host_lane, ddp, predictor):
+    model, ocp, lib = host_lane
+    nx = model.initial_state(torch.float64).shape[0]
+    cfg = config_from_jax(CFG).replace(
+        max_newton_iters=2, stage_predictor=predictor,
+        newton_impl="ddp" if ddp else "fused")
+    rng = np.random.default_rng(11)
+    x0 = model.initial_state(torch.float64).numpy()
+    u0 = 0.1 * rng.normal(size=(HB, HT, 1))
+    x0b = x0 + 0.01 * rng.normal(size=(HB, nx))
+    lane = _port_lanes(ocp, u0, x0b, cfg)
+    active = torch.arange(HB) != INACTIVE
+    ref = lane
+    parities = torch.zeros(0, dtype=torch.bool)
+    for block in range(2):
+        before = mega.clone_lane(lane)
+        ref, ref_steps = mega.mega_k_iterations_plain(ocp, ref, active, cfg,
+                                                      HK, ddp)
+        steps, odd = _host_mega(lib, lane, active, cfg, HK, ddp)
+        assert steps == int(ref_steps), block
+        for name, a, b, was in zip(ps.PackedLane._fields, lane, ref, before):
+            assert torch.equal(a[..., INACTIVE], was[..., INACTIVE]), name
+            if a.is_floating_point():
+                fin = torch.isfinite(b)
+                scale = float(b[fin].abs().max()) + 1e-300
+                assert torch.equal(fin, torch.isfinite(a)), name
+                err = float((a[fin] - b[fin]).abs().max())
+                assert err <= 1e-12 * scale, (name, block, err, scale)
+            else:
+                assert torch.equal(a, b), (name, block)
+        parities = torch.cat([parities, odd[active]])
+    assert bool((ref.bp[active] < cfg.bp_init).any()), "no lane rolled over"
+    assert bool(parities.any()) and not bool(parities.all()), \
+        "the blocks did not end with the iterate in both buffers"
