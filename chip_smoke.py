@@ -14,9 +14,10 @@ line:
 
   0. the device: its name, power limit, the kernels' build time, the
      registers and spills ``ptxas`` reports for the mega kernel, the
-     merged trial and the three parallel-in-time kernels, and the mega
-     kernel's and the merged trial's stage ring (stages per slot W, slots
-     S, dynamic shared memory per block);
+     merged trial and the three parallel-in-time kernels (the trial per
+     lane count, with its resident blocks per SM and shared memory per
+     block), and the mega kernel's and the merged trial's stage ring
+     (stages per slot W, slots S, dynamic shared memory per block);
   A. each kernel against its plain PyTorch version on the card, on stage
      data taken from the real slice (cartpole, T=100, B=4096), in float32
      and float64, on random nx=3, nu=2 data, and on an indefinite R that
@@ -68,17 +69,20 @@ line:
      random nx=3, nu=2 data at T=129, float64 (1e-10 of scale) then
      float32 (1e-4); an indefinite R on one lane; the trial against the
      public LQT passes on the scan kernels, whose launches are counted
-     there; then each kernel's time beside its plain version's;
+     there; then each kernel's time beside its plain version's (the trial
+     in float32 and float64, with the lanes and blocks it launched,
+     through its wrapper and its C entry alone);
   L. ``par_interior_point_optimal_control``: the goldens (pendulum and
      cartpole H=100, float64) against tests/golden/*.npz and the CPU run,
      the seq solve beside them; cartpole H=1000 under FAST_CONFIG in
      float32 and float64 with iterations, trials, wall time (median of 3,
      cut from 5 when phases N and O came), host reads and launches per
-     solve, and the busy share over the first barrier stage;
+     solve, and the busy share over the first barrier stage with the
+     trial's share of its device time and wall;
   M. ``solve_batch(method="par")`` on the pool's first 1024 scenarios in
      float32 under FAST_CONFIG (the busy share over its first 11 lockstep
-     iterations); then 128 scenarios (cut from 256) in float64, the card
-     against the CPU;
+     iterations, and the trial's share of them); then 128 scenarios (cut
+     from 256) in float64, the card against the CPU;
   N. bench.py's batch mode: ``solve_batch(ocp, u, x0, cfg)`` on the pool's
      first 4096 cartpole H=100 scenarios in float32 under ``BATCH_CONFIG``
      (staged), its flat schedule, ``newton_impl="ddp"`` and flat DDP
@@ -141,9 +145,11 @@ F32_TOL = 1e-4
 # The card's peaks for a kernel's bound (NVIDIA's data sheet for the H100
 # SXM at 700 W): device memory, and float32 outside
 # the tensor cores (an FMA counts two operations).  Every timed launch below
-# runs in float32.
+# runs in float32, but for phase K's float64 trial, bound by the data
+# sheet's float64 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_F64_OPS_PER_S = 34e12
 # The reference sweep's longest horizon (H * dt = 1 s): phase L's single
 # solve and phase O's streams.
 LONG_T = 1000
@@ -225,14 +231,15 @@ def nbytes(*objs):
     return total
 
 
-def bound(bytes_moved, ops, library_ms=None):
+def bound(bytes_moved, ops, library_ms=None, ops_per_s=PEAK_F32_OPS_PER_S):
     """A kernel's bound: the larger of its bytes (each input read once,
-    each output written once) over the card's memory rate and its float32
-    operations over the card's peak; ``library_ms`` is the time of one
+    each output written once) over the card's memory rate and its
+    operations over the card's peak for their type (float32 unless
+    ``ops_per_s`` says otherwise); ``library_ms`` is the time of one
     PyTorch call computing the same function, where there is one (none of
     this port's kernels has one)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(bytes_moved), "ops": int(ops),
@@ -567,7 +574,14 @@ def sass_mix(lib):
 def par_ptxas_report(lib):
     """Registers and spill bytes of each instantiation of the three
     parallel-in-time kernels (``csrc/par_newton.cu``), keyed by kernel,
-    dtype and template shape."""
+    dtype and template shape (the trial's: nx, nu and lanes per scenario
+    P); for the trial also the card's view (``trial_occupancy``): resident
+    blocks per SM, threads, shared bytes and scenarios per block, checked
+    against the launch rule's RESIDENT_WARPS for the (4, 1) shape."""
+    import torch
+
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+
     text = lib.with_suffix(".ptxas.txt").read_text()
     out = {}
     for block in re.split(r"Compiling entry function '", text)[1:]:
@@ -587,7 +601,18 @@ def par_ptxas_report(lib):
                     else None,
                     "spill_load_bytes": int(frame.group(3)) if frame
                     else None}
-    check(len(out) == 24, f"par_newton ptxas report incomplete: {sorted(out)}")
+        if m.group(1) == "par_newton_trial_kernel":
+            nx, nu, lanes = map(int, shape.split("_"))
+            dtype = torch.float32 if m.group(2) == "f" else torch.float64
+            occ = nk.trial_occupancy(dtype, nx, nu, lanes)
+            out[key].update(occ)
+            warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
+            check((nx, nu) != (4, 1) or warps == nk.RESIDENT_WARPS,
+                  f"{key}: {warps} resident warps per SM, the launch rule "
+                  f"assumes {nk.RESIDENT_WARPS}")
+    expect = 2 * 3 * (2 + 1 + len(nk.TRIAL_LANES))
+    check(len(out) == expect,
+          f"par_newton ptxas report incomplete: {sorted(out)}")
     return out
 
 
@@ -806,7 +831,10 @@ def kernel_ms(prof, per=1):
     per_kernel = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            key = e.key.split("(")[0][:60]
+            # "void (anonymous namespace)::name<...>(...)": drop the
+            # namespace so that each kernel keeps a row of its own.
+            key = e.key.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0][:60]
             per_kernel[key] = (per_kernel.get(key, 0.0)
                                + e.self_device_time_total / per / 1e3)
     return per_kernel
@@ -1913,36 +1941,56 @@ def phase_par_kernels(dev):
           f"the LQT passes launched {pipeline_counts}")
     out["lqt_passes_launches"] = pipeline_counts
 
-    # Times, float32: B=1024 at T=100 (phase M's batch) and B=1 at T=1000
-    # (phase L's single solve).
+    # Times: B=1024 at T=100 (phase M's batch) and B=1 at T=1000 (phase
+    # L's single solve); the scans in float32, the trial in float32 and
+    # float64 with the launch geometry its wrapper picked.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     timing = {}
     for T_, B in ((T, PAR_BATCH), (1000, 1)):
-        trial, scans = par_inputs(T_, B, torch.float32, dev)
-        nx, nu = trial[5].shape[-2:]
-        fns = {
-            "affine_scan": (lambda: sk.affine_scan(*scans["suffix"], True),
-                            lambda: sk.affine_scan_plain(*scans["suffix"],
-                                                         True),
-                            scans["suffix"],
-                            B * T_ * affine_combine_ops(nx)),
-            "value_scan": (lambda: sk.value_scan(*scans["value"]),
-                           lambda: sk.value_scan_plain(*scans["value"]),
-                           scans["value"],
-                           B * (T_ - 1) * value_combine_ops(nx)),
-            "par_newton_trial": (lambda: nk.fused_newton_step(*trial),
-                                 lambda: nk.fused_newton_step_plain(*trial),
-                                 trial, par_trial_ops(B, T_, nx, nu)),
-        }
-        rec = {}
-        for name, (kernel, plain, ins, ops) in fns.items():
-            rec[name] = {"ms": cuda_ms(kernel, 50),
-                         "plain_ms": cuda_ms(plain, 3),
-                         **bound(nbytes(ins, kernel()), ops)}
-        timing[f"T={T_} B={B}"] = rec
+        for dtype in (torch.float32, torch.float64):
+            trial, scans = par_inputs(T_, B, dtype, dev)
+            nx, nu = trial[5].shape[-2:]
+            fns = {"par_newton_trial": (
+                lambda: nk.fused_newton_step(*trial),
+                lambda: nk.fused_newton_step_plain(*trial), trial,
+                par_trial_ops(B, T_, nx, nu))}
+            if dtype == torch.float32:
+                fns["affine_scan"] = (
+                    lambda: sk.affine_scan(*scans["suffix"], True),
+                    lambda: sk.affine_scan_plain(*scans["suffix"], True),
+                    scans["suffix"], B * T_ * affine_combine_ops(nx))
+                fns["value_scan"] = (
+                    lambda: sk.value_scan(*scans["value"]),
+                    lambda: sk.value_scan_plain(*scans["value"]),
+                    scans["value"], B * (T_ - 1) * value_combine_ops(nx))
+            peak = (PEAK_F32_OPS_PER_S if dtype == torch.float32
+                    else PEAK_F64_OPS_PER_S)
+            rec = {}
+            for name, (kernel, plain, ins, ops) in fns.items():
+                rec[name] = {"ms": cuda_ms(kernel, 50),
+                             "plain_ms": cuda_ms(plain, 3),
+                             **bound(nbytes(ins, kernel()), ops,
+                                     ops_per_s=peak)}
+            # Through its wrapper (ms) the trial is paced by the wrapper's
+            # host work at these shapes: its C entry on preallocated
+            # outputs (entry_ms) gives the kernel's time.
+            trial_rec = rec["par_newton_trial"]
+            trial_rec["entry_ms"] = cuda_ms(trial_entry(
+                cuda.library(cuda.PAR_NEWTON), trial, sms), 50)
+            lanes = nk.trial_lanes(B, T_, sms)
+            occ = nk.trial_occupancy(dtype, nx, nu, lanes)
+            trial_rec["geometry"] = {
+                "lanes": lanes, "blocks": -(-B // occ["scenarios_per_block"]),
+                "threads_per_block": occ["threads_per_block"]}
+            tag = "" if dtype == torch.float32 else " float64"
+            timing[f"T={T_} B={B}{tag}"] = rec
     out["timing"] = timing
-    out["timing_shape"] = ("float32, CUDA events around back-to-back calls "
-                           "after a warm one; the affine scan in its suffix "
-                           "mode on the costate elements (T+1)")
+    out["timing_shape"] = ("float32 (the trial also float64), CUDA events "
+                           "around back-to-back calls after a warm one; the "
+                           "trial through its wrapper (ms) and its C entry "
+                           "on preallocated outputs (entry_ms); the affine "
+                           "scan in its suffix mode on the costate elements "
+                           "(T+1)")
     out["float32_tolerance"] = F32_TOL
     emit(out)
     f32 = [v for k, v in out.items() if k.endswith("float32")]
@@ -1957,6 +2005,35 @@ def phase_par_kernels(dev):
         record[name] = {"max_abs_err": err,
                         **timing[f"T={T} B={PAR_BATCH}"][name]}
     return record, pipeline_counts
+
+
+def trial_entry(lib, trial, sms):
+    """One launch of the trial library's C entry, ``ipoc_par_newton_trial``,
+    on ``trial`` with outputs allocated once, at the wrapper's lanes per
+    scenario: back-to-back calls time the kernel, not the wrapper's host
+    work."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+
+    check(all(a.data_ptr() % 16 == 0 for a in trial),
+          "the trial's entry needs 16-byte aligned inputs")
+    B, T_, nx, nu = trial[5].shape
+    kw = dict(dtype=trial[5].dtype, device=trial[5].device)
+    outs = (torch.empty((B, T_, nu * (1 + nx)), **kw),
+            torch.empty((B, T_, nu), **kw), torch.empty((B, T_ + 1, nx), **kw),
+            torch.empty((B,), **kw),
+            torch.empty((B,), dtype=torch.bool, device=kw["device"]))
+    head = (cuda.dtype_code(kw["dtype"]), nx, nu, nk.trial_lanes(B, T_, sms))
+    ptrs = [a.data_ptr() for a in (*trial, *outs)]
+
+    def call():
+        status = lib.ipoc_par_newton_trial(
+            *head, *ptrs, B, T_, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"trial launch status {status}")
+        return outs[1:]
+    return call
 
 
 def golden_setup(name):
@@ -2017,8 +2094,8 @@ def window_busy(run):
     over its host-clock time without the profiler.  A whole eager solve
     issues 10^5-10^6 kernels, which the profiler takes minutes to collect,
     so the callers pass a window: the first barrier stage, or its first
-    lockstep iterations.  Returns ``(share, window wall s, device ms of the
-    largest kernels)``."""
+    lockstep iterations.  Returns ``(share, window wall s, device ms per
+    kernel)``."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -2027,8 +2104,34 @@ def window_busy(run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     per_kernel = kernel_ms(prof)
-    return (sum(per_kernel.values()) / (wall_s * 1e3), wall_s,
-            top_kernels(per_kernel))
+    return sum(per_kernel.values()) / (wall_s * 1e3), wall_s, per_kernel
+
+
+def trial_share(per_kernel, wall_s, window_trials, trials, solve_wall_s):
+    """The parallel trial kernel's device ms in a window's profile (of
+    ``window_trials`` launches) and its share of the window's device time
+    and of its wall; and, at the window's ms per launch, the share of a
+    whole solve's wall (``trials`` launches in ``solve_wall_s``)."""
+    trial = sum(v for k, v in per_kernel.items()
+                if "par_newton_trial_kernel" in k)
+    device = sum(per_kernel.values())
+    per_launch = trial / window_trials if window_trials else None
+    return {"device_ms": trial, "launches": window_trials,
+            "ms_per_launch": per_launch,
+            "share_of_device_time": trial / device if device else None,
+            "share_of_wall": trial / (wall_s * 1e3),
+            "solve_share_of_wall": (per_launch * trials / (solve_wall_s * 1e3)
+                                    if per_launch else None)}
+
+
+def window_trials(run):
+    """``window_busy(run)`` and the trial launches of one run of the
+    window (it runs twice: timed, then profiled)."""
+    from ipoc_tpu_torch.ops import cuda
+
+    cuda.reset_launches()
+    busy, wall_s, per_kernel = window_busy(run)
+    return busy, wall_s, per_kernel, cuda.launches["par_newton_trial"] // 2
 
 
 def phase_single_solve(dev, cpu_ref):
@@ -2107,7 +2210,7 @@ def phase_single_solve(dev, cpu_ref):
             times.append(time.perf_counter() - t0)
         wall = sorted(times)[1]
         first = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99)
-        busy, wall_first, top = window_busy(
+        busy, wall_first, per_kernel, n_window = window_trials(
             lambda: par(ocp, uu, xx, first)[0].cpu())
         x = rollout(ocp.dynamics, u.double(), x0)
         feasible = bool(check_feasibility(ocp, x, u.double()))
@@ -2121,7 +2224,9 @@ def phase_single_solve(dev, cpu_ref):
             "host_reads_per_solve": reads,
             "device_busy_share_first_stage": busy,
             "first_stage_wall_s": wall_first,
-            "first_stage_device_ms_top_kernels": top,
+            "first_stage_device_ms_top_kernels": top_kernels(per_kernel),
+            "first_stage_trial": trial_share(per_kernel, wall_first,
+                                             n_window, trials, wall),
             "max_abs_u": float(u.abs().max()), "feasible": feasible,
             "raw_cost": raw}
         check(bool(torch.isfinite(u).all()) and feasible and it > 0,
@@ -2157,7 +2262,7 @@ def phase_batch_solve(pool32, dev):
     # first barrier stage (the cold start, two thirds of the wall).
     window = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99,
                                  max_newton_iters=10)
-    busy, wall_window, top = window_busy(
+    busy, wall_window, per_kernel, n_window = window_trials(
         lambda: solve(window).iterations.cpu())
     it = sol.iterations.cpu().double()
     costs = raw_costs(ocp, sol.controls.double(), x0.double()).cpu()
@@ -2172,7 +2277,10 @@ def phase_batch_solve(pool32, dev):
            "device_busy_share_window": busy,
            "busy_window": "the first 11 lockstep Newton iterations of the "
                           "first barrier stage",
-           "window_wall_s": wall_window, "window_device_ms_top_kernels": top,
+           "window_wall_s": wall_window,
+           "window_device_ms_top_kernels": top_kernels(per_kernel),
+           "window_trial": trial_share(per_kernel, wall_window, n_window,
+                                       trials, wall),
            "max_abs_u": float(sol.controls.abs().max()),
            "frac_nonfinite_cost": float((~torch.isfinite(costs)).double()
                                         .mean())}
@@ -2299,8 +2407,9 @@ def phase_batch_modes(pool32, dev):
             launches = dict(cuda.launches)
         sols[mode] = sol
         lockstep, n_roll = len(trials.calls), rolls.count()
-        busy, wall_window, top = window_busy(
+        busy, wall_window, per_kernel = window_busy(
             lambda: solve_batch(ocp, u, x0, window).iterations.cpu())
+        top = top_kernels(per_kernel)
         costs = raw_costs(ocp, sol.controls, x0).double().cpu()
         umax = float(sol.controls.abs().max())
         nonfinite = float((~torch.isfinite(costs)).double().mean())
@@ -2694,7 +2803,7 @@ def main(argv=None):
         "mega_streamed": ("mega.cuh", "mega_kernel.py:1240"),
         "affine_scan": ("par_newton.cu", "scan_kernels.py:252"),
         "value_scan": ("par_newton.cu", "scan_kernels.py:252"),
-        "par_newton_trial": ("par_newton.cu", "newton_kernel.py:229"),
+        "par_newton_trial": ("par_trial.cuh", "newton_kernel.py:229"),
     }
     total_s = time.perf_counter() - t_start
     print(f"# total {total_s:.1f} s", file=sys.stderr)

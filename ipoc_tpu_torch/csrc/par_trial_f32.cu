@@ -1,0 +1,6 @@
+// The parallel trial's float32 instantiations (par_trial.cuh): every
+// (nx, nu) shape and lane count, in an object of their own.
+
+#include "par_trial.cuh"
+
+IPOC_TRIAL_ENTRIES(float, f32)

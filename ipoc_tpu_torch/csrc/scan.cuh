@@ -1,5 +1,6 @@
-// Associative-scan algebra and the block scan shared by the parallel-in-time
-// kernels (csrc/par_newton.cu).  Counterpart of the lane-layout helpers of
+// Associative-scan algebra shared by the parallel-in-time kernels
+// (csrc/par_newton.cu, csrc/par_trial.h) and the block scan of the affine
+// and value scan kernels.  Counterpart of the lane-layout helpers of
 // ipoc_tpu/ops/pallas/scan_kernels.py: _affine_combine_lanes,
 // _value_combine_lanes and the Hillis-Steele rounds of _scan_rounds.
 //
@@ -9,9 +10,11 @@
 // Identities (I, 0) and (I, 0, 0, 0, 0), as scan_kernels.py pads with.
 // Arithmetic follows the JAX lane kernels term by term (same products, same
 // summation order, unpivoted eliminations through riccati.cuh's
-// solve_track); nvcc may contract a product and a sum into one FMA.
+// solve_track); nvcc may contract a product and a sum into one FMA.  The
+// algebra is host and device (IPOC_HD): the trial's host build
+// (par_trial.h) compiles it with g++.
 //
-// The block scan: a block of kScanThreads threads scans one scenario's
+// The block scan (device only): a block of kScanThreads threads scans one scenario's
 // horizon.  Each thread owns a contiguous chunk of stages; the caller
 // combines its chunk serially into one aggregate, block_carry scans the
 // block's aggregates in shared memory (Hillis-Steele, log2(kScanThreads)
@@ -23,7 +26,9 @@
 
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <math.h>
 
 #include "riccati.cuh"
@@ -36,14 +41,14 @@ template <typename scalar_t, int N>
 struct AffineOp {
   static constexpr int E = N * N + N;
 
-  __device__ __forceinline__ static void identity(scalar_t* e) {
+  IPOC_HD static void identity(scalar_t* e) {
 #pragma unroll
     for (int r = 0; r < E; ++r)
       e[r] = (r < N * N && r / N == r % N) ? scalar_t(1) : scalar_t(0);
   }
 
   // out = x o y: v -> Fx (Fy v + cy) + cx.  out must not alias x or y.
-  __device__ __forceinline__ static void combine(const scalar_t* x,
+  IPOC_HD static void combine(const scalar_t* x,
                                                  const scalar_t* y,
                                                  scalar_t* out) {
 #pragma unroll
@@ -69,7 +74,7 @@ struct ValueOp {
   static constexpr int kA = 0, kB = N * N, kC = N * N + N;
   static constexpr int kEta = 2 * N * N + N, kJ = 2 * N * N + 2 * N;
 
-  __device__ __forceinline__ static void identity(scalar_t* e) {
+  IPOC_HD static void identity(scalar_t* e) {
 #pragma unroll
     for (int r = 0; r < E; ++r)
       e[r] = (r < N * N && r / N == r % N) ? scalar_t(1) : scalar_t(0);
@@ -78,7 +83,7 @@ struct ValueOp {
   // Solves on L2 = I + Jj Ci for [etaj - Jj bi | Jj] (E_eta, E_J), then
   // eta = Ai' E_eta + etai and J = (Ai' E_J) Ai + Ji.  `etaj` may be null
   // (zero).  Shared by combine and the terminal fold.
-  __device__ __forceinline__ static void eta_J(const scalar_t* x,
+  IPOC_HD static void eta_J(const scalar_t* x,
                                                const scalar_t* Jj,
                                                const scalar_t* etaj,
                                                scalar_t* eta_out,
@@ -131,7 +136,7 @@ struct ValueOp {
 
   // out = combine(earlier x, later y) (parallel/lqt.py value_combine, the
   // lane form of scan_kernels.py:156-181).  out must not alias x or y.
-  __device__ __forceinline__ static void combine(const scalar_t* x,
+  IPOC_HD static void combine(const scalar_t* x,
                                                  const scalar_t* y,
                                                  scalar_t* out) {
     // L1 = I + Ci Jj against [Ai | bi + Ci etaj | Ci]: D_A, D_b, D_C.
@@ -190,9 +195,19 @@ struct ValueOp {
 };
 
 template <typename scalar_t, int E>
-__device__ __forceinline__ void copy_elem(const scalar_t* src, scalar_t* dst) {
+IPOC_HD void copy_elem(const scalar_t* src, scalar_t* dst) {
 #pragma unroll
   for (int r = 0; r < E; ++r) dst[r] = src[r];
+}
+
+#ifdef __CUDACC__
+// Lets `kernel` take `bytes` of dynamic shared memory (past 48 KB a launch
+// needs this attribute).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 // The chunk [t0, t1) of stage indices that this thread owns, of
@@ -236,5 +251,6 @@ __device__ bool block_carry(const scalar_t* agg, scalar_t* buf,
   __syncthreads();
   return has;
 }
+#endif  // __CUDACC__
 
 }  // namespace ipoc

@@ -2,15 +2,15 @@
 
 The kernels' sources live in ``ipoc_tpu_torch/csrc``.  A library is built
 from static ``csrc`` files plus, for the fused kernels, text generated from
-a model (``ops/fused_iter.py``): :func:`build_all` compiles each library
-with one ``nvcc`` call for ``sm_90a`` (float32 and float64 instantiated in
-it) into ``build/ipoc_tpu_torch/<hash>/`` at the root of the checkout, the
+a model (``ops/fused_iter.py``): :func:`build_all` compiles each source
+of each library with one ``nvcc`` call for ``sm_90a`` (float32 and float64
+instantiated in it), all started together, and links each library's
+objects into ``build/ipoc_tpu_torch/<hash>/`` at the root of the checkout, the
 directory keyed by a hash of every ``csrc`` file, the generated text and
 the flags.  The generated ``.cu`` is written into that directory next to
 the ``.so``, so it can be inspected, and so is ``ptxas``'s report of each
 kernel's registers and spills (``lib<name>.ptxas.txt``).  Libraries are plain-C shared objects
-loaded with ``ctypes``.  Several libraries build in parallel, one ``nvcc``
-each.  Importing this package builds nothing and needs no ``nvcc``, so the
+loaded with ``ctypes``.  Importing this package builds nothing and needs no ``nvcc``, so the
 CPU tests import every module.
 
 There is no fallback: a build that fails, or a launch that CUDA refuses,
@@ -35,6 +35,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "ipoc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# One source into one object: the flags without -shared, plus -c.
+_COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 # Launch count per kernel: each wrapper adds one where it launches, nowhere
 # else.  Plain integers; reset with :func:`reset_launches`.
@@ -55,7 +57,11 @@ class LibSpec(NamedTuple):
 
 
 SEQ_NEWTON = LibSpec("seq_newton", (CSRC / "seq_newton.cu",))
-PAR_NEWTON = LibSpec("par_newton", (CSRC / "par_newton.cu",))
+# The scans and the C entries; the trial's instantiations, one object per
+# dtype (the library's longest compiles, built side by side).
+PAR_NEWTON = LibSpec("par_newton", (CSRC / "par_newton.cu",
+                                    CSRC / "par_trial_f32.cu",
+                                    CSRC / "par_trial_f64.cu"))
 
 
 def reset_launches() -> None:
@@ -88,39 +94,60 @@ def lib_path(spec: LibSpec) -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{spec.name}.so"
 
 
+def _run(cmds):
+    """Run ``cmds`` all at once; return each one's (returncode, stderr)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    out = []
+    for proc in procs:
+        _, err = proc.communicate()
+        out.append((proc.returncode, err))
+    return out
+
+
 def build_all(specs) -> list:
-    """Compile every library of ``specs`` not built yet, one ``nvcc`` per
-    library, all started together; return their paths.  Raises if any
-    build fails."""
+    """Compile every library of ``specs`` not built yet: one ``nvcc`` per
+    source file, all started together, then one link per library; return
+    their paths.  Raises if any build fails."""
     paths = [lib_path(s) for s in specs]
-    jobs = []
+    builds, compiles = [], []
     for spec, path in zip(specs, paths):
         if path.exists():
             continue
         path.parent.mkdir(parents=True, exist_ok=True)
-        gen = []
+        sources = list(spec.sources)
         for name, text in spec.generated:
             (path.parent / name).write_text(text)
-            gen.append(path.parent / name)
-        # Write under a temporary name, then rename: a reader never sees
-        # half a library, and concurrent builds each finish their own file.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               *map(str, spec.sources), *map(str, gen)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        jobs.append((proc, cmd, tmp, path))
-    errors = []
-    for proc, cmd, tmp, path in jobs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{err}")
+            sources.append(path.parent / name)
+        # Objects and the library in a temporary directory, then a rename:
+        # a reader never sees half a library, and concurrent builds each
+        # finish their own files.
+        tmp = tempfile.mkdtemp(dir=path.parent)
+        objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources))]
+        first = len(compiles)
+        compiles += [[_nvcc(), *_COMPILE_FLAGS, "-I", str(CSRC), "-o", obj,
+                      str(src)] for src, obj in zip(sources, objs)]
+        builds.append((path, tmp, objs, range(first, len(compiles))))
+    results = _run(compiles)
+    errors, links = [], []
+    for path, tmp, objs, idx in builds:
+        failed = [i for i in idx if results[i][0] != 0]
+        errors += [f"nvcc failed ({results[i][0]}):\n{' '.join(compiles[i])}"
+                   f"\n{results[i][1]}" for i in failed]
+        if not failed:
+            path.with_suffix(".ptxas.txt").write_text(
+                "".join(results[i][1] for i in idx))
+            links.append((path, tmp, [_nvcc(), "-shared", "-o",
+                                      os.path.join(tmp, "lib.so"), *objs]))
+    for (path, tmp, cmd), (rc, err) in zip(links,
+                                           _run([c for _, _, c in links])):
+        if rc != 0:
+            errors.append(f"nvcc link failed ({rc}):\n{' '.join(cmd)}\n{err}")
         else:
-            path.with_suffix(".ptxas.txt").write_text(err)
-            os.replace(tmp, path)
+            os.replace(os.path.join(tmp, "lib.so"), path)
+    for _, tmp, _, _ in builds:
+        shutil.rmtree(tmp, ignore_errors=True)
     if errors:
         raise RuntimeError("\n\n".join(errors))
     return paths
@@ -146,7 +173,8 @@ _SIGNATURES = {
     "par_newton": {
         "ipoc_affine_scan": [_I] * 3 + [_P] * 4 + [_I, _I, _P],
         "ipoc_value_scan": [_I] * 2 + [_P] * 10 + [_I, _I, _P],
-        "ipoc_par_newton_trial": [_I] * 3 + [_P] * 12 + [_I, _I, _P]},
+        "ipoc_par_newton_trial": [_I] * 4 + [_P] * 12 + [_I, _I, _P],
+        "ipoc_par_trial_occupancy": [_I] * 4 + [_P]},
 }
 
 

@@ -7,12 +7,15 @@ terminal Hessian XT: the reference trick for ``s`` and ``r``, the value
 elements and their suffix scan, the terminal fold, the gains, and the
 closed-loop prefix scan from zero deviation, giving ``(du, dx, pred, ok)``
 per lane.  On a card that is one launch of ``par_newton_trial_kernel``
-(``csrc/par_newton.cu``); its plain version is the pipeline the JAX package
-runs off the TPU, ``newton_lqt`` -> ``par_bwd_pass`` -> ``par_fwd_pass``.
+(``csrc/par_newton.cu``, its phases and schedule in ``csrc/par_trial.h``),
+with ``P`` lanes (threads) per scenario picked by :func:`trial_lanes`;
+its plain version is the pipeline the JAX package runs off the TPU,
+``newton_lqt`` -> ``par_bwd_pass`` -> ``par_fwd_pass``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import torch
 
 from ipoc_tpu_torch.ops import cuda
@@ -21,6 +24,43 @@ from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP
 
 # (nx, nu) instantiations: pendulum, cartpole, and the nu > 1 layout pin.
 TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2))
+# Lanes per scenario the kernel is instantiated for, and its launch rule's
+# constant: an SM holds RESIDENT_WARPS of the cartpole-shaped (4, 1)
+# kernel's warps in either dtype (its registers, 240-255 a thread, allow
+# 8; phase 0 of chip_smoke.py checks it against trial_occupancy).  The
+# block shape is the kernel's own (csrc/par_trial.h).
+TRIAL_LANES = (32, 64, 128, 256)
+RESIDENT_WARPS = 8
+H100_SMS = 132
+
+
+def trial_lanes(B: int, T: int, sms: int = H100_SMS) -> int:
+    """P, the trial kernel's lanes per scenario for B scenarios of T
+    stages on a card of ``sms`` SMs.  P starts at 32 and doubles while it
+    is below 256 and below T (each lane keeps a stage) and the doubled
+    launch's warps, B * 2P / 32, still fit in one wave of ``sms`` x
+    RESIDENT_WARPS.  So a large batch keeps 32 lanes, each a chunk of
+    ceil(T / 32) stages (the least work: B=1024, T=100 gets 4 stages a
+    lane), and a small one spreads its horizon for a short critical path
+    (B=1, T=1000: 256 lanes of 4 stages)."""
+    wave = sms * RESIDENT_WARPS * 32
+    P = TRIAL_LANES[0]
+    while P < TRIAL_LANES[-1] and P < T and B * 2 * P <= wave:
+        P *= 2
+    return P
+
+
+def trial_occupancy(dtype: torch.dtype, nx: int, nu: int, lanes: int) -> dict:
+    """The card's view of one instantiation of the trial kernel: resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    threads, dynamic shared bytes and scenarios per block, registers and
+    local (spill) bytes per thread."""
+    out = (ctypes.c_int * 6)()
+    cuda.check(cuda.library(cuda.PAR_NEWTON).ipoc_par_trial_occupancy(
+        cuda.dtype_code(dtype), nx, nu, lanes, out), "par_trial_occupancy")
+    keys = ("blocks_per_sm", "threads_per_block", "shared_bytes_per_block",
+            "scenarios_per_block", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 def newton_pipeline(ru, Q, R, M, fx, fu, XT, plain: bool = False):
@@ -62,6 +102,9 @@ def fused_newton_step(ru, Q, R, M, fx, fu, XT):
     code = cuda.check_inputs("par_newton_trial", args, (
         (B, T, nu), (B, T, nx, nx), (B, T, nu, nu), (B, T, nx, nu),
         (B, T, nx, nx), (B, T, nx, nu), (B, nx, nx)))
+    # The kernel reads stage rows in 16-byte vectors: a view that starts
+    # off a 16-byte boundary goes through a copy.
+    args = tuple(a if a.data_ptr() % 16 == 0 else a.clone() for a in args)
     kw = dict(dtype=fu.dtype, device=fu.device)
     gains = torch.empty((B, T, nu * (1 + nx)), **kw)
     du = torch.empty((B, T, nu), **kw)
@@ -71,9 +114,11 @@ def fused_newton_step(ru, Q, R, M, fx, fu, XT):
     if B == 0 or T == 0:
         return du, dx.zero_(), pred.zero_(), ok.fill_(True)
     lib = cuda.library(cuda.PAR_NEWTON)
+    sms = torch.cuda.get_device_properties(fu.device).multi_processor_count
     with torch.cuda.device(fu.device):
         status = lib.ipoc_par_newton_trial(
-            code, nx, nu, *(a.data_ptr() for a in args), gains.data_ptr(),
+            code, nx, nu, trial_lanes(B, T, sms),
+            *(a.data_ptr() for a in args), gains.data_ptr(),
             du.data_ptr(), dx.data_ptr(), pred.data_ptr(), ok.data_ptr(),
             B, T, torch.cuda.current_stream().cuda_stream)
     cuda.check(status, "par_newton_trial")

@@ -666,6 +666,13 @@ def test_scan_kernels_match_plain(card, n, dtype):
             assert _rel_err(g, r) <= tol, T
 
 
+# The trial's launch geometries: every lane count the launch rule picks
+# (B=1 and B=3 spread T over 32-256 lanes, B=1024 keeps 32), horizons on
+# both sides of a warp's 32 lanes; the (nx, nu) shape cycles with T.
+TRIAL_GEOMETRIES = [(B, T) for B in (1, 3, 1024)
+                    for T in (1, 2, 31, 33, 100, 129, 1000)]
+
+
 def _trial_data(case, dtype, device):
     if case == "cartpole_T100":
         return _model_data(cartpole, 64, 100, 0, dtype, device)[0]
@@ -673,17 +680,23 @@ def _trial_data(case, dtype, device):
         return _model_data(cartpole, 4, 1000, 5, dtype, device)[0]
     if case == "pendulum_T130":
         return _model_data(pendulum, 16, 130, 1, dtype, device)[0]
+    if case.startswith("random_B"):
+        B, T = (int(v) for v in case[len("random_B"):].split("_T"))
+        nx, nu = ((2, 1), (4, 1), (3, 2))[T % 3]
+        return _random_data(B, T, nx, nu, T, dtype, device)[0]
     return _random_data(16, 129, 3, 2, 2, dtype, device)[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["cartpole_T100", "cartpole_T1000",
-                                  "pendulum_T130", "random_nx3_nu2"])
+                                  "pendulum_T130", "random_nx3_nu2"]
+                         + [f"random_B{B}_T{T}" for B, T in TRIAL_GEOMETRIES])
 def test_par_newton_trial_matches_plain(card, case, dtype):
     """The one-launch trial against its plain version (the pipeline on the
     scans' plain versions) and against the pipeline on the scan kernels:
     du/dx within the kernels' tolerance of du's scale, pred relative,
-    equal ok flags."""
+    equal ok flags; the model cases and random data at every launch
+    geometry of ``TRIAL_GEOMETRIES``."""
     from ipoc_tpu_torch.ops import newton_kernel as nk
 
     tol = SCAN_TOL[dtype]
@@ -714,6 +727,22 @@ def test_par_newton_trial_indefinite_lane(card, dtype):
     ok_p = nk.fused_newton_step_plain(ru, Q, R, M, fx, fu, XT)[3]
     assert torch.equal(ok, ok_p)
     assert not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_par_newton_trial_unaligned_views(card, dtype):
+    """Inputs that are views one element past an allocation's start (off
+    the 16-byte boundary the kernel's vector loads need) give what aligned
+    copies give."""
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+
+    args = _trial_data("random_nx3_nu2", dtype, card)
+    views = tuple(torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+                  for a in args)
+    assert all(v.data_ptr() % 16 != 0 and v.is_contiguous() for v in views)
+    for got, ref in zip(nk.fused_newton_step(*views),
+                        nk.fused_newton_step(*args)):
+        assert torch.equal(got, ref)
 
 
 def test_scan_kernels_raise_on_uninstantiated_shape(card):
