@@ -17,12 +17,18 @@ line:
      merged trial and the three parallel-in-time kernels (the trial per
      lane count, with its resident blocks per SM and shared memory per
      block), and the mega kernel's and the merged trial's stage ring
-     (stages per slot W, slots S, dynamic shared memory per block);
+     (stages per slot W, slots S, dynamic shared memory per block); for
+     the two kernels that spread a scenario over a group of lanes (the
+     seq trial per shape, the fused backward sweep of cartpole and
+     pendulum), per dtype, registers, spills, shared memory per block,
+     resident blocks per SM and scenarios per block (checked against the
+     launch rule), and the SASS of their stage loops;
   A. each kernel against its plain PyTorch version on the card, on stage
      data taken from the real slice (cartpole, T=100, B=4096), in float32
      and float64, on random nx=3, nu=2 data, and on an indefinite R that
      must fail the PD test; then each kernel's time beside the plain
-     version's;
+     version's (the trial in both dtypes, through its wrapper and its C
+     entry alone, also in SM cycles per stage);
   B. ``solve_stream`` on 256 cartpole scenarios in float64: the card
      (kernels) against the CPU (plain versions);
   C. ``solve_stream`` at the bench's width: cartpole H=100, float32,
@@ -34,7 +40,8 @@ line:
      slice's data (cartpole T=100, the pool's first 4096 lanes, at bp=0.1
      and at bp=0.004), float64 then float32, and on pendulum at B=256;
      the rollout kernel also on cartpole T=1000 at B=256 (float64 within
-     1e-12 of scale); then each kernel's time beside its plain version's;
+     1e-12 of scale); then each kernel's time beside its plain version's
+     (the backward sweep also in float64, and through its C entry alone);
   E. ``solve_stream`` with ``BATCH_CONFIG`` (the packed stream on its mega
      executor) on 256 cartpole scenarios in float64: the card against the
      CPU;
@@ -493,8 +500,33 @@ def phase_device():
               paths[2], model_ocp(*FUSED_MODELS[0][:3]), 4),
           "sass_cartpole": sass_mix(paths[2]),
           "ptxas_par_newton": par_ptxas_report(paths[1]),
+          "rows_kernels": rows_report(paths[0], {
+              "cartpole": (model_ocp(*FUSED_MODELS[0][:3]), 4, paths[2]),
+              "pendulum": (model_ocp(*FUSED_MODELS[2][:3]), 2, paths[4])}),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return name, power
+
+
+def ptxas_entries(text, pattern):
+    """What ``ptxas -v`` reported (``text``) for each entry function whose
+    mangled name matches ``pattern``, keyed by the match's groups:
+    registers, stack frame, spill and static shared-memory bytes."""
+    found = {}
+    for block in re.split(r"Compiling entry function '", text)[1:]:
+        m = re.search(pattern, block.split("'")[0])
+        if m is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        found[m.groups()] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "stack_frame_bytes": int(frame.group(1)) if frame else None,
+            "spill_store_bytes": int(frame.group(2)) if frame else None,
+            "spill_load_bytes": int(frame.group(3)) if frame else None,
+            "static_shared_bytes": int(smem.group(1)) if smem else 0}
+    return found
 
 
 def ptxas_report(lib, ocp, nx):
@@ -508,66 +540,131 @@ def ptxas_report(lib, ocp, nx):
 
     from ipoc_tpu_torch.ops import mega
 
-    text = lib.with_suffix(".ptxas.txt").read_text()
     out = {}
-    for block in re.split(r"Compiling entry function '", text)[1:]:
-        m = re.match(r"_ZN4ipoc\d+(mega_kernel|merged_trial_kernel)"
-                     r"I5Model([fd])Lb([01])E", block)
-        if m is None:
-            continue
-        regs = re.search(r"Used (\d+) registers", block)
-        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", block)
-        smem = re.search(r"(\d+) bytes smem", block)
-        dt = "float32" if m.group(2) == "f" else "float64"
-        key = f"{m.group(1)}_{dt}_{'ddp' if m.group(3) == '1' else 'newton'}"
-        out[key] = {"registers": int(regs.group(1)) if regs else None,
-                    "stack_frame_bytes": int(frame.group(1)) if frame else None,
-                    "spill_store_bytes": int(frame.group(2)) if frame else None,
-                    "spill_load_bytes": int(frame.group(3)) if frame else None,
-                    "static_shared_bytes": int(smem.group(1)) if smem else 0,
-                    "ring": mega.ring_layout(ocp, nx, 1, getattr(torch, dt))}
+    for (kernel, dt, ddp), rec in ptxas_entries(
+            lib.with_suffix(".ptxas.txt").read_text(),
+            r"_ZN4ipoc\d+(mega_kernel|merged_trial_kernel)"
+            r"I5Model([fd])Lb([01])E").items():
+        dt = "float32" if dt == "f" else "float64"
+        key = f"{kernel}_{dt}_{'ddp' if ddp == '1' else 'newton'}"
+        out[key] = {**rec, "ring": mega.ring_layout(ocp, nx, 1,
+                                                     getattr(torch, dt))}
     check(len(out) == 8, f"ptxas report incomplete: {sorted(out)}")
     return out
 
 
-def sass_mix(lib):
-    """Instructions of the mega kernel's and the merged trial's SASS in the
-    library at ``lib`` (``cuobjdump -sass``), per dtype and mode: the
-    floating-point multiply, add and fused multiply-add counts, the total,
-    and the instructions in each loop of 300 or more (a backward branch and
-    its target, in address order: for the mega kernel the backward sweep's
-    stage loop, the forward sweep's, the transitions' and the iteration
-    loop around them)."""
+def sass_functions(lib):
+    """The SASS of the library at ``lib`` (``cuobjdump -sass``): a list of
+    (mangled function name, [(address, opcode, operands), ...])."""
     from ipoc_tpu_torch.ops import cuda
 
     tool = os.path.join(os.path.dirname(cuda._nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=600).stdout
+    return [(block.split("\n")[0].strip(), [
+        (int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)"
+            r"([^;\n]*);", block)])
+        for block in re.split(r"\n\s*Function : ", text)[1:]]
+
+
+def sass_loops(ins, min_loop):
+    """The loops of one function's SASS with ``min_loop`` or more
+    instructions (a backward branch and its target, in address order):
+    each loop's opcodes."""
+    loops = []
+    for addr, op, rest in ins:
+        target = re.search(r"0x([0-9a-f]+)\s*$", rest)
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
+            if len(body) >= min_loop:
+                loops.append(body)
+    return loops
+
+
+def sass_mix(lib):
+    """Instructions of the mega kernel's and the merged trial's SASS in the
+    library at ``lib``, per dtype and mode: the floating-point multiply,
+    add and fused multiply-add counts, the total, and the instructions in
+    each loop of 300 or more (for the mega kernel the backward sweep's
+    stage loop, the forward sweep's, the transitions' and the iteration
+    loop around them)."""
     out = {}
-    for block in re.split(r"\n\s*Function : ", text)[1:]:
+    for name, ins in sass_functions(lib):
         m = re.match(r"_ZN4ipoc\d+(mega_kernel|merged_trial_kernel)"
-                     r"I5Model([fd])Lb([01])E", block)
+                     r"I5Model([fd])Lb([01])E", name)
         if m is None:
             continue
-        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)"
-            r"([^;\n]*);", block)]
         ops = [op for _, op, _ in ins]
-        loops = []
-        for addr, op, rest in ins:
-            target = re.search(r"0x([0-9a-f]+)\s*$", rest)
-            if op == "BRA" and target and int(target.group(1), 16) < addr:
-                n = sum(int(target.group(1), 16) <= a <= addr
-                        for a, _, _ in ins)
-                if n >= 300:
-                    loops.append(n)
         key = (f"{m.group(1)}_{'float32' if m.group(2) == 'f' else 'float64'}"
                f"_{'ddp' if m.group(3) == '1' else 'newton'}")
         out[key] = {op: ops.count(op) for op in
                     ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD")}
         out[key]["total"] = len(ops)
-        out[key]["loops"] = loops
+        out[key]["loops"] = [len(body) for body in sass_loops(ins, 300)]
+    return out
+
+
+def sass_stage_loops(lib, pattern, min_loop=30):
+    """The loops of the functions whose name matches ``pattern`` in the
+    library at ``lib``: per function, keyed by its template arguments, its
+    instruction count and, for each loop of ``min_loop`` or more
+    instructions, their count and their floating-point, memory and select
+    mix."""
+    mix = ("FFMA", "FMUL", "FADD", "DFMA", "DMUL", "DADD", "MUFU", "LDG",
+           "STG", "LDS", "STS", "LDGSTS", "SEL", "FSEL")
+    out = {}
+    for name, ins in sass_functions(lib):
+        m = re.search(pattern + r"I(\w+?)EEv", name)
+        if m is None:
+            continue
+        out[m.group(1)] = {"total": len(ins), "loops": [
+            {"n": len(body), **{k: body.count(k) for k in mix if body.count(k)}}
+            for body in sass_loops(ins, min_loop)]}
+    return out
+
+
+def rows_report(seq_lib, fused):
+    """The two kernels that run the cooperative Riccati step (seq_trial,
+    fused_bwd): registers and spill bytes as ``ptxas -v`` reported them,
+    the card's view (resident blocks per SM, threads, shared bytes and
+    scenarios per block), per dtype and shape (``fused``: model name ->
+    (ocp, nx, library path)), checked to hold a B=4096 launch in one wave
+    of resident blocks; and the SASS of their loops (the float32 and
+    float64 cartpole-shaped ones)."""
+    import torch
+
+    from ipoc_tpu_torch.ops import fused_iter as tf
+    from ipoc_tpu_torch.ops.cuda import seq_newton as sn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def one_wave(key, rec, occ):
+        blocks = -(-LANES // occ["scenarios_per_block"])
+        waves = -(-blocks // (occ["blocks_per_sm"] * sms))
+        check(waves == 1, f"{key}: {blocks} blocks at B={LANES} take {waves} "
+              f"waves of {occ['blocks_per_sm']} x {sms} resident blocks")
+        out[key] = {**rec, **occ, f"blocks_b{LANES}": blocks,
+                    f"waves_b{LANES}": waves}
+
+    out = {}
+    dtypes = {"f": torch.float32, "d": torch.float64}
+    seq = ptxas_entries(seq_lib.with_suffix(".ptxas.txt").read_text(),
+                        r"seq_trial_kernelI([fd])Li(\d)ELi(\d)E")
+    for (dt, nx, nu), rec in sorted(seq.items()):
+        nx, nu = int(nx), int(nu)
+        one_wave(f"seq_trial_{str(dtypes[dt])[6:]}_nx{nx}_nu{nu}", rec,
+                 sn.trial_occupancy(dtypes[dt], nx, nu))
+    for name, (ocp, nx, lib) in fused.items():
+        bwd = ptxas_entries(lib.with_suffix(".ptxas.txt").read_text(),
+                            r"fused_bwd_kernelI5Model([fd])E")
+        for (dt,), rec in sorted(bwd.items()):
+            one_wave(f"fused_bwd_{name}_{str(dtypes[dt])[6:]}", rec,
+                     tf.fused_bwd_occupancy(ocp, nx, 1, dtypes[dt]))
+    check(len(out) == 10, f"rows report incomplete: {sorted(out)}")
+    out["sass_seq_trial"] = sass_stage_loops(seq_lib, "seq_trial_kernel")
+    out["sass_fused_bwd_cartpole"] = sass_stage_loops(fused["cartpole"][2],
+                                                      "fused_bwd_kernel")
     return out
 
 
@@ -582,28 +679,18 @@ def par_ptxas_report(lib):
 
     from ipoc_tpu_torch.ops import newton_kernel as nk
 
-    text = lib.with_suffix(".ptxas.txt").read_text()
     out = {}
-    for block in re.split(r"Compiling entry function '", text)[1:]:
-        m = re.search(r"(affine_scan_kernel|value_scan_kernel|"
-                      r"par_newton_trial_kernel)I([fd])((?:L[ib]\d+E)*)E",
-                      block.split("'")[0])
-        if m is None:
-            continue
-        shape = "_".join(re.findall(r"L[ib](\d+)E", m.group(3)))
-        key = (f"{m.group(1).replace('_kernel', '')}_"
-               f"{'float32' if m.group(2) == 'f' else 'float64'}_{shape}")
-        regs = re.search(r"Used (\d+) registers", block)
-        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", block)
-        out[key] = {"registers": int(regs.group(1)) if regs else None,
-                    "spill_store_bytes": int(frame.group(2)) if frame
-                    else None,
-                    "spill_load_bytes": int(frame.group(3)) if frame
-                    else None}
-        if m.group(1) == "par_newton_trial_kernel":
+    for (kernel, dt, args), rec in ptxas_entries(
+            lib.with_suffix(".ptxas.txt").read_text(),
+            r"(affine_scan_kernel|value_scan_kernel|"
+            r"par_newton_trial_kernel)I([fd])((?:L[ib]\d+E)*)E").items():
+        shape = "_".join(re.findall(r"L[ib](\d+)E", args))
+        key = (f"{kernel.replace('_kernel', '')}_"
+               f"{'float32' if dt == 'f' else 'float64'}_{shape}")
+        out[key] = rec
+        if kernel == "par_newton_trial_kernel":
             nx, nu, lanes = map(int, shape.split("_"))
-            dtype = torch.float32 if m.group(2) == "f" else torch.float64
+            dtype = torch.float32 if dt == "f" else torch.float64
             occ = nk.trial_occupancy(dtype, nx, nu, lanes)
             out[key].update(occ)
             warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
@@ -651,16 +738,26 @@ def phase_kernels(pool, dev):
             trial32, tol, prt, f"random nx=3 nu=2 {tag}")
         out[f"random_nx3_{tag}_costates"] = compare_costates(
             costate32, ltol, f"random nx=3 {tag} costates")
+        # Times at the slice's shape (B=4096, T=100): the trial in both
+        # dtypes, through its wrapper (ms) and its C entry on outputs
+        # allocated once (entry_ms, also per stage in SM cycles); the
+        # costate recursion in float32.
+        B, T_, nx, nu = trial[5].shape
+        peak = (PEAK_F32_OPS_PER_S if dtype == torch.float32
+                else PEAK_F64_OPS_PER_S)
+        entry = seq_trial_entry(trial)
+        with SmClock() as clock:
+            busy(entry, 0.5)
+            rec = {"ms": cuda_ms(lambda: seq_newton_trial_batched(*trial), 50),
+                   "entry_ms": cuda_ms(entry, 50)}
+        rec.update({
+            "max_abs_err": out[f"cartpole_{tag}_trial"]["max_abs_err"],
+            "plain_ms": cuda_ms(lambda: seq_newton_trial_plain(*trial), 5),
+            "entry": per_stage(rec["entry_ms"], T_, clock.mhz),
+            **bound(nbytes(trial, seq_newton_trial_batched(*trial)),
+                    B * T_ * riccati_ops(nx, nu), ops_per_s=peak)})
         if dtype == torch.float32:
-            B, T_, nx, nu = trial[5].shape
-            record["seq_newton_trial"] = {
-                "max_abs_err": out[f"cartpole_{tag}_trial"]["max_abs_err"],
-                "ms": cuda_ms(lambda: seq_newton_trial_batched(*trial), 20),
-                "plain_ms": cuda_ms(lambda: seq_newton_trial_plain(*trial),
-                                    5),
-                **bound(nbytes(trial, seq_newton_trial_batched(*trial)),
-                        B * T_ * riccati_ops(nx, nu)),
-            }
+            record["seq_newton_trial"] = rec
             record["seq_costates"] = {
                 "max_abs_err": out[f"cartpole_{tag}_costates"]["max_abs_err"],
                 "ms": cuda_ms(lambda: seq_costates_batched(*costate), 20),
@@ -668,12 +765,62 @@ def phase_kernels(pool, dev):
                 **bound(nbytes(costate, seq_costates_batched(*costate)),
                         B * T_ * 2 * nx * nx),
             }
-    out["timing"] = {k: {"ms": v["ms"], "plain_ms": v["plain_ms"]}
-                     for k, v in record.items()}
-    out["timing_shape"] = (f"B={LANES}, T={T}, float32, CUDA events "
-                           "around back-to-back calls")
+        else:
+            out["timing_float64"] = {"seq_newton_trial": rec}
+    out["timing"] = record
+    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (the trial also "
+                           "float64), CUDA events around back-to-back calls; "
+                           "the trial through its wrapper (ms) and its C entry "
+                           "on outputs allocated once (entry_ms), per stage "
+                           "at the median SM clock nvidia-smi reported")
     emit(out)
     return record
+
+
+def busy(fn, seconds):
+    """Launch ``fn`` back to back for ``seconds`` of wall clock (so that
+    ``SmClock``'s sampler, which reads every 20 ms, sees the card under
+    this load)."""
+    import torch
+
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+
+
+def per_stage(ms, horizon, mhz):
+    """A launch's time per stage of its serial sweep: ``ms / horizon`` in
+    microseconds, and in SM cycles at ``mhz``."""
+    us = 1e3 * ms / horizon
+    return {"us_per_stage": us, "cycles_per_stage": us * mhz if mhz else None,
+            "sm_clock_mhz": mhz}
+
+
+def seq_trial_entry(trial):
+    """One launch of the seq library's C entry, ``ipoc_seq_trial``, on
+    ``trial`` with outputs allocated once: back-to-back calls time the
+    kernel, not the wrapper's host work."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+
+    B, T_, nx, nu = trial[5].shape
+    kw = dict(dtype=trial[5].dtype, device=trial[5].device)
+    outs = (torch.empty((B, T_, (1 + nx) * nu), **kw),
+            torch.empty((B, T_, nu), **kw), torch.empty((B, T_ + 1, nx), **kw),
+            torch.empty((B,), **kw),
+            torch.empty((B,), dtype=torch.bool, device=kw["device"]))
+    ptrs = [a.data_ptr() for a in (*trial, *outs)]
+    lib, code = cuda.library(), cuda.dtype_code(kw["dtype"])
+
+    def call():
+        status = lib.ipoc_seq_trial(code, nx, nu, *ptrs, B, T_,
+                                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"seq trial launch status {status}")
+        return outs[1:]
+    return call
 
 
 CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
@@ -1153,10 +1300,7 @@ def phase_fused_kernels(pool32, dev):
     plain_iter = cuda_ms(lambda: tf.fused_newton_iter_plain(
         cp, xs, xT, u, bpt, reg), 3)
     record = {
-        "fused_bwd": {
-            "ms": cuda_ms(lambda: tf.fused_bwd_launch(
-                cp, xs, xT, u, bpt, reg), 20),
-            "plain_ms": plain_iter},
+        "fused_bwd": fused_bwd_times(cp, xs, xT, u, bpt, reg, plain_iter),
         "fused_fwd": {
             "ms": cuda_ms(lambda: tf.fused_fwd_launch(
                 cp, xs, xT, u, bpt, Kk), 20),
@@ -1199,10 +1343,20 @@ def phase_fused_kernels(pool32, dev):
     }
     for k, (ins, outs, per_lane) in ios.items():
         record[k].update(bound(nbytes(ins, outs), B * per_lane))
+    # The fused backward sweep in float64 too, on the same lanes.
+    ins64 = [a.double() for a in (xs, xT, u, bpt, reg)]
+    rec64 = fused_bwd_times(cp, *ins64, cuda_ms(
+        lambda: tf.fused_newton_iter_plain(cp, *ins64), 3))
+    rec64.update(bound(nbytes(ins64, tf.fused_bwd_launch(cp, *ins64)),
+                       B * ios["fused_bwd"][2], ops_per_s=PEAK_F64_OPS_PER_S))
+    out["timing_float64"] = {"fused_bwd": rec64}
     out["timing"] = record
-    out["timing_shape"] = (f"B={LANES}, T={T}, float32, CUDA events "
-                           "around back-to-back calls; the plain time of "
-                           "fused_bwd and "
+    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (fused_bwd also "
+                           "float64), CUDA events around back-to-back calls; "
+                           "fused_bwd through its wrapper (ms) and its C "
+                           "entry on outputs allocated once (entry_ms), per "
+                           "stage at the median SM clock nvidia-smi "
+                           "reported; the plain time of fused_bwd and "
                            "fused_fwd is the plain fused iteration, which "
                            "covers both launches")
     out["errors"] = ("largest absolute error, and error / largest |plain|, "
@@ -1211,6 +1365,37 @@ def phase_fused_kernels(pool32, dev):
     out["rollout_float64_tolerance"] = rollout_tol(torch.float64)
     emit(out)
     return record
+
+
+def fused_bwd_times(ocp, xs, xT, u, bpt, reg, plain_ms):
+    """The fused backward sweep through its wrapper (ms) and through the
+    model library's C entry on outputs allocated once (entry_ms, also per
+    stage in SM cycles)."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import fused_iter as tf
+
+    T_, nx, B = xs.shape
+    kw = dict(dtype=xs.dtype, device=xs.device)
+    outs = [torch.empty((T_, 1 + nx, B), **kw)] + [
+        torch.empty((B,), **kw) for _ in range(4)]
+    lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(xs.dtype)
+    ins, outp = tf.pointers((xs, u, xT, bpt, reg)), tf.pointers(outs)
+
+    def entry():
+        status = lib.ipoc_fused_bwd(code, ins, outp, B, T_,
+                                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"fused_bwd launch status {status}")
+        return outs
+    with SmClock() as clock:
+        busy(entry, 0.5)
+        rec = {"ms": cuda_ms(lambda: tf.fused_bwd_launch(ocp, xs, xT, u, bpt,
+                                                         reg), 50),
+               "entry_ms": cuda_ms(entry, 50)}
+    rec["entry"] = per_stage(rec["entry_ms"], T_, clock.mhz)
+    rec["plain_ms"] = plain_ms
+    return rec
 
 
 class counting:
@@ -2817,7 +3002,10 @@ def main(argv=None):
         {"name": k, "route": "cuda",
          "source": f"ipoc_tpu_torch/csrc/{src}",
          "replaces": pallas + rep, "launches": counts.get(k),
-         **{f: record.get(k, {}).get(f) for f in keys}}
+         **{f: record.get(k, {}).get(f) for f in keys},
+         # The C entry alone, where a phase timed it (seq_newton_trial,
+         # fused_bwd, par_newton_trial).
+         **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})}}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -23,31 +23,63 @@
 // entry points with IPOC_FUSED_ENTRY_POINTS(Model).  The Riccati step is
 // riccati.cuh's, shared with the seq trial kernel.
 //
-// Layout: batch-last, so neighbouring threads read neighbouring addresses
+// Layout: batch-last, so neighbouring scenarios read neighbouring addresses
 // (coalesced): stage arrays (T, rows, B), terminal and initial states
 // (NX, B), per-lane scalars (B,).  The TPU kernels' time blocks, sublane
 // packing and hoisted-constant inputs have no counterpart: the time axis is
-// a loop inside the thread, the value and costate carries live in
-// registers (no horizon cap), and constants are inlined in the generated
-// code.  Blocks hold 32 threads so that B=4096 spreads over 128 of the 132
-// SMs.
+// a loop, the value and costate carries live in registers (no horizon
+// cap), and constants are inlined in the generated code.
 //
-// What bounds them on the card: latency, not bytes.  At B=4096 each kernel
-// is one serial loop of T dependent stages per thread with 128 warps on the
-// card, about one warp per SM, so nothing hides the latency of a stage's
-// arithmetic chain or of its loads.  Per stage a thread moves about 10
-// values (x, u, the gains, the outputs): some 16 MB per Newton iteration in
-// float32 over the three per-iteration launches, far below what the memory
-// could stream in the time.  A later performance PR could run several
-// scenarios per thread or split a scenario's rows over a warp's lanes for
-// more parallel work per SM; the resident mega kernel (mega.cuh) fuses the
-// iteration's launches.
+// fused_bwd_kernel: one warp per block, a group of G lanes per scenario
+// (G = 4 at nx = 3, 4; 2 at nx = 2), the schedule of fused_bwd.h (host and
+// device; the CPU tests build it with g++).
+//   What bounded the one-thread-per-scenario kernel it replaces: one warp's
+//   serial chain per SM (128 warps at B = 4096), about 980 instructions
+//   per stage in float32, two thirds of them the stage program.  On an
+//   H100 (700 W) at B = 4096, T = 100, computing stage_bwd once and reusing
+//   its outputs took a launch from 0.128 to 0.049 ms in float32 (0.258 to
+//   0.073 in float64), computing the Riccati step once to 0.118 (PERF.md
+//   section 5).
+//   What the design does: the codegen splits stage_bwd at the costate
+//   (stage_bwd_pre: the elementary-function calls that do not read it,
+//   sin, cos, log and rem; stage_bwd_post: the rest, all of the arithmetic
+//   with it, so that nvcc contracts it into FMAs as in stage_bwd itself
+//   and the results stay the one-thread kernel's to the bit at cartpole).
+//   Lane r of a group computes pre for one stage of the next chunk of G
+//   stages, from x and u it loaded a chunk before, into a shared-memory
+//   handoff buffer; the chain runs post on every lane and then the
+//   cooperative Riccati step of riccati_rows.h.  So the card holds G warps
+//   where it held one, the calls and the loads leave the chain, and a
+//   chain's stage carries post and a part of the step.  A split that also
+//   handed off the arithmetic that does not read the costate ran 0.094 ms
+//   in float32 (0.155 in float64) but rounded apart from stage_bwd; this
+//   one runs 0.122 (0.206) against the one-thread kernel's 0.128 (0.254)
+//   (PERF.md section 5).
+//   Shared memory per block (handoffs [2][G][NH], exchange slices): 8 x
+//   (84 + 44) scalars at cartpole (NH = 10): 4,096 bytes in float32, 8,192
+//   in float64; pendulum (NH = 8, 16 scenarios) 16 x (34 + 14): 3,072 /
+//   6,144.  Registers and resident blocks per SM: chip_smoke.py phase 0
+//   (ipoc_fused_bwd_occupancy; cartpole 93 and 20 in float32, 152 and 12
+//   in float64).  At nx = 6, nu = 2 (8 lanes, 4 scenarios) the exchange
+//   slice is 136 scalars and the handoff 2 x 8 x NH; its registers are not
+//   measured (no such model yet).
+//
+// The other four kernels run one thread per scenario.  What bounds them:
+// latency, not bytes.  At B = 4096 each is one serial loop of T dependent
+// stages per thread with 128 warps on the card, about one warp per SM, so
+// nothing hides the latency of a stage's arithmetic chain or of its loads.
+// Per stage a thread moves about 10 values (x, u, the gains, the outputs):
+// some 16 MB per Newton iteration in float32 over the three per-iteration
+// launches, far below what the memory could stream in the time.  The
+// resident mega kernel (mega.cuh) fuses the iteration's launches.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fused_bwd.h"
+#include "launch_attr.cuh"
 #include "lane.h"  // load_col, store_col
 #include "riccati.cuh"
 #include "scalar_math.h"
@@ -56,9 +88,9 @@ namespace ipoc {
 
 constexpr int kFusedThreads = 32;
 
-// Costates + stage data + Riccati gains in one reverse sweep.
+// Costates + stage data + Riccati gains in one reverse sweep (fused_bwd.h).
 template <typename Model, typename scalar_t>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRowWarp)
 fused_bwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B) stages 0..T-1
                  const scalar_t* __restrict__ us,   // (T, NU, B)
                  const scalar_t* __restrict__ xT,   // (NX, B)
@@ -70,47 +102,15 @@ fused_bwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B) stages 0..T-1
                  scalar_t* __restrict__ piv_o,      // (B,) minimum pivot
                  scalar_t* __restrict__ hu_o,       // (B,) max_t |ru_t|
                  int B, int T) {
-  constexpr int NX = Model::NX, NU = Model::NU, NG = (1 + NX) * NU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const scalar_t bpv = bp[b];
-  const scalar_t regv = reg[b];
-
-  scalar_t x[NX], u[NU], lam[NX], Vxx[NX * NX], Vx[NX], cost;
-  load_col<scalar_t, NX>(x, xT, B, b);
-  Model::template term<scalar_t>(x, lam, Vxx, &cost);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) Vx[i] = scalar_t(0);
-  scalar_t dv = scalar_t(0), piv = scalar_t(INFINITY), hu = scalar_t(0);
-
-  for (int t = T - 1; t >= 0; --t) {
-    load_col<scalar_t, NX>(x, xs + (size_t)t * NX * B, B, b);
-    load_col<scalar_t, NU>(u, us + (size_t)t * NU * B, B, b);
-    scalar_t ru[NU], Q[NX * NX], R[NU * NU], M[NX * NU], fx[NX * NX],
-        fu[NX * NU], lam_new[NX], cst;
-    Model::template stage_bwd<scalar_t>(x, u, &bpv, lam, ru, Q, R, M, fx, fu,
-                                        lam_new, &cst);
-    // Levenberg: R += reg * I (reg pre-scaled by ||cu|| by the caller).
-#pragma unroll
-    for (int i = 0; i < NU; ++i) R[i * (NU + 1)] = R[i * (NU + 1)] + regv;
-    scalar_t k[NU], K[NU * NX];
-    riccati_step<scalar_t, NX, NU>(ru, Q, R, M, fx, fu, Vxx, Vx, k, K, dv,
-                                   piv);
-    scalar_t* g = Kk + (size_t)t * NG * B;
-    store_col<scalar_t, NU>(g, k, B, b);
-    store_col<scalar_t, NU * NX>(g + (size_t)NU * B, K, B, b);
-    cost = cost + cst;
-    scalar_t ru_max = ipoc_abs(ru[0]);
-#pragma unroll
-    for (int i = 1; i < NU; ++i) ru_max = ipoc_max(ru_max, ipoc_abs(ru[i]));
-    hu = ipoc_max(hu, ru_max);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) lam[i] = lam_new[i];
-  }
-  cost_o[b] = cost;
-  dv_o[b] = dv;
-  piv_o[b] = piv;
-  hu_o[b] = hu;
+  using F = FusedBwd<Model, scalar_t>;
+  __shared__ __align__(16) scalar_t sh[F::kShared];
+  const int s = static_cast<int>(threadIdx.x) / F::G;
+  const auto sc = F::scenario(xs, us, bp, reg, Kk,
+                              static_cast<int>(blockIdx.x) * F::S + s, B, T, s, sh);
+  typename F::Lane lane;
+  lane.r = static_cast<int>(threadIdx.x) % F::G;
+  WarpExec<typename F::Lane> ex{lane};
+  F::schedule(ex, sc, xT, cost_o, dv_o, piv_o, hu_o);
 }
 
 // Deviation rollout fused with the trial's cost, maximum constraint value
@@ -286,7 +286,8 @@ template <typename Model, typename scalar_t>
 int launch_fused_bwd(const void* const* in, void* const* out, int B, int T,
                      cudaStream_t s) {
   using P = const scalar_t*;
-  fused_bwd_kernel<Model, scalar_t><<<fused_blocks(B), kFusedThreads, 0, s>>>(
+  using F = FusedBwd<Model, scalar_t>;
+  fused_bwd_kernel<Model, scalar_t><<<(B + F::S - 1) / F::S, kRowWarp, 0, s>>>(
       P(in[0]), P(in[1]), P(in[2]), P(in[3]), P(in[4]),
       static_cast<scalar_t*>(out[0]), static_cast<scalar_t*>(out[1]),
       static_cast<scalar_t*>(out[2]), static_cast<scalar_t*>(out[3]),
@@ -357,6 +358,21 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
     return -1;                                                              \
   }
 
+// The card's view of the model's fused_bwd_kernel (dtype 0 float32, 1
+// float64; launch_attr.cuh kernel_occupancy).
+#define IPOC_FUSED_BWD_OCCUPANCY(MODEL)                                      \
+  template <typename scalar_t>                                               \
+  int ipoc_fused_bwd_occupancy_t(int* out) {                                 \
+    return ipoc::kernel_occupancy(ipoc::fused_bwd_kernel<MODEL, scalar_t>,   \
+                                  ipoc::kRowWarp, 0,                         \
+                                  ipoc::FusedBwd<MODEL, scalar_t>::S, out);  \
+  }                                                                          \
+  extern "C" int ipoc_fused_bwd_occupancy(int dtype, int* out) {             \
+    if (dtype == 0) return ipoc_fused_bwd_occupancy_t<float>(out);           \
+    if (dtype == 1) return ipoc_fused_bwd_occupancy_t<double>(out);          \
+    return -1;                                                               \
+  }
+
 // Every entry point of one model's library; the merged trial's and the mega
 // kernel's are defined in mega.cuh, which the generated source includes
 // after this header.
@@ -366,5 +382,6 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
   IPOC_FUSED_ENTRY(ipoc_rollout, launch_rollout, MODEL)                \
   IPOC_FUSED_ENTRY(ipoc_rollout_cost, launch_rollout_cost, MODEL)      \
   IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)          \
+  IPOC_FUSED_BWD_OCCUPANCY(MODEL)                                      \
   IPOC_MERGED_ENTRY(MODEL)                                             \
   IPOC_MEGA_ENTRY(MODEL)

@@ -9,6 +9,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_attr.cuh"
 #include "par_trial.h"
 
 namespace ipoc_trial {
@@ -89,26 +90,10 @@ struct TrialLaunch {
     return static_cast<int>(cudaGetLastError());
   }
 
-  // out: resident blocks per SM, threads and dynamic shared bytes per
-  // block, scenarios per block, registers per thread, local (spill) bytes
-  // per thread.
+  // launch_attr.cuh kernel_occupancy.
   static int occupancy(int* out) {
-    auto kernel = par_newton_trial_kernel<scalar_t, NX, NU, P>;
-    cudaError_t err = ipoc::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, Tr::kBlock, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    out[0] = blocks;
-    out[1] = Tr::kBlock;
-    out[2] = static_cast<int>(smem);
-    out[3] = Tr::kScenarios;
-    out[4] = attr.numRegs;
-    out[5] = static_cast<int>(attr.localSizeBytes);
-    return 0;
+    return ipoc::kernel_occupancy(par_newton_trial_kernel<scalar_t, NX, NU, P>,
+                                  Tr::kBlock, smem, Tr::kScenarios, out);
   }
 };
 

@@ -28,6 +28,8 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include "launch_attr.cuh"  // allow_smem
 #endif
 #include <math.h>
 
@@ -201,15 +203,6 @@ IPOC_HD void copy_elem(const scalar_t* src, scalar_t* dst) {
 }
 
 #ifdef __CUDACC__
-// Lets `kernel` take `bytes` of dynamic shared memory (past 48 KB a launch
-// needs this attribute).
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // The chunk [t0, t1) of stage indices that this thread owns, of
 // ceil(T / kScanThreads) stages (empty beyond the horizon).
 __device__ __forceinline__ void thread_chunk(int T, int& t0, int& t1) {

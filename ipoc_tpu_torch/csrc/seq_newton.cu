@@ -1,50 +1,65 @@
 // Batched sequential Newton trial and batched costate recursion for Hopper
-// (sm_90a), one thread per scenario.
+// (sm_90a).
 //
 // Replaces, from ipoc_tpu/ops/pallas/seq_newton_kernel.py:
 //   * seq_trial_kernel  <- _seq_trial_kernel (seq_newton_trial_batched) and
 //     its T-streamed twins _seq_bwd_stream_kernel + _seq_fwd_stream_kernel
 //     (seq_newton_trial_streamed).  The TPU needed the streamed form only
 //     when the horizon's stage data outgrew VMEM; here the horizon is a loop
-//     inside the thread and the gains go through device memory, so one
-//     kernel covers both with no horizon cap.
+//     and the gains go through device memory, so one kernel covers both
+//     with no horizon cap.
 //   * costate_kernel    <- _costate_kernel (seq_costates_batched) and
 //     _costate_stream_kernel (seq_costates_streamed), for the same reason.
 //
-// What bounds them on the card: bytes.  Per stage and scenario the trial's
-// backward sweep reads 42 values of stage data once (ru 1, Q 16, R 1, M 4,
-// fx 16, fu 4 at nx=4, nu=1): about 69 MB per trial at B=4096, T=100 in
-// f32, against some 2 kflop of register arithmetic per stage.  The forward
-// sweep re-reads fx, fu and the gains (25 values) and writes du and dx.  The
-// costate recursion reads cx and fx (20 values per stage) and writes lam.
+// seq_trial_kernel: one warp per block, a group of G lanes per scenario
+// (G = 4 at nx = 3, 4; 2 at nx = 2; 8 at nx = 6), the schedule of
+// seq_trial.h (host and device; the CPU tests build it with g++).
+//   What bounded the one-thread-per-scenario kernel it replaces: its loads.
+//   Neighbouring threads read the (B, T, rows) inputs T * rows values apart,
+//   so none was coalesced, and each stage's 42 loads (nx = 4, nu = 1) were
+//   requested on the serial chain: on an H100 (700 W), pinning them to
+//   stage 0 took a launch at B = 4096, T = 100 from 0.332 to 0.069 ms in
+//   float32, computing the Riccati step once and reusing its gains to 0.240
+//   (PERF.md section 5).
+//   What the design does: each scenario's W = 4 stages of an array are one
+//   contiguous run; the group copies the runs into a shared-memory ring
+//   with cp.async (16 bytes a copy where the run allows it), two chunks
+//   ahead of the chain, for the forward sweep's fx, fu and gains too; du and
+//   dx leave through a staging slice as contiguous runs.  The chain is the
+//   cooperative Riccati step of riccati_rows.h (G lanes, one row each), so
+//   the card holds G warps where it held one, on G of an SM's schedulers.
+//   Shared memory per block (ring 3 slots x 4 stages, staging, exchange)
+//   and resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+//   chip_smoke.py phase 0): (4, 1) 18,560 bytes and 11 blocks in float32,
+//   37,120 and 6 in float64; (3, 2) 16,256 / 13 and 32,512 / 6; (2, 1), 16
+//   scenarios a block, 13,184 / 16 and 25,856 / 8; 128-146 registers, no
+//   spills.  At nx = 6, nu = 2 (8 lanes, 4 scenarios) it would be 22,400 /
+//   44,800 bytes, under the 48 KB of static shared memory; its registers
+//   are not measured (no such model yet), the lane holding rows of 6
+//   rather than 4.
 //
-// Layout (the simplest correct one; faster layouts are later work): the
-// kernels read the port's (B, T, rows) tensors as they are, so neighbouring
-// threads read addresses T*rows values apart and no load is coalesced; each
-// 4- or 8-byte load pulls a whole 32-byte sector, so the sweep moves several
-// times the bytes it uses.  Only the gain scratch is batch-last,
-// (T, (1+nx)*nu, B), written in the backward sweep and read back in
-// ascending t by the forward sweep with coalesced accesses.  Blocks hold
-// 32 threads so that B=4096 scenarios spread over 128 of the 132 SMs.
+// costate_kernel: one thread per scenario, unchanged.  It reads the
+// (B, T, rows) inputs as they are, uncoalesced (the same problem, ranked
+// later in PERF.md section 6's order).
 //
 // Semantics follow the JAX kernel exactly (seq_newton_kernel.py:172-252):
-// the backward step is riccati.cuh's riccati_step, shared with the fused
-// kernels; ok = isfinite(piv) & (piv > 0) & isfinite(pred), dx0 = 0.
-// Generic in dtype (float, double), templated on (NX, NU).
+// the backward step is riccati.cuh's riccati_step, spread over the group's
+// lanes with its operations and their order kept (riccati_rows.h);
+// ok = isfinite(piv) & (piv > 0) & isfinite(pred), dx0 = 0.  Generic in
+// dtype (float, double), templated on (NX, NU).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "riccati.cuh"
+#include "launch_attr.cuh"
+#include "seq_trial.h"
 
 namespace {
 
-using ipoc::riccati_step;
-
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;  // costate_kernel: one thread per scenario
 
 template <typename scalar_t, int NX, int NU>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ipoc::kRowWarp)
 seq_trial_kernel(const scalar_t* __restrict__ ru,  // (B, T, NU)
                  const scalar_t* __restrict__ Q,   // (B, T, NX, NX)
                  const scalar_t* __restrict__ R,   // (B, T, NU, NU), regularized
@@ -52,90 +67,23 @@ seq_trial_kernel(const scalar_t* __restrict__ ru,  // (B, T, NU)
                  const scalar_t* __restrict__ fx,  // (B, T, NX, NX)
                  const scalar_t* __restrict__ fu,  // (B, T, NX, NU)
                  const scalar_t* __restrict__ XT,  // (B, NX, NX)
-                 scalar_t* __restrict__ gains,     // (T, (1+NX)*NU, B) scratch
+                 scalar_t* __restrict__ gains,     // (B, T, (1+NX)*NU) scratch
                  scalar_t* __restrict__ du,        // (B, T, NU)
                  scalar_t* __restrict__ dx,        // (B, T+1, NX)
                  scalar_t* __restrict__ pred,      // (B,)
                  bool* __restrict__ ok,            // (B,)
                  int B, int T) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  constexpr int NG = (1 + NX) * NU;
-
-  scalar_t Vxx[NX * NX], Vx[NX];
-#pragma unroll
-  for (int r = 0; r < NX * NX; ++r) Vxx[r] = XT[(size_t)b * NX * NX + r];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) Vx[i] = scalar_t(0);
-  scalar_t dv = scalar_t(0);
-  scalar_t minpiv = scalar_t(INFINITY);
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t s = (size_t)b * T + t;
-    scalar_t ru_t[NU], Q_t[NX * NX], R_t[NU * NU], M_t[NX * NU];
-    scalar_t fx_t[NX * NX], fu_t[NX * NU];
-#pragma unroll
-    for (int r = 0; r < NU; ++r) ru_t[r] = ru[s * NU + r];
-#pragma unroll
-    for (int r = 0; r < NX * NX; ++r) Q_t[r] = Q[s * NX * NX + r];
-#pragma unroll
-    for (int r = 0; r < NU * NU; ++r) R_t[r] = R[s * NU * NU + r];
-#pragma unroll
-    for (int r = 0; r < NX * NU; ++r) M_t[r] = M[s * NX * NU + r];
-#pragma unroll
-    for (int r = 0; r < NX * NX; ++r) fx_t[r] = fx[s * NX * NX + r];
-#pragma unroll
-    for (int r = 0; r < NX * NU; ++r) fu_t[r] = fu[s * NX * NU + r];
-
-    scalar_t k[NU], K[NU * NX];
-    riccati_step<scalar_t, NX, NU>(ru_t, Q_t, R_t, M_t, fx_t, fu_t, Vxx, Vx,
-                                   k, K, dv, minpiv);
-    scalar_t* g = gains + (size_t)t * NG * B + b;
-#pragma unroll
-    for (int i = 0; i < NU; ++i) g[(size_t)i * B] = k[i];
-#pragma unroll
-    for (int r = 0; r < NU * NX; ++r) g[(size_t)(NU + r) * B] = K[r];
-  }
-  pred[b] = dv;
-  ok[b] = isfinite(minpiv) && (minpiv > scalar_t(0)) && isfinite(dv);
-
-  // Closed-loop deviation rollout: dx0 = 0, du = k + K dx,
-  // dx+ = fx dx + fu du.
-  scalar_t dxt[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    dxt[i] = scalar_t(0);
-    dx[(size_t)b * (T + 1) * NX + i] = scalar_t(0);
-  }
-  for (int t = 0; t < T; ++t) {
-    const size_t s = (size_t)b * T + t;
-    const scalar_t* g = gains + (size_t)t * NG * B + b;
-    scalar_t dut[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      scalar_t acc = g[(size_t)(NU + i * NX) * B] * dxt[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) acc = acc + g[(size_t)(NU + i * NX + j) * B] * dxt[j];
-      dut[i] = g[(size_t)i * B] + acc;
-      du[s * NU + i] = dut[i];
-    }
-    scalar_t nxt[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      scalar_t ax = fx[s * NX * NX + i * NX] * dxt[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) ax = ax + fx[s * NX * NX + i * NX + j] * dxt[j];
-      scalar_t au = fu[s * NX * NU + i * NU] * dut[0];
-#pragma unroll
-      for (int j = 1; j < NU; ++j) au = au + fu[s * NX * NU + i * NU + j] * dut[j];
-      nxt[i] = ax + au;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      dxt[i] = nxt[i];
-      dx[((size_t)b * (T + 1) + t + 1) * NX + i] = nxt[i];
-    }
-  }
+  using Tr = ipoc::SeqTrial<scalar_t, NX, NU>;
+  __shared__ __align__(16) scalar_t sh[Tr::kShared];
+  const int s = static_cast<int>(threadIdx.x) / Tr::G;
+  const auto sc = Tr::scenario(ru, Q, R, M, fx, fu, XT, gains, du, dx, pred, ok,
+                               static_cast<int>(blockIdx.x) * Tr::S + s, B, T, s, sh);
+  typename Tr::Lane lane;
+  lane.r = static_cast<int>(threadIdx.x) % Tr::G;
+  ipoc::WarpExec<typename Tr::Lane> ex{lane};
+  // The forward sweep copies the gains the warp stored: order the stores
+  // before those reads.
+  Tr::schedule(ex, sc, [] { __threadfence_block(); });
 }
 
 template <typename scalar_t, int NX>
@@ -177,8 +125,9 @@ int launch_trial(const void* ru, const void* Q, const void* R, const void* M,
                  const void* fx, const void* fu, const void* XT, void* gains,
                  void* du, void* dx, void* pred, void* ok, int B, int T,
                  cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  seq_trial_kernel<scalar_t, NX, NU><<<blocks, kThreads, 0, stream>>>(
+  using Tr = ipoc::SeqTrial<scalar_t, NX, NU>;
+  const int blocks = (B + Tr::S - 1) / Tr::S;
+  seq_trial_kernel<scalar_t, NX, NU><<<blocks, ipoc::kRowWarp, 0, stream>>>(
       static_cast<const scalar_t*>(ru), static_cast<const scalar_t*>(Q),
       static_cast<const scalar_t*>(R), static_cast<const scalar_t*>(M),
       static_cast<const scalar_t*>(fx), static_cast<const scalar_t*>(fu),
@@ -238,6 +187,28 @@ extern "C" int ipoc_seq_trial(int dtype, int nx, int nu, const void* ru,
     return dispatch_trial<float>(nx, nu, ru, Q, R, M, fx, fu, XT, gains, du, dx, pred, ok, B, T, s);
   if (dtype == 1)
     return dispatch_trial<double>(nx, nu, ru, Q, R, M, fx, fu, XT, gains, du, dx, pred, ok, B, T, s);
+  return -1;
+}
+
+// The card's view of one instantiation of seq_trial_kernel
+// (launch_attr.cuh kernel_occupancy).
+template <typename scalar_t, int NX, int NU>
+int trial_occupancy(int* out) {
+  return ipoc::kernel_occupancy(seq_trial_kernel<scalar_t, NX, NU>, ipoc::kRowWarp, 0,
+                                ipoc::SeqTrial<scalar_t, NX, NU>::S, out);
+}
+
+template <typename scalar_t>
+int dispatch_occupancy(int nx, int nu, int* out) {
+  if (nx == 2 && nu == 1) return trial_occupancy<scalar_t, 2, 1>(out);
+  if (nx == 4 && nu == 1) return trial_occupancy<scalar_t, 4, 1>(out);
+  if (nx == 3 && nu == 2) return trial_occupancy<scalar_t, 3, 2>(out);
+  return -1;
+}
+
+extern "C" int ipoc_seq_trial_occupancy(int dtype, int nx, int nu, int* out) {
+  if (dtype == 0) return dispatch_occupancy<float>(nx, nu, out);
+  if (dtype == 1) return dispatch_occupancy<double>(nx, nu, out);
   return -1;
 }
 

@@ -107,6 +107,12 @@ for _name in ("abs", "sin", "cos", "tan", "exp", "log", "sqrt", "rsqrt",
               "acos", "atan", "sinh", "cosh"):
     _C[_name] = f"ipoc_{_name}({{0}})"
 
+# The elementary functions: what ScalarProgram.split hands off.
+ELEMENTARY_CALLS = frozenset({
+    "sin", "cos", "tan", "exp", "log", "sqrt", "rsqrt", "pow", "atan2", "rem",
+    "tanh", "sigmoid", "reciprocal", "log1p", "expm1", "asin", "acos",
+    "atan", "sinh", "cosh"})
+
 # Torch evaluation on (B,) tensors.
 _TORCH = {
     "neg": torch.neg, "abs": torch.abs, "sin": torch.sin, "cos": torch.cos,
@@ -652,6 +658,138 @@ class ScalarProgram:
                              else f"  out{i}[{j}] = {v};")
         lines.append("}")
         return "\n".join(indent + ln for ln in lines)
+
+    def split(self, arg: int, names=("pre", "post")):
+        """Split the program at input ``arg``: ``(pre, post)``, two programs
+        that compute this one's DAG.
+
+        ``pre`` takes every input but ``arg`` and returns one vector, the
+        handoff values: the calls of elementary functions (``ELEMENTARY_CALLS``:
+        sin, cos, log, rem, ...) that do not depend on ``arg`` and that
+        ``post`` reads, and the inputs it reads.  ``post`` takes
+        ``(handoff, arg)`` and computes everything else that the outputs
+        need, the arithmetic that does not depend on ``arg`` included.
+        So the arithmetic reaches the compiler in one piece, as in the
+        whole program: ``nvcc`` contracts a product into the sum that
+        reads it (an FMA, one rounding) where it sees both, and handing
+        off arithmetic values changed which products it contracted.
+        Every node keeps its operation and operands, so ``post(pre(...),
+        a)`` is this program's result to the bit (a boolean handoff value
+        goes through ``scalar_t`` as 0 or 1)."""
+        dep = {}
+        for nd in self.order:
+            dep[id(nd)] = (nd.args[0] == arg if nd.op == "input" else
+                           any(dep[id(a)] for a in nd.args
+                               if isinstance(a, Node)))
+        outs = {id(e): e for arr in self.outs for e in arr.reshape(-1)
+                if isinstance(e, Node)}
+        readers = {}
+        for nd in self.order:
+            for a in nd.args:
+                if isinstance(a, Node):
+                    readers.setdefault(id(a), []).append(nd)
+        # What post computes, decided from the last node back (a node's
+        # readers come after it).
+        post = set()
+        for nd in reversed(self.order):
+            if nd.op == "input":
+                continue
+            if dep[id(nd)] or nd.op not in ELEMENTARY_CALLS and (id(nd) in outs or any(
+                    id(r) in post for r in readers.get(id(nd), ()))):
+                post.add(id(nd))
+        hand = {}
+        for nd in self.order:
+            if id(nd) in post:
+                for a in nd.args:
+                    if isinstance(a, Node) and id(a) not in post \
+                            and not dep[id(a)]:
+                        hand[id(a)] = a
+        for e in outs.values():
+            if id(e) not in post and not dep[id(e)]:
+                hand[id(e)] = e
+        handoff = sorted(hand.values(), key=lambda nd: nd.order)
+
+        def rebuild(roots, leaf):
+            """New nodes for everything ``roots`` reach, in creation order;
+            ``leaf(nd)`` gives the new node of an old input or handoff
+            node, or None to rebuild it from its operands."""
+            new = {}
+            stack = list(roots)
+            seen = {}
+            while stack:
+                nd = stack.pop()
+                if id(nd) in seen:
+                    continue
+                seen[id(nd)] = nd
+                if leaf(nd) is None:
+                    stack.extend(a for a in nd.args if isinstance(a, Node))
+            for nd in sorted(seen.values(), key=lambda nd: nd.order):
+                got = leaf(nd)
+                new[id(nd)] = got if got is not None else Node(
+                    nd.op, tuple(new[id(a)] if isinstance(a, Node) else a
+                                 for a in nd.args), nd.order)
+            return new
+
+        n = len(handoff)
+        keep = [i for i in range(len(self.in_shapes)) if i != arg]
+
+        def pre_leaf(nd):
+            if nd.op == "input":
+                return Node("input", (keep.index(nd.args[0]), nd.args[1]),
+                            nd.order)
+            return None
+
+        pre_new = rebuild(handoff, pre_leaf)
+        pre_out = np.empty((n,), dtype=object)
+        for k, nd in enumerate(handoff):
+            pre_out[k] = pre_new[id(nd)]
+        first = min((nd.order for nd in self.order), default=0) - 1
+        h_in = {}
+        for k, nd in enumerate(handoff):
+            node = Node("input", (0, k), first - 2 * n + 2 * k)
+            h_in[id(nd)] = (Node("ne", (node, 0.0), first - 2 * n + 2 * k + 1)
+                            if nd.is_bool else node)
+
+        def post_leaf(nd):
+            if id(nd) in h_in:
+                return h_in[id(nd)]
+            if nd.op == "input":
+                return Node("input", (1, nd.args[1]), nd.order)
+            return None
+
+        roots = [e for arr in self.outs for e in arr.reshape(-1)
+                 if isinstance(e, Node)]
+        post_new = rebuild(roots, post_leaf)
+        post_outs = []
+        for arr in self.outs:
+            out = np.empty(arr.shape, dtype=object)
+            for idx in np.ndindex(arr.shape):
+                e = arr[idx]
+                out[idx] = post_new[id(e)] if isinstance(e, Node) else e
+            post_outs.append(out)
+
+        def program(name, in_shapes, outs):
+            # Reachable nodes in creation order, inputs included (the handoff
+            # inputs of post, and their boolean views, sort first).
+            order = []
+            seen = set()
+            stack = [e for arr in outs for e in arr.reshape(-1)
+                     if isinstance(e, Node)]
+            while stack:
+                nd = stack.pop()
+                if id(nd) in seen:
+                    continue
+                seen.add(id(nd))
+                order.append(nd)
+                stack.extend(a for a in nd.args if isinstance(a, Node))
+            order.sort(key=lambda nd: nd.order)
+            stats = {"ops": sum(1 for nd in order if nd.op != "input")}
+            return ScalarProgram(name, in_shapes, [tuple(o.shape) for o in outs],
+                                 outs, order, stats)
+
+        pre = program(names[0], [self.in_shapes[i] for i in keep], [pre_out])
+        post = program(names[1], [(n,), self.in_shapes[arg]], post_outs)
+        return pre, post
 
     def evaluate(self, *args):
         """Evaluate the DAG with torch on batch-last tensors: argument ``i``

@@ -64,6 +64,11 @@ PAR_NEWTON = LibSpec("par_newton", (CSRC / "par_newton.cu",
                                     CSRC / "par_trial_f64.cu"))
 
 
+# What the occupancy entries (``ipoc_*_occupancy``) write, in order.
+OCCUPANCY_KEYS = ("blocks_per_sm", "threads_per_block", "shared_bytes_per_block",
+                  "scenarios_per_block", "registers", "local_bytes")
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
@@ -169,7 +174,8 @@ def _bind(lib, signatures: dict) -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "seq_newton": {"ipoc_seq_trial": [_I] * 3 + [_P] * 12 + [_I, _I, _P],
-                   "ipoc_seq_costates": [_I] * 2 + [_P] * 4 + [_I, _I, _P]},
+                   "ipoc_seq_costates": [_I] * 2 + [_P] * 4 + [_I, _I, _P],
+                   "ipoc_seq_trial_occupancy": [_I] * 3 + [_P]},
     "par_newton": {
         "ipoc_affine_scan": [_I] * 3 + [_P] * 4 + [_I, _I, _P],
         "ipoc_value_scan": [_I] * 2 + [_P] * 10 + [_I, _I, _P],

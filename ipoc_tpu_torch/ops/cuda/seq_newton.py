@@ -20,6 +20,42 @@ from ipoc_tpu_torch.ops import cuda
 # nu > 1 layout pin.  The costate kernel is instantiated for these nx.
 TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2))
 COSTATE_NX = (2, 3, 4)
+# Threads per block of the kernels that run the cooperative Riccati step
+# (csrc/riccati_rows.h): one warp.
+WARP = 32
+
+
+def row_lanes(nx: int) -> int:
+    """G, the lanes per scenario of the cooperative Riccati step: the least
+    power of two >= nx (2 at nx=2, 4 at nx=3 and 4, 8 at nx=6); the
+    kernels' rule (``csrc/riccati_rows.h`` ``row_lanes``)."""
+    g = 1
+    while g < nx:
+        g *= 2
+    return g
+
+
+def row_geometry(nx: int, B: int) -> dict:
+    """The launch of ``seq_trial_kernel`` and ``fused_bwd_kernel`` for B
+    scenarios of state size nx: one warp per block, 32 / G scenarios a
+    block."""
+    lanes = row_lanes(nx)
+    per_block = WARP // lanes
+    return {"lanes_per_scenario": lanes, "scenarios_per_block": per_block,
+            "blocks": -(-B // per_block), "threads_per_block": WARP}
+
+
+def trial_occupancy(dtype: torch.dtype, nx: int, nu: int) -> dict:
+    """The card's view of one instantiation of the trial kernel: resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    threads, shared bytes and scenarios per block, registers and local
+    (spill) bytes per thread."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    cuda.check(cuda.library().ipoc_seq_trial_occupancy(
+        cuda.dtype_code(dtype), nx, nu, out), "seq_trial_occupancy")
+    return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +188,7 @@ def seq_newton_trial_batched(ru, Q, R, M, fx, fu, XT):
         (B, T, nu), (B, T, nx, nx), (B, T, nu, nu), (B, T, nx, nu),
         (B, T, nx, nx), (B, T, nx, nu), (B, nx, nx)))
     kw = dict(dtype=fu.dtype, device=fu.device)
-    gains = torch.empty((T, (1 + nx) * nu, B), **kw)
+    gains = torch.empty((B, T, (1 + nx) * nu), **kw)
     du = torch.empty((B, T, nu), **kw)
     dx = torch.empty((B, T + 1, nx), **kw)
     pred = torch.empty((B,), **kw)

@@ -26,7 +26,8 @@ carry the packed stream and the flat lanes' fused and DDP evaluators
 Their per-stage code is generated from the model: the stage programs below
 are written with ``torch.func`` on one element (shapes ``(nx,)``, ``(nu,)``,
 ``()``), and ``ops/codegen/scalarize.py`` lowers each to a straight-line
-function of a generated ``Model`` struct.  One library per model is built
+function of a generated ``Model`` struct; ``fused_bwd`` runs ``stage_bwd``
+split at the costate into its two halves (:func:`backward_halves`).  One library per model is built
 from that text (:func:`model_spec`), with one ``nvcc`` call.
 
 Layout (the packed stream's, batch-last): stage arrays ``(T, rows, B)``,
@@ -242,20 +243,44 @@ def scalar_programs(ocp: OCP, nx: int, nu: int, traced=None) -> dict:
     return _PROGRAMS[key]
 
 
+_HALVES: dict = {}
+
+
+def backward_halves(ocp: OCP, nx: int, nu: int) -> tuple:
+    """The fused backward kernel's two halves of ``stage_bwd``
+    (``csrc/fused_bwd.h``; ``ScalarProgram.split`` at the costate, argument
+    3): ``stage_bwd_pre``, the elementary-function calls that do not read
+    the costate, and ``stage_bwd_post``, the rest of the stage from pre's
+    handoff values and the costate."""
+    key = (ocp, nx, nu)
+    if key not in _HALVES:
+        _HALVES[key] = scalar_programs(ocp, nx, nu)["stage_bwd"].split(
+            3, ("stage_bwd_pre", "stage_bwd_post"))
+    return _HALVES[key]
+
+
+def model_struct(ocp: OCP, nx: int, nu: int) -> str:
+    """The generated ``struct Model``: the shapes, the handoff count of
+    ``stage_bwd_pre`` and every scalarized stage program."""
+    pre, post = backward_halves(ocp, nx, nu)
+    progs = [*scalar_programs(ocp, nx, nu).values(), pre, post]
+    body = "\n\n".join(p.c_source(indent="  ") for p in progs)
+    return ("struct Model {\n"
+            f"  static constexpr int NX = {nx};\n"
+            f"  static constexpr int NU = {nu};\n"
+            f"  static constexpr int NH = {pre.out_shapes[0][0]};\n\n"
+            f"{body}\n"
+            "};\n")
+
+
 def model_source(ocp: OCP, nx: int, nu: int) -> str:
     """The generated ``.cu`` of one model's fused-kernel library."""
-    body = "\n\n".join(p.c_source(indent="  ")
-                       for p in scalar_programs(ocp, nx, nu).values())
     return (
         "// Generated by ipoc_tpu_torch/ops/codegen/scalarize.py from the\n"
         "// model's stage programs (ipoc_tpu_torch/ops/fused_iter.py).\n"
         '#include "fused_iter.cuh"\n'
         '#include "mega.cuh"\n\n'
-        "struct Model {\n"
-        f"  static constexpr int NX = {nx};\n"
-        f"  static constexpr int NU = {nu};\n\n"
-        f"{body}\n"
-        "};\n\n"
+        f"{model_struct(ocp, nx, nu)}\n"
         "IPOC_FUSED_ENTRY_POINTS(Model)\n")
 
 
@@ -291,8 +316,21 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
         lib.ipoc_mega.restype = i
         lib.ipoc_ring_layout.argtypes = [i, p]
         lib.ipoc_ring_layout.restype = i
+        lib.ipoc_fused_bwd_occupancy.argtypes = [i, p]
+        lib.ipoc_fused_bwd_occupancy.restype = i
         _LIBS[key] = lib
     return _LIBS[key]
+
+
+def fused_bwd_occupancy(ocp: OCP, nx: int, nu: int,
+                        dtype: torch.dtype) -> dict:
+    """The card's view of one model's ``fused_bwd_kernel``: resident blocks
+    per SM, threads, shared bytes and scenarios per block, registers and
+    local (spill) bytes per thread."""
+    out = (ctypes.c_int * 6)()
+    cuda.check(library(ocp, nx, nu).ipoc_fused_bwd_occupancy(
+        cuda.dtype_code(dtype), out), "fused_bwd_occupancy")
+    return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
 def pointers(tensors):

@@ -58,9 +58,7 @@ def trial_occupancy(dtype: torch.dtype, nx: int, nu: int, lanes: int) -> dict:
     out = (ctypes.c_int * 6)()
     cuda.check(cuda.library(cuda.PAR_NEWTON).ipoc_par_trial_occupancy(
         cuda.dtype_code(dtype), nx, nu, lanes, out), "par_trial_occupancy")
-    keys = ("blocks_per_sm", "threads_per_block", "shared_bytes_per_block",
-            "scenarios_per_block", "registers", "local_bytes")
-    return dict(zip(keys, out))
+    return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
 def newton_pipeline(ru, Q, R, M, fx, fu, XT, plain: bool = False):

@@ -16,7 +16,10 @@ the JAX suite's kernel-vs-scan tolerances, atol 2e-5 * scale, pred rtol
 float64 and within 1e-4 of its scale in float32 (the generated stage code
 runs the same float32 program in another operation order, with FMA
 contraction, and the backward sweep carries rounding through T Riccati
-steps), equal NaN and inf entries, ok flags equal; the merged trial
+steps), equal NaN and inf entries, ok flags equal; the seq trial and the
+fused kernels at B=64, T=40 and at every B of {1, 33, 4096} with every T
+of {1, 7, 100, 1000} (each scenario a group of lanes there), the seq
+trial also on inputs off a 16-byte boundary (bit-equal to aligned ones); the merged trial
 (``merged_trial``, Newton and DDP modes) likewise.  The mega kernel
 (``ops/mega.py``) against its plain version in float64: on all lanes but
 at most one (an accept decision may flip within rounding), equal
@@ -38,6 +41,8 @@ plain version's scale, the first stage equal to x0.  ``solve_batch`` with
 the fused and DDP evaluators on the card against the CPU: at most one lane
 with other iterations, converged raw costs to rtol 1e-8.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -117,19 +122,31 @@ def _random_data(B, T, nx, nu, seed, dtype, device):
     return trial, (t(rnd(B, T, nx)), t(fx), t(rnd(B, nx)))
 
 
-def _data(case, dtype, device):
+def _data(case, dtype, device, B=64, T=40):
     if case == "cartpole":
-        return _model_data(cartpole, 64, 40, 0, dtype, device)
+        return _model_data(cartpole, B, T, 0, dtype, device)
     if case == "pendulum":
-        return _model_data(pendulum, 64, 40, 1, dtype, device)
-    return _random_data(64, 40, 3, 2, 2, dtype, device)
+        return _model_data(pendulum, B, T, 1, dtype, device)
+    return _random_data(B, T, 3, 2, 2, dtype, device)
 
 
+# (B, T) of the cases of the two kernels that spread a scenario over a
+# group of lanes (seq_trial, fused_bwd): B=64, T=40, and every B of
+# {1, 33, 4096} (33: not a whole number of blocks) with every T of
+# {1, 7, 100, 1000} (7: a partial chunk; 1000: the longest horizon).
+SIZES = [(64, 40)] + [(B, T) for B in (1, 33, 4096) for T in (1, 7, 100, 1000)]
+
+
+def _size_id(size):
+    return f"B{size[0]}-T{size[1]}"
+
+
+@pytest.mark.parametrize("size", SIZES, ids=_size_id)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", ["cartpole", "pendulum", "random_nx3_nu2"])
-def test_kernels_match_plain(card, case, dtype):
+def test_kernels_match_plain(card, case, dtype, size):
     tol, pred_rtol, lam_tol = TOLS[dtype]
-    trial, costate = _data(case, dtype, card)
+    trial, costate = _data(case, dtype, card, *size)
     cuda.reset_launches()
     du, dx, pred, ok = seq_newton_trial_batched(*trial)
     lam = seq_costates_batched(*costate)
@@ -142,9 +159,15 @@ def test_kernels_match_plain(card, case, dtype):
     assert float((du - du_p).abs().max()) <= tol * scale
     assert float((dx - dx_p).abs().max()) <= tol * scale
     assert float(((pred - pred_p).abs() / pred_p.abs()).max()) <= pred_rtol
-    lam_p = seq_costates_plain(*costate)
-    assert float((lam - lam_p).abs().max()) <= lam_tol * float(
-        lam_p.abs().max())
+    # The costate kernel (one thread per scenario, as before) at every size
+    # in float64; in float32 up to T=100, the horizons its 1e-5 was set
+    # for: over 1000 float32 stages of the cartpole recursion its rounding
+    # and the plain version's part by 1e-5 of lam's scale of 2e4 (on an
+    # H100).
+    if dtype == torch.float64 or size[1] <= 100:
+        lam_p = seq_costates_plain(*costate)
+        assert float((lam - lam_p).abs().max()) <= lam_tol * float(
+            lam_p.abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -154,6 +177,20 @@ def test_indefinite_control_weight_flags_infeasible(card, dtype):
     bad = (ru, Q, (R - 1e3).contiguous(), M, fx, fu, XT)
     assert not bool(seq_newton_trial_batched(*bad)[3].any())
     assert not bool(seq_newton_trial_plain(*bad)[3].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_seq_trial_unaligned_views(card, dtype):
+    """Inputs that are views one element past an allocation's start (off
+    the 16-byte boundary of the ring's vector copies), at a B that is not a
+    whole number of blocks, give what aligned copies give."""
+    args, _ = _data("random_nx3_nu2", dtype, card, B=33, T=7)
+    views = tuple(torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+                  for a in args)
+    assert all(v.data_ptr() % 16 != 0 and v.is_contiguous() for v in views)
+    for got, ref in zip(seq_newton_trial_batched(*views),
+                        seq_newton_trial_batched(*args)):
+        assert torch.equal(got, ref)
 
 
 def test_uninstantiated_shape_raises(card):
@@ -208,26 +245,39 @@ def _close(got, ref, tol):
         assert float((got[fin] - ref[fin]).abs().max()) <= tol * scale
 
 
-def _lanes(model, B, T, seed, dtype, device):
+def _lanes(model, B, T, seed, dtype, device, ocp=None):
     """Batch-last lane inputs: controls, a second control set, initial
-    states."""
+    states; the model at dt = 1/T unless ``ocp`` is given."""
     rng = np.random.default_rng(seed)
     x0 = model.initial_state(torch.float64).numpy()
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
     u = t(0.1 * rng.normal(size=(T, 1, B)))
     up = t(0.15 * rng.normal(size=(T, 1, B)))
     x0b = t(x0[:, None] + 0.01 * rng.normal(size=(x0.shape[0], B)))
-    return model.make_ocp(1.0 / T), u, up, x0b
+    return ocp or model.make_ocp(1.0 / T), u, up, x0b
 
 
+@functools.lru_cache(maxsize=None)
+def _model_at_step(model, dt):
+    """One OCP per model and time step, so that the cases of one model
+    share its library (libraries are cached per OCP object)."""
+    return model.make_ocp(dt)
+
+
+@pytest.mark.parametrize("size", SIZES, ids=_size_id)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("model", [cartpole, pendulum],
                          ids=["cartpole", "pendulum"])
-def test_fused_kernels_match_plain(card, model, dtype):
-    """The four fused kernels against their plain versions, B=64, T=40."""
-    B, T = 64, 40
+def test_fused_kernels_match_plain(card, model, dtype, size):
+    """The four fused kernels against their plain versions for every
+    (B, T) of SIZES, the model at dt = 1/40 (T=1000: dt = 1/1000, a 1 s
+    horizon as at T=40; over 25 s the cartpole's open loop parts from
+    itself at rounding)."""
+    B, T = size
     tol = FUSED_TOL[dtype]
-    ocp, u, up, x0 = _lanes(model, B, T, 5, dtype, card)
+    ocp, u, up, x0 = _lanes(model, B, T, 5, dtype, card,
+                            ocp=_model_at_step(model, 1.0 / (T if T == 1000
+                                                             else 40)))
     bp = torch.full((B,), 0.05, dtype=dtype, device=card)
     cuda.reset_launches()
     got = tf.rollout_cost_packed(ocp, u, x0, bp)
