@@ -18,11 +18,12 @@ line:
      lane count, with its resident blocks per SM and shared memory per
      block), and the mega kernel's and the merged trial's stage ring
      (stages per slot W, slots S, dynamic shared memory per block); for
-     the two kernels that spread a scenario over a group of lanes (the
-     seq trial per shape, the fused backward sweep of cartpole and
-     pendulum), per dtype, registers, spills, shared memory per block,
-     resident blocks per SM and scenarios per block (checked against the
-     launch rule), and the SASS of their stage loops;
+     the kernels that spread a scenario over a group of lanes (the seq
+     trial per shape; the fused backward and forward sweeps and the
+     transition of cartpole and pendulum), per dtype, registers, spills,
+     shared memory per block, resident blocks per SM and scenarios per
+     block (checked to hold a B=4096 launch in one wave), and the SASS of
+     their stage loops;
   A. each kernel against its plain PyTorch version on the card, on stage
      data taken from the real slice (cartpole, T=100, B=4096), in float32
      and float64, on random nx=3, nu=2 data, and on an indefinite R that
@@ -41,7 +42,8 @@ line:
      and at bp=0.004), float64 then float32, and on pendulum at B=256;
      the rollout kernel also on cartpole T=1000 at B=256 (float64 within
      1e-12 of scale); then each kernel's time beside its plain version's
-     (the backward sweep also in float64, and through its C entry alone);
+     (the backward and forward sweeps and the transition also in float64,
+     and through their C entries alone, in SM cycles per stage);
   E. ``solve_stream`` with ``BATCH_CONFIG`` (the packed stream on its mega
      executor) on 256 cartpole scenarios in float64: the card against the
      CPU;
@@ -625,13 +627,14 @@ def sass_stage_loops(lib, pattern, min_loop=30):
 
 
 def rows_report(seq_lib, fused):
-    """The two kernels that run the cooperative Riccati step (seq_trial,
-    fused_bwd): registers and spill bytes as ``ptxas -v`` reported them,
-    the card's view (resident blocks per SM, threads, shared bytes and
-    scenarios per block), per dtype and shape (``fused``: model name ->
-    (ocp, nx, library path)), checked to hold a B=4096 launch in one wave
-    of resident blocks; and the SASS of their loops (the float32 and
-    float64 cartpole-shaped ones)."""
+    """The group-schedule kernels: the two that run the cooperative
+    Riccati step (seq_trial, fused_bwd) and the forward sweep and the
+    transition (fused_fwd, transition): registers and spill bytes as
+    ``ptxas -v`` reported them, the card's view (resident blocks per SM,
+    threads, shared bytes and scenarios per block), per dtype and shape
+    (``fused``: model name -> (ocp, nx, library path)), checked to hold a
+    B=4096 launch in one wave of resident blocks; and the SASS of their
+    loops (the float32 and float64 cartpole-shaped ones)."""
     import torch
 
     from ipoc_tpu_torch.ops import fused_iter as tf
@@ -656,15 +659,18 @@ def rows_report(seq_lib, fused):
         one_wave(f"seq_trial_{str(dtypes[dt])[6:]}_nx{nx}_nu{nu}", rec,
                  sn.trial_occupancy(dtypes[dt], nx, nu))
     for name, (ocp, nx, lib) in fused.items():
-        bwd = ptxas_entries(lib.with_suffix(".ptxas.txt").read_text(),
-                            r"fused_bwd_kernelI5Model([fd])E")
-        for (dt,), rec in sorted(bwd.items()):
-            one_wave(f"fused_bwd_{name}_{str(dtypes[dt])[6:]}", rec,
-                     tf.fused_bwd_occupancy(ocp, nx, 1, dtypes[dt]))
-    check(len(out) == 10, f"rows report incomplete: {sorted(out)}")
+        report = lib.with_suffix(".ptxas.txt").read_text()
+        for kernel in tf.GROUP_KERNELS:
+            for (dt,), rec in sorted(ptxas_entries(
+                    report, rf"{kernel}_kernelI5Model([fd])E").items()):
+                one_wave(f"{kernel}_{name}_{str(dtypes[dt])[6:]}", rec,
+                         tf.group_occupancy(ocp, nx, 1, dtypes[dt], kernel))
+    check(len(out) == 6 + 4 * len(tf.GROUP_KERNELS),
+          f"rows report incomplete: {sorted(out)}")
     out["sass_seq_trial"] = sass_stage_loops(seq_lib, "seq_trial_kernel")
-    out["sass_fused_bwd_cartpole"] = sass_stage_loops(fused["cartpole"][2],
-                                                      "fused_bwd_kernel")
+    for kernel in tf.GROUP_KERNELS:
+        out[f"sass_{kernel}_cartpole"] = sass_stage_loops(
+            fused["cartpole"][2], f"{kernel}_kernel")
     return out
 
 
@@ -1291,73 +1297,75 @@ def phase_fused_kernels(pool32, dev):
             model_ocp("cartpole", 1, LONG_T), u1k.permute(1, 2, 0)
             .contiguous(), x1k.T.contiguous(), f"cartpole T={LONG_T} {tag}")
 
-    # Times at the slice's shape (cartpole, B=4096, T=100, float32).
+    # Times at the slice's shape (cartpole, B=4096, T=100, float32; the
+    # three group-schedule kernels also float64).
     u, u_other, x0, bpt, rp = fused_inputs(pool, torch.float32, dev, 0.1)
     xs, xT, _, cunsq = tf.rollout_cost_plain(cp, u, x0, bpt)
     reg = rp * torch.clamp(torch.sqrt(cunsq), min=1e-6)
     up = (u + 0.2 * (u - u_other)).contiguous()
-    Kk = tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)[0]
+    T_, nx, B = xs.shape
     plain_iter = cuda_ms(lambda: tf.fused_newton_iter_plain(
         cp, xs, xT, u, bpt, reg), 3)
-    record = {
-        "fused_bwd": fused_bwd_times(cp, xs, xT, u, bpt, reg, plain_iter),
-        "fused_fwd": {
-            "ms": cuda_ms(lambda: tf.fused_fwd_launch(
-                cp, xs, xT, u, bpt, Kk), 20),
-            "plain_ms": plain_iter},
-        "rollout": {
-            "ms": cuda_ms(lambda: tf.rollout_packed(cp, u, x0), 20),
-            "plain_ms": cuda_ms(lambda: tf.rollout_plain(cp, u, x0), 3)},
-        "rollout_cost": {
-            "ms": cuda_ms(lambda: tf.rollout_cost_packed(cp, u, x0, bpt), 20),
-            "plain_ms": cuda_ms(lambda: tf.rollout_cost_plain(cp, u, x0, bpt),
-                                3)},
-        "transition": {
-            "ms": cuda_ms(lambda: tf.transition_packed(cp, u, up, x0, bpt),
-                          20),
-            "plain_ms": cuda_ms(lambda: tf.transition_plain(
-                cp, u, up, x0, bpt), 3)},
-    }
+    record = group_times(cp, xs, xT, u, up, x0, bpt, reg, plain_iter,
+                         cuda_ms(lambda: tf.transition_plain(
+                             cp, u, up, x0, bpt), 3))
+    record["rollout"] = {
+        "ms": cuda_ms(lambda: tf.rollout_packed(cp, u, x0), 20),
+        "plain_ms": cuda_ms(lambda: tf.rollout_plain(cp, u, x0), 3)}
+    record["rollout_cost"] = {
+        "ms": cuda_ms(lambda: tf.rollout_cost_packed(cp, u, x0, bpt), 20),
+        "plain_ms": cuda_ms(lambda: tf.rollout_cost_plain(cp, u, x0, bpt), 3)}
     f32 = [out[f"cartpole_float32_bp{bp}"] for bp in (0.1, 0.004)]
     for k in tf.KERNELS:
         record[k]["max_abs_err"] = max(o[k]["max_abs_err"] for o in f32)
     # Bounds at the timed shapes: bytes of each launch's inputs and outputs,
     # operations of its generated stage programs and Riccati steps.
-    T_, nx, B = xs.shape
     ops = program_ops(cp, nx, 1)
-    bwd_out = tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)
-    ios = {
-        "fused_bwd": ((xs, xT, u, bpt, reg), bwd_out,
-                      T_ * (ops["stage_bwd"] + riccati_ops(nx, 1))
-                      + ops["term"]),
-        "fused_fwd": ((xs, xT, u, bpt, Kk),
-                      tf.fused_fwd_launch(cp, xs, xT, u, bpt, Kk),
-                      T_ * ops["stage_fwd"] + ops["term_fwd"]),
-        "rollout": ((u, x0), tf.rollout_packed(cp, u, x0),
-                    T_ * ops["dynamics"]),
-        "rollout_cost": ((u, x0, bpt), tf.rollout_cost_packed(cp, u, x0, bpt),
-                         T_ * ops["roll_cost"] + ops["final_cost"]),
-        "transition": ((u, up, x0, bpt),
-                       tf.transition_packed(cp, u, up, x0, bpt),
-                       T_ * ops["transition"] + 2 * ops["final_cost"]),
+    Kk = tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)[0]
+    per_lane = {
+        "fused_bwd": T_ * (ops["stage_bwd"] + riccati_ops(nx, 1)) + ops["term"],
+        "fused_fwd": T_ * ops["stage_fwd"] + ops["term_fwd"],
+        "rollout": T_ * ops["dynamics"],
+        "rollout_cost": T_ * ops["roll_cost"] + ops["final_cost"],
+        "transition": T_ * ops["transition"] + 2 * ops["final_cost"],
     }
-    for k, (ins, outs, per_lane) in ios.items():
-        record[k].update(bound(nbytes(ins, outs), B * per_lane))
-    # The fused backward sweep in float64 too, on the same lanes.
-    ins64 = [a.double() for a in (xs, xT, u, bpt, reg)]
-    rec64 = fused_bwd_times(cp, *ins64, cuda_ms(
-        lambda: tf.fused_newton_iter_plain(cp, *ins64), 3))
-    rec64.update(bound(nbytes(ins64, tf.fused_bwd_launch(cp, *ins64)),
-                       B * ios["fused_bwd"][2], ops_per_s=PEAK_F64_OPS_PER_S))
-    out["timing_float64"] = {"fused_bwd": rec64}
+
+    def ios(xs, xT, u, bpt, reg, Kk):
+        return {
+            "fused_bwd": ((xs, xT, u, bpt, reg),
+                          tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)),
+            "fused_fwd": ((xs, xT, u, bpt, Kk),
+                          tf.fused_fwd_launch(cp, xs, xT, u, bpt, Kk)),
+            "rollout": ((u, x0), tf.rollout_packed(cp, u, x0)),
+            "rollout_cost": ((u, x0, bpt),
+                             tf.rollout_cost_packed(cp, u, x0, bpt)),
+            "transition": ((u, up, x0, bpt),
+                           tf.transition_packed(cp, u, up, x0, bpt)),
+        }
+
+    for k, (ins, outs) in ios(xs, xT, u, bpt, reg, Kk).items():
+        record[k].update(bound(nbytes(ins, outs), B * per_lane[k]))
+    # The group-schedule kernels in float64 too, on the same lanes.
+    xs, xT, u, up, x0, bpt, reg = (a.double() for a in (xs, xT, u, up, x0,
+                                                        bpt, reg))
+    rec64 = group_times(cp, xs, xT, u, up, x0, bpt, reg, cuda_ms(
+        lambda: tf.fused_newton_iter_plain(cp, xs, xT, u, bpt, reg), 3),
+        cuda_ms(lambda: tf.transition_plain(cp, u, up, x0, bpt), 3))
+    Kk = tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)[0]
+    io64 = ios(xs, xT, u, bpt, reg, Kk)
+    for k in rec64:
+        rec64[k].update(bound(nbytes(*io64[k]), B * per_lane[k],
+                              ops_per_s=PEAK_F64_OPS_PER_S))
+    out["timing_float64"] = rec64
     out["timing"] = record
-    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (fused_bwd also "
-                           "float64), CUDA events around back-to-back calls; "
-                           "fused_bwd through its wrapper (ms) and its C "
-                           "entry on outputs allocated once (entry_ms), per "
-                           "stage at the median SM clock nvidia-smi "
-                           "reported; the plain time of fused_bwd and "
-                           "fused_fwd is the plain fused iteration, which "
+    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (fused_bwd, fused_fwd "
+                           "and transition also float64), CUDA events "
+                           "around back-to-back calls; fused_bwd, fused_fwd "
+                           "and transition through their wrappers (ms) and "
+                           "their C entries on outputs allocated once "
+                           "(entry_ms), per stage at the median SM clock "
+                           "nvidia-smi reported; the plain time of fused_bwd "
+                           "and fused_fwd is the plain fused iteration, which "
                            "covers both launches")
     out["errors"] = ("largest absolute error, and error / largest |plain|, "
                      "over each kernel's outputs")
@@ -1367,10 +1375,11 @@ def phase_fused_kernels(pool32, dev):
     return record
 
 
-def fused_bwd_times(ocp, xs, xT, u, bpt, reg, plain_ms):
-    """The fused backward sweep through its wrapper (ms) and through the
-    model library's C entry on outputs allocated once (entry_ms, also per
-    stage in SM cycles)."""
+def group_times(ocp, xs, xT, u, up, x0, bpt, reg, plain_iter, plain_trans):
+    """The three group-schedule kernels (fused_bwd, fused_fwd, transition)
+    through their wrappers (ms) and through the model library's C entries
+    on outputs allocated once (entry_ms, also per stage in SM cycles);
+    ``plain_iter`` and ``plain_trans`` are the plain versions' times."""
     import torch
 
     from ipoc_tpu_torch.ops import cuda
@@ -1378,24 +1387,39 @@ def fused_bwd_times(ocp, xs, xT, u, bpt, reg, plain_ms):
 
     T_, nx, B = xs.shape
     kw = dict(dtype=xs.dtype, device=xs.device)
-    outs = [torch.empty((T_, 1 + nx, B), **kw)] + [
-        torch.empty((B,), **kw) for _ in range(4)]
     lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(xs.dtype)
-    ins, outp = tf.pointers((xs, u, xT, bpt, reg)), tf.pointers(outs)
+    Kk = tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg)[0]
+    kernels = {
+        "fused_bwd": ((xs, u, xT, bpt, reg),
+                      [(T_, 1 + nx, B)] + [(B,)] * 4,
+                      lambda: tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg),
+                      plain_iter),
+        "fused_fwd": ((xs, u, xT, bpt, Kk),
+                      [(T_, 1, B), (T_, nx, B), (nx, B)] + [(B,)] * 3,
+                      lambda: tf.fused_fwd_launch(ocp, xs, xT, u, bpt, Kk),
+                      plain_iter),
+        "transition": ((u, up, x0, bpt),
+                       [(T_, nx, B)] * 2 + [(nx, B)] * 2 + [(B,)] * 4,
+                       lambda: tf.transition_packed(ocp, u, up, x0, bpt),
+                       plain_trans),
+    }
+    record = {}
+    for name, (ins, shapes, wrapper, plain_ms) in kernels.items():
+        outs = [torch.empty(s, **kw) for s in shapes]
+        ip, op = tf.pointers(ins), tf.pointers(outs)
+        fn = getattr(lib, f"ipoc_{name}")
 
-    def entry():
-        status = lib.ipoc_fused_bwd(code, ins, outp, B, T_,
-                                    torch.cuda.current_stream().cuda_stream)
-        check(status == 0, f"fused_bwd launch status {status}")
-        return outs
-    with SmClock() as clock:
-        busy(entry, 0.5)
-        rec = {"ms": cuda_ms(lambda: tf.fused_bwd_launch(ocp, xs, xT, u, bpt,
-                                                         reg), 50),
-               "entry_ms": cuda_ms(entry, 50)}
-    rec["entry"] = per_stage(rec["entry_ms"], T_, clock.mhz)
-    rec["plain_ms"] = plain_ms
-    return rec
+        def entry(fn=fn, ip=ip, op=op, name=name):
+            status = fn(code, ip, op, B, T_,
+                        torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"{name} launch status {status}")
+        with SmClock() as clock:
+            busy(entry, 0.5)
+            rec = {"ms": cuda_ms(wrapper, 50), "entry_ms": cuda_ms(entry, 50)}
+        rec["entry"] = per_stage(rec["entry_ms"], T_, clock.mhz)
+        rec["plain_ms"] = plain_ms
+        record[name] = rec
+    return record
 
 
 class counting:
@@ -2978,11 +3002,11 @@ def main(argv=None):
     kernels = {
         "seq_newton_trial": ("seq_newton.cu", "seq_newton_kernel.py:557"),
         "seq_costates": ("seq_newton.cu", "seq_newton_kernel.py:622"),
-        "fused_bwd": ("fused_iter.cuh", "fused_iter_kernel.py:1261"),
-        "fused_fwd": ("fused_iter.cuh", "fused_iter_kernel.py:1298"),
+        "fused_bwd": ("fused_bwd.h", "fused_iter_kernel.py:1261"),
+        "fused_fwd": ("fused_fwd.h", "fused_iter_kernel.py:1298"),
         "rollout": ("fused_iter.cuh", "fused_iter_kernel.py:1577"),
         "rollout_cost": ("fused_iter.cuh", "fused_iter_kernel.py:1956"),
-        "transition": ("fused_iter.cuh", "fused_iter_kernel.py:2053"),
+        "transition": ("transition.h", "fused_iter_kernel.py:2053"),
         "merged_trial": ("mega.cuh", "fused_iter_kernel.py:1206"),
         "mega": ("mega.cuh", "mega_kernel.py:1148"),
         "mega_streamed": ("mega.cuh", "mega_kernel.py:1240"),
@@ -3004,7 +3028,7 @@ def main(argv=None):
          "replaces": pallas + rep, "launches": counts.get(k),
          **{f: record.get(k, {}).get(f) for f in keys},
          # The C entry alone, where a phase timed it (seq_newton_trial,
-         # fused_bwd, par_newton_trial).
+         # fused_bwd, fused_fwd, transition, par_newton_trial).
          **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})}}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-// The fused lane evaluators' five kernels for Hopper (sm_90a), one thread
-// per scenario, templated on a generated model.
+// The fused lane evaluators' five kernels for Hopper (sm_90a), templated
+// on a generated model.
 //
 // Replaces, from ipoc_tpu/ops/pallas/fused_iter_kernel.py:
 //   * fused_bwd_kernel     <- _fused_bwd_kernel (:1261): in-kernel stage
@@ -64,14 +64,35 @@
 //   slice is 136 scalars and the handoff 2 x 8 x NH; its registers are not
 //   measured (no such model yet).
 //
-// The other four kernels run one thread per scenario.  What bounds them:
+// fused_fwd_kernel and transition_kernel: one warp per block, 4 scenarios
+// of 8 lanes, the schedules of fused_fwd.h and transition.h (host and
+// device; the CPU tests build them with g++).
+//   What bounded the one-thread kernels they replace: one warp per SM at
+//   B = 4096 running the whole stage program on the serial chain, loads
+//   included, some 1,590 and 1,640 cycles per stage in float32 (3,730 and
+//   3,910 in float64) on an H100 (700 W).
+//   What the designs do: the evaluation of each stage (the cost, the
+//   constraint maximum and ||cu||^2, with its logs, rem and divisions)
+//   leaves the chain, cut by the codegen at the trial point (#6) or per
+//   candidate (#12) and spread one stage a lane, a chunk behind; the
+//   loads come through a cp.async ring as runs of the block's columns;
+//   #12 runs its two candidates on the two halves of the group.  The
+//   chain keeps all of its own arithmetic (#6: stage_fwd_step with the
+//   dynamics' Jacobian, only sin and cos handed off; #12: the dynamics),
+//   so both equal the one-thread kernels to the bit at cartpole: a #6
+//   that also handed off the Jacobian's arithmetic ran 0.041 ms in
+//   float32 but rounded apart (PERF.md section 5).  C entry at B = 4096,
+//   T = 100: #6 0.080 -> 0.064 ms in float32 (0.188 -> 0.119 in float64),
+//   #12 0.083 -> 0.057 (0.200 -> 0.088).  Registers, shared memory and
+//   resident blocks per SM: chip_smoke.py phase 0.
+//
+// The other two kernels run one thread per scenario.  What bounds them:
 // latency, not bytes.  At B = 4096 each is one serial loop of T dependent
 // stages per thread with 128 warps on the card, about one warp per SM, so
 // nothing hides the latency of a stage's arithmetic chain or of its loads.
-// Per stage a thread moves about 10 values (x, u, the gains, the outputs):
-// some 16 MB per Newton iteration in float32 over the three per-iteration
-// launches, far below what the memory could stream in the time.  The
-// resident mega kernel (mega.cuh) fuses the iteration's launches.
+// Per stage a thread moves a few values (x, u, the outputs), far below
+// what the memory could stream in the time.  The resident mega kernel
+// (mega.cuh) fuses a lane iteration's launches.
 
 #pragma once
 
@@ -79,10 +100,12 @@
 #include <math.h>
 
 #include "fused_bwd.h"
+#include "fused_fwd.h"
 #include "launch_attr.cuh"
 #include "lane.h"  // load_col, store_col
 #include "riccati.cuh"
 #include "scalar_math.h"
+#include "transition.h"
 
 namespace ipoc {
 
@@ -114,9 +137,9 @@ fused_bwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B) stages 0..T-1
 }
 
 // Deviation rollout fused with the trial's cost, maximum constraint value
-// and sum ||cu||^2 at the trial point.
+// and sum ||cu||^2 at the trial point (fused_fwd.h).
 template <typename Model, typename scalar_t>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRowWarp)
 fused_fwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
                  const scalar_t* __restrict__ us,   // (T, NU, B)
                  const scalar_t* __restrict__ xT,   // (NX, B)
@@ -129,38 +152,15 @@ fused_fwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
                  scalar_t* __restrict__ mc_o,       // (B,) max constraint value
                  scalar_t* __restrict__ cun_o,      // (B,) sum ||cu||^2 at the trial
                  int B, int T) {
-  constexpr int NX = Model::NX, NU = Model::NU, NG = (1 + NX) * NU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const scalar_t bpv = bp[b];
-  scalar_t dx[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) dx[i] = scalar_t(0);
-  scalar_t cost = scalar_t(0), mc = -scalar_t(INFINITY), cun = scalar_t(0);
-
-  for (int t = 0; t < T; ++t) {
-    scalar_t x[NX], u[NU], g[NG];
-    load_col<scalar_t, NX>(x, xs + (size_t)t * NX * B, B, b);
-    load_col<scalar_t, NU>(u, us + (size_t)t * NU * B, B, b);
-    load_col<scalar_t, NG>(g, Kk + (size_t)t * NG * B, B, b);
-    scalar_t tu[NU], tx[NX], dxn[NX], cst, cmax, cusq;
-    Model::template stage_fwd<scalar_t>(x, u, &bpv, dx, g, tu, tx, dxn, &cst,
-                                        &cmax, &cusq);
-    store_col<scalar_t, NU>(tu_o + (size_t)t * NU * B, tu, B, b);
-    store_col<scalar_t, NX>(tx_o + (size_t)t * NX * B, tx, B, b);
-    cost = cost + cst;
-    mc = ipoc_max(mc, cmax);
-    cun = cun + cusq;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) dx[i] = dxn[i];
-  }
-  scalar_t x[NX], txT[NX], cT;
-  load_col<scalar_t, NX>(x, xT, B, b);
-  Model::template term_fwd<scalar_t>(x, dx, txT, &cT);
-  store_col<scalar_t, NX>(txT_o, txT, B, b);
-  nc_o[b] = cost + cT;
-  mc_o[b] = mc;
-  cun_o[b] = cun;
+  using F = FusedFwd<Model, scalar_t>;
+  __shared__ __align__(16) scalar_t sh[F::kShared];
+  typename F::Lane lane;
+  lane.s = static_cast<int>(threadIdx.x) / F::G;
+  lane.r = static_cast<int>(threadIdx.x) % F::G;
+  const auto k = F::block(xs, us, Kk, tu_o, tx_o, B, T,
+                          static_cast<int>(blockIdx.x), sh);
+  WarpExec<typename F::Lane> ex{lane};
+  F::schedule(ex, k, xT, bp, txT_o, nc_o, mc_o, cun_o);
 }
 
 // Open-loop rollout x_{t+1} = f(x_t, u_t), x kept in registers.  Bound by
@@ -225,9 +225,10 @@ rollout_cost_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
 }
 
 // The stage-predictor transition: rollouts of u (candidate a) and of the
-// prediction up (candidate b) with their barrier costs and sum ||cu||^2.
+// prediction up (candidate b) with their barrier costs and sum ||cu||^2
+// (transition.h).
 template <typename Model, typename scalar_t>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRowWarp)
 transition_kernel(const scalar_t* __restrict__ us,   // (T, NU, B)
                   const scalar_t* __restrict__ ups,  // (T, NU, B)
                   const scalar_t* __restrict__ x0,   // (NX, B)
@@ -241,43 +242,15 @@ transition_kernel(const scalar_t* __restrict__ us,   // (T, NU, B)
                   scalar_t* __restrict__ cua_o,      // (B,)
                   scalar_t* __restrict__ cub_o,      // (B,)
                   int B, int T) {
-  constexpr int NX = Model::NX, NU = Model::NU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const scalar_t bpv = bp[b];
-  scalar_t xa[NX], xb[NX];
-  load_col<scalar_t, NX>(xa, x0, B, b);
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xb[i] = xa[i];
-  scalar_t ca = scalar_t(0), cb = scalar_t(0), cua = scalar_t(0),
-           cub = scalar_t(0);
-  for (int t = 0; t < T; ++t) {
-    scalar_t u[NU], up[NU], xan[NX], xbn[NX], csta, cstb, cusqa, cusqb;
-    load_col<scalar_t, NU>(u, us + (size_t)t * NU * B, B, b);
-    load_col<scalar_t, NU>(up, ups + (size_t)t * NU * B, B, b);
-    store_col<scalar_t, NX>(xa_o + (size_t)t * NX * B, xa, B, b);
-    store_col<scalar_t, NX>(xb_o + (size_t)t * NX * B, xb, B, b);
-    Model::template transition<scalar_t>(xa, xb, u, up, &bpv, xan, xbn, &csta,
-                                         &cstb, &cusqa, &cusqb);
-    ca = ca + csta;
-    cb = cb + cstb;
-    cua = cua + cusqa;
-    cub = cub + cusqb;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      xa[i] = xan[i];
-      xb[i] = xbn[i];
-    }
-  }
-  scalar_t cTa, cTb;
-  Model::template final_cost<scalar_t>(xa, &cTa);
-  Model::template final_cost<scalar_t>(xb, &cTb);
-  store_col<scalar_t, NX>(xaT_o, xa, B, b);
-  store_col<scalar_t, NX>(xbT_o, xb, B, b);
-  ca_o[b] = ca + cTa;
-  cb_o[b] = cb + cTb;
-  cua_o[b] = cua;
-  cub_o[b] = cub;
+  using Tr = Transition<Model, scalar_t>;
+  __shared__ __align__(16) scalar_t sh[Tr::kShared];
+  typename Tr::Lane lane;
+  lane.s = static_cast<int>(threadIdx.x) / Tr::G;
+  lane.r = static_cast<int>(threadIdx.x) % Tr::G;
+  const auto k = Tr::block(us, ups, xa_o, xb_o, B, T,
+                           static_cast<int>(blockIdx.x), sh);
+  WarpExec<typename Tr::Lane> ex{lane};
+  Tr::schedule(ex, k, x0, bp, xaT_o, xbT_o, ca_o, cb_o, cua_o, cub_o);
 }
 
 inline int fused_blocks(int B) { return (B + kFusedThreads - 1) / kFusedThreads; }
@@ -299,7 +272,8 @@ template <typename Model, typename scalar_t>
 int launch_fused_fwd(const void* const* in, void* const* out, int B, int T,
                      cudaStream_t s) {
   using P = const scalar_t*;
-  fused_fwd_kernel<Model, scalar_t><<<fused_blocks(B), kFusedThreads, 0, s>>>(
+  fused_fwd_kernel<Model, scalar_t>
+      <<<FusedFwd<Model, scalar_t>::blocks(B), kRowWarp, 0, s>>>(
       P(in[0]), P(in[1]), P(in[2]), P(in[3]), P(in[4]),
       static_cast<scalar_t*>(out[0]), static_cast<scalar_t*>(out[1]),
       static_cast<scalar_t*>(out[2]), static_cast<scalar_t*>(out[3]),
@@ -333,7 +307,8 @@ template <typename Model, typename scalar_t>
 int launch_transition(const void* const* in, void* const* out, int B, int T,
                       cudaStream_t s) {
   using P = const scalar_t*;
-  transition_kernel<Model, scalar_t><<<fused_blocks(B), kFusedThreads, 0, s>>>(
+  transition_kernel<Model, scalar_t>
+      <<<Transition<Model, scalar_t>::blocks(B), kRowWarp, 0, s>>>(
       P(in[0]), P(in[1]), P(in[2]), P(in[3]), static_cast<scalar_t*>(out[0]),
       static_cast<scalar_t*>(out[1]), static_cast<scalar_t*>(out[2]),
       static_cast<scalar_t*>(out[3]), static_cast<scalar_t*>(out[4]),
@@ -358,18 +333,19 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
     return -1;                                                              \
   }
 
-// The card's view of the model's fused_bwd_kernel (dtype 0 float32, 1
-// float64; launch_attr.cuh kernel_occupancy).
-#define IPOC_FUSED_BWD_OCCUPANCY(MODEL)                                      \
+// The card's view of one of the model's group-schedule kernels, NAME
+// (dtype 0 float32, 1 float64; launch_attr.cuh kernel_occupancy): KERNEL
+// launched in one-warp blocks of SCHED's S scenarios.
+#define IPOC_FUSED_OCCUPANCY(NAME, KERNEL, SCHED, MODEL)                      \
   template <typename scalar_t>                                               \
-  int ipoc_fused_bwd_occupancy_t(int* out) {                                 \
-    return ipoc::kernel_occupancy(ipoc::fused_bwd_kernel<MODEL, scalar_t>,   \
+  int NAME##_t(int* out) {                                                   \
+    return ipoc::kernel_occupancy(ipoc::KERNEL<MODEL, scalar_t>,             \
                                   ipoc::kRowWarp, 0,                         \
-                                  ipoc::FusedBwd<MODEL, scalar_t>::S, out);  \
+                                  ipoc::SCHED<MODEL, scalar_t>::S, out);     \
   }                                                                          \
-  extern "C" int ipoc_fused_bwd_occupancy(int dtype, int* out) {             \
-    if (dtype == 0) return ipoc_fused_bwd_occupancy_t<float>(out);           \
-    if (dtype == 1) return ipoc_fused_bwd_occupancy_t<double>(out);          \
+  extern "C" int NAME(int dtype, int* out) {                                 \
+    if (dtype == 0) return NAME##_t<float>(out);                             \
+    if (dtype == 1) return NAME##_t<double>(out);                            \
     return -1;                                                               \
   }
 
@@ -382,6 +358,11 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
   IPOC_FUSED_ENTRY(ipoc_rollout, launch_rollout, MODEL)                \
   IPOC_FUSED_ENTRY(ipoc_rollout_cost, launch_rollout_cost, MODEL)      \
   IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)          \
-  IPOC_FUSED_BWD_OCCUPANCY(MODEL)                                      \
+  IPOC_FUSED_OCCUPANCY(ipoc_fused_bwd_occupancy, fused_bwd_kernel,     \
+                       FusedBwd, MODEL)                                \
+  IPOC_FUSED_OCCUPANCY(ipoc_fused_fwd_occupancy, fused_fwd_kernel,     \
+                       FusedFwd, MODEL)                                \
+  IPOC_FUSED_OCCUPANCY(ipoc_transition_occupancy, transition_kernel,   \
+                       Transition, MODEL)                              \
   IPOC_MERGED_ENTRY(MODEL)                                             \
   IPOC_MEGA_ENTRY(MODEL)

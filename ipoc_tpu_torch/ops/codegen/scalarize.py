@@ -659,30 +659,34 @@ class ScalarProgram:
         lines.append("}")
         return "\n".join(indent + ln for ln in lines)
 
-    def split(self, arg: int, names=("pre", "post")):
+    def split(self, arg: int, names=("pre", "post"), outputs=None):
         """Split the program at input ``arg``: ``(pre, post)``, two programs
-        that compute this one's DAG.
+        that compute this one's DAG (its outputs ``outputs``, by default
+        all of them).
 
         ``pre`` takes every input but ``arg`` and returns one vector, the
-        handoff values: the calls of elementary functions (``ELEMENTARY_CALLS``:
-        sin, cos, log, rem, ...) that do not depend on ``arg`` and that
-        ``post`` reads, and the inputs it reads.  ``post`` takes
-        ``(handoff, arg)`` and computes everything else that the outputs
-        need, the arithmetic that does not depend on ``arg`` included.
-        So the arithmetic reaches the compiler in one piece, as in the
-        whole program: ``nvcc`` contracts a product into the sum that
-        reads it (an FMA, one rounding) where it sees both, and handing
-        off arithmetic values changed which products it contracted.
-        Every node keeps its operation and operands, so ``post(pre(...),
-        a)`` is this program's result to the bit (a boolean handoff value
-        goes through ``scalar_t`` as 0 or 1)."""
+        handoff values: the calls of elementary functions
+        (``ELEMENTARY_CALLS``: sin, cos, log, rem, ...) that do not depend
+        on ``arg`` and that ``post`` reads, and the inputs it reads.
+        ``post`` takes ``(handoff, arg)`` and computes everything else
+        that the outputs need, the arithmetic that does not depend on
+        ``arg`` included.  So the arithmetic reaches the compiler in one
+        piece, as in the whole program: ``nvcc`` contracts a product into
+        the sum that reads it (an FMA, one rounding) where it sees both,
+        and folds a negation into a product, as it sees them; handing off
+        arithmetic values changed which products it contracted.  Every
+        node keeps its operation and operands, so ``post(pre(...), a)`` is
+        this program's result to the bit (a boolean handoff value goes
+        through ``scalar_t`` as 0 or 1)."""
+        sel = range(len(self.outs)) if outputs is None else list(outputs)
         dep = {}
         for nd in self.order:
             dep[id(nd)] = (nd.args[0] == arg if nd.op == "input" else
                            any(dep[id(a)] for a in nd.args
                                if isinstance(a, Node)))
-        outs = {id(e): e for arr in self.outs for e in arr.reshape(-1)
+        outs = {id(e): e for i in sel for e in self.outs[i].reshape(-1)
                 if isinstance(e, Node)}
+        needed = _reach(outs.values())
         readers = {}
         for nd in self.order:
             for a in nd.args:
@@ -692,7 +696,7 @@ class ScalarProgram:
         # readers come after it).
         post = set()
         for nd in reversed(self.order):
-            if nd.op == "input":
+            if nd.op == "input" or id(nd) not in needed:
                 continue
             if dep[id(nd)] or nd.op not in ELEMENTARY_CALLS and (id(nd) in outs or any(
                     id(r) in post for r in readers.get(id(nd), ()))):
@@ -709,27 +713,6 @@ class ScalarProgram:
                 hand[id(e)] = e
         handoff = sorted(hand.values(), key=lambda nd: nd.order)
 
-        def rebuild(roots, leaf):
-            """New nodes for everything ``roots`` reach, in creation order;
-            ``leaf(nd)`` gives the new node of an old input or handoff
-            node, or None to rebuild it from its operands."""
-            new = {}
-            stack = list(roots)
-            seen = {}
-            while stack:
-                nd = stack.pop()
-                if id(nd) in seen:
-                    continue
-                seen[id(nd)] = nd
-                if leaf(nd) is None:
-                    stack.extend(a for a in nd.args if isinstance(a, Node))
-            for nd in sorted(seen.values(), key=lambda nd: nd.order):
-                got = leaf(nd)
-                new[id(nd)] = got if got is not None else Node(
-                    nd.op, tuple(new[id(a)] if isinstance(a, Node) else a
-                                 for a in nd.args), nd.order)
-            return new
-
         n = len(handoff)
         keep = [i for i in range(len(self.in_shapes)) if i != arg]
 
@@ -739,7 +722,7 @@ class ScalarProgram:
                             nd.order)
             return None
 
-        pre_new = rebuild(handoff, pre_leaf)
+        pre_new = _rebuild(handoff, pre_leaf)
         pre_out = np.empty((n,), dtype=object)
         for k, nd in enumerate(handoff):
             pre_out[k] = pre_new[id(nd)]
@@ -757,39 +740,58 @@ class ScalarProgram:
                 return Node("input", (1, nd.args[1]), nd.order)
             return None
 
-        roots = [e for arr in self.outs for e in arr.reshape(-1)
-                 if isinstance(e, Node)]
-        post_new = rebuild(roots, post_leaf)
-        post_outs = []
-        for arr in self.outs:
-            out = np.empty(arr.shape, dtype=object)
-            for idx in np.ndindex(arr.shape):
-                e = arr[idx]
-                out[idx] = post_new[id(e)] if isinstance(e, Node) else e
-            post_outs.append(out)
-
-        def program(name, in_shapes, outs):
-            # Reachable nodes in creation order, inputs included (the handoff
-            # inputs of post, and their boolean views, sort first).
-            order = []
-            seen = set()
-            stack = [e for arr in outs for e in arr.reshape(-1)
-                     if isinstance(e, Node)]
-            while stack:
-                nd = stack.pop()
-                if id(nd) in seen:
-                    continue
-                seen.add(id(nd))
-                order.append(nd)
-                stack.extend(a for a in nd.args if isinstance(a, Node))
-            order.sort(key=lambda nd: nd.order)
-            stats = {"ops": sum(1 for nd in order if nd.op != "input")}
-            return ScalarProgram(name, in_shapes, [tuple(o.shape) for o in outs],
-                                 outs, order, stats)
-
-        pre = program(names[0], [self.in_shapes[i] for i in keep], [pre_out])
-        post = program(names[1], [(n,), self.in_shapes[arg]], post_outs)
+        post_new = _rebuild(outs.values(), post_leaf)
+        pre = _program(names[0], [self.in_shapes[i] for i in keep], [pre_out])
+        post = _program(names[1], [(n,), self.in_shapes[arg]],
+                        [_mapped(self.outs[i], post_new) for i in sel])
         return pre, post
+
+    def cut(self, inputs, outputs, name, factor=()):
+        """The part of the program that computes ``outputs`` (indices of its
+        outputs) from ``inputs``, as a program of its own.
+
+        ``inputs`` lists the new program's arguments in order, each
+        ``("in", k)`` (this program's input k) or ``("out", k)`` (its output
+        k: the cut starts at those values, as from an earlier part's
+        results).  Raises ``ValueError`` where an output reads an input of
+        this program that ``inputs`` does not list.  Each output in
+        ``factor`` (0-d) comes out as the pair ``(a, b)`` with ``a * b``
+        its value: the operands of a product, else ``(value, 1)``; a sum
+        of such values then contracts into FMAs where the whole program's
+        did.  Every node keeps its operation and operands."""
+        leaf = {}
+        for pos, (kind, k) in enumerate(inputs):
+            if kind == "out":
+                for j, e in enumerate(self.outs[k].reshape(-1)):
+                    if isinstance(e, Node) and id(e) not in leaf:
+                        leaf[id(e)] = (pos, j)
+            else:
+                for nd in self.order:
+                    if nd.op == "input" and nd.args[0] == k:
+                        leaf[id(nd)] = (pos, nd.args[1])
+        in_shapes = [self.out_shapes[k] if kind == "out" else self.in_shapes[k]
+                     for kind, k in inputs]
+
+        def new_leaf(nd):
+            if id(nd) in leaf:
+                return Node("input", leaf[id(nd)], nd.order)
+            if nd.op == "input":
+                raise ValueError(
+                    f"cut of {self.name}: outputs {list(outputs)} read input "
+                    f"{nd.args[0]}, which the cut's inputs {list(inputs)} "
+                    "do not hold")
+            return None
+
+        roots = [e for k in outputs for e in self.outs[k].reshape(-1)
+                 if isinstance(e, Node)]
+        new = _rebuild(roots, new_leaf)
+        outs = []
+        for k in outputs:
+            arr = _mapped(self.outs[k], new)
+            if k in factor:
+                arr = _factor(arr.item())
+            outs.append(arr)
+        return _program(name, in_shapes, outs)
 
     def evaluate(self, *args):
         """Evaluate the DAG with torch on batch-last tensors: argument ``i``
@@ -821,6 +823,105 @@ class ScalarProgram:
                        else torch.empty((0, B), dtype=dtype, device=device))
             outs.append(stacked.reshape(tuple(shape) + (B,)))
         return tuple(outs)
+
+
+def _reach(roots):
+    """``id -> node`` of every node that ``roots`` reach."""
+    seen = {}
+    stack = list(roots)
+    while stack:
+        nd = stack.pop()
+        if id(nd) in seen:
+            continue
+        seen[id(nd)] = nd
+        stack.extend(a for a in nd.args if isinstance(a, Node))
+    return seen
+
+
+def _rebuild(roots, leaf):
+    """New nodes for everything ``roots`` reach, in creation order;
+    ``leaf(nd)`` gives the new node of an old input or handoff node, or
+    None to rebuild it from its operands."""
+    new = {}
+    stack = list(roots)
+    seen = {}
+    while stack:
+        nd = stack.pop()
+        if id(nd) in seen:
+            continue
+        seen[id(nd)] = nd
+        if leaf(nd) is None:
+            stack.extend(a for a in nd.args if isinstance(a, Node))
+    for nd in sorted(seen.values(), key=lambda nd: nd.order):
+        got = leaf(nd)
+        new[id(nd)] = got if got is not None else Node(
+            nd.op, tuple(new[id(a)] if isinstance(a, Node) else a
+                         for a in nd.args), nd.order)
+    return new
+
+
+def _mapped(arr, new):
+    """``arr`` (an object array of nodes and constants) with each node
+    replaced by ``new[id(node)]``."""
+    out = np.empty(arr.shape, dtype=object)
+    for idx in np.ndindex(arr.shape):
+        e = arr[idx]
+        out[idx] = new[id(e)] if isinstance(e, Node) else e
+    return out
+
+
+def _factor(e):
+    """The pair ``(a, b)`` with ``a * b == e`` exactly (see
+    :meth:`ScalarProgram.cut`)."""
+    out = np.empty((2,), dtype=object)
+    if isinstance(e, Node) and e.op == "mul":
+        out[0], out[1] = e.args
+    else:
+        out[0], out[1] = e, 1.0
+    return out
+
+
+def _program(name, in_shapes, outs):
+    """A program of the nodes that ``outs`` reach, in creation order,
+    inputs included (the handoff inputs of a split's post, and their
+    boolean views, sort first)."""
+    order = sorted(_reach(e for arr in outs for e in arr.reshape(-1)
+                          if isinstance(e, Node)).values(),
+                   key=lambda nd: nd.order)
+    stats = {"ops": sum(1 for nd in order if nd.op != "input")}
+    return ScalarProgram(name, [tuple(s) for s in in_shapes],
+                         [tuple(o.shape) for o in outs], outs, order, stats)
+
+
+def same_program(p: "ScalarProgram", q: "ScalarProgram") -> bool:
+    """Whether ``p`` and ``q`` compute their outputs with the same
+    operations on the same operands (the same DAG up to node identity)."""
+    if p.in_shapes != q.in_shapes or p.out_shapes != q.out_shapes:
+        return False
+    pair = {}
+    stack = [(a, b) for x, y in zip(p.outs, q.outs)
+             for a, b in zip(x.reshape(-1), y.reshape(-1))]
+    while stack:
+        a, b = stack.pop()
+        if isinstance(a, Node) != isinstance(b, Node):
+            return False
+        if not isinstance(a, Node):
+            if _ckey(a) != _ckey(b):
+                return False
+            continue
+        if id(a) in pair:
+            if pair[id(a)] is not b:
+                return False
+            continue
+        pair[id(a)] = b
+        if a.op != b.op or len(a.args) != len(b.args):
+            return False
+        if a.op == "input":
+            if a.args != b.args:
+                return False
+            continue
+        stack.extend(zip(a.args, b.args))
+    return True
 
 
 def trace(fn, example_args):

@@ -19,6 +19,7 @@ raises.  Each wrapper counts its launches in :data:`launches`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -218,6 +219,15 @@ def check(status: int, kernel: str) -> None:
         raise NotImplementedError(f"{kernel}: no instantiation for this shape")
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA error {status} at launch")
+
+
+def device_guard(device: torch.device):
+    """A context that makes the card ``device`` current for a launch: a
+    no-op where it is current already (entering a device guard costs a
+    few microseconds of host time a launch)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def on_cpu(name: str, *tensors) -> bool:

@@ -27,8 +27,11 @@ Their per-stage code is generated from the model: the stage programs below
 are written with ``torch.func`` on one element (shapes ``(nx,)``, ``(nu,)``,
 ``()``), and ``ops/codegen/scalarize.py`` lowers each to a straight-line
 function of a generated ``Model`` struct; ``fused_bwd`` runs ``stage_bwd``
-split at the costate into its two halves (:func:`backward_halves`).  One library per model is built
-from that text (:func:`model_spec`), with one ``nvcc`` call.
+split at the costate into its two halves (:func:`backward_halves`),
+``fused_fwd`` runs ``stage_fwd`` cut at the deviation and at the trial
+point into three parts (:func:`forward_parts`), ``transition`` runs
+``transition`` cut per candidate (:func:`transition_parts`).  One library
+per model is built from that text (:func:`model_spec`).
 
 Layout (the packed stream's, batch-last): stage arrays ``(T, rows, B)``,
 terminal and initial states ``(nx, B)``, per-lane scalars ``(B,)``.  Each
@@ -47,7 +50,7 @@ import torch
 from torch.func import grad, vjp
 
 from ipoc_tpu_torch.ops import cuda
-from ipoc_tpu_torch.ops.codegen.scalarize import scalarize
+from ipoc_tpu_torch.ops.codegen.scalarize import same_program, scalarize
 from ipoc_tpu_torch.ops.cuda.seq_newton import (
     seq_costates_plain,
     seq_trial_pivot_plain,
@@ -259,16 +262,65 @@ def backward_halves(ocp: OCP, nx: int, nu: int) -> tuple:
     return _HALVES[key]
 
 
+def forward_parts(ocp: OCP, nx: int, nu: int) -> tuple:
+    """The fused forward kernel's three parts of ``stage_fwd``
+    (``csrc/fused_fwd.h``): ``stage_fwd_pre``, the elementary-function
+    calls that do not read the deviation (``ScalarProgram.split`` at
+    argument 3, as :func:`backward_halves`); ``stage_fwd_step``, the trial
+    point and the next deviation from pre's handoff values and the
+    deviation, all of their arithmetic; and ``stage_fwd_eval``, the trial
+    point's cost, maximum constraint value and ``||cu||^2`` from the trial
+    state, control and ``bp`` (the program cut at its outputs ``tu`` and
+    ``tx``), each summand as the pair of operands whose product it is."""
+    key = (ocp, nx, nu, "fwd")
+    if key not in _HALVES:
+        prog = scalar_programs(ocp, nx, nu)["stage_fwd"]
+        pre, step = prog.split(3, ("stage_fwd_pre", "stage_fwd_step"),
+                               outputs=(0, 1, 2))
+        ev = prog.cut([("out", 1), ("out", 0), ("in", 2)], (3, 4, 5),
+                      "stage_fwd_eval", factor=(3, 5))
+        _HALVES[key] = pre, step, ev
+    return _HALVES[key]
+
+
+def transition_parts(ocp: OCP, nx: int, nu: int) -> tuple:
+    """The transition kernel's per-candidate parts of ``transition``
+    (``csrc/transition.h``), cut at candidate a's inputs:
+    ``transition_step(x, u) -> x_next`` and ``transition_eval(x, u, bp)
+    -> (cost, ||cu||^2)``, each summand as the pair of operands whose
+    product it is.  Raises ``ValueError`` unless candidate b's parts are
+    the same programs, so that both candidates run the same code."""
+    key = (ocp, nx, nu, "transition")
+    if key not in _HALVES:
+        prog = scalar_programs(ocp, nx, nu)["transition"]
+        parts = []
+        for x, u, out, cost, cu in ((0, 2, 0, 2, 4), (1, 3, 1, 3, 5)):
+            parts.append((
+                prog.cut([("in", x), ("in", u)], (out,), "transition_step"),
+                prog.cut([("in", x), ("in", u), ("in", 4)], (cost, cu),
+                         "transition_eval", factor=(cost, cu))))
+        for a, b in zip(*parts):
+            if not same_program(a, b):
+                raise ValueError(f"transition: candidate b's {b.name} is "
+                                 "not candidate a's program")
+        _HALVES[key] = parts[0]
+    return _HALVES[key]
+
+
 def model_struct(ocp: OCP, nx: int, nu: int) -> str:
-    """The generated ``struct Model``: the shapes, the handoff count of
-    ``stage_bwd_pre`` and every scalarized stage program."""
+    """The generated ``struct Model``: the shapes, the handoff counts of
+    ``stage_bwd_pre`` (NH) and ``stage_fwd_pre`` (NHF), every scalarized
+    stage program and the parts of those that the kernels split."""
     pre, post = backward_halves(ocp, nx, nu)
-    progs = [*scalar_programs(ocp, nx, nu).values(), pre, post]
+    fwd = forward_parts(ocp, nx, nu)
+    progs = [*scalar_programs(ocp, nx, nu).values(), pre, post, *fwd,
+             *transition_parts(ocp, nx, nu)]
     body = "\n\n".join(p.c_source(indent="  ") for p in progs)
     return ("struct Model {\n"
             f"  static constexpr int NX = {nx};\n"
             f"  static constexpr int NU = {nu};\n"
-            f"  static constexpr int NH = {pre.out_shapes[0][0]};\n\n"
+            f"  static constexpr int NH = {pre.out_shapes[0][0]};\n"
+            f"  static constexpr int NHF = {fwd[0].out_shapes[0][0]};\n\n"
             f"{body}\n"
             "};\n")
 
@@ -297,6 +349,9 @@ _LIBS: dict = {}
 # stream); the merged trial and the mega kernel (``ops/mega.py``) take a
 # mode and more.
 KERNELS = ("fused_bwd", "fused_fwd", "rollout", "rollout_cost", "transition")
+# The kernels that spread a scenario over a group of lanes (csrc/fused_bwd.h,
+# fused_fwd.h, transition.h), each with an occupancy entry.
+GROUP_KERNELS = ("fused_bwd", "fused_fwd", "transition")
 
 
 def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
@@ -316,20 +371,22 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
         lib.ipoc_mega.restype = i
         lib.ipoc_ring_layout.argtypes = [i, p]
         lib.ipoc_ring_layout.restype = i
-        lib.ipoc_fused_bwd_occupancy.argtypes = [i, p]
-        lib.ipoc_fused_bwd_occupancy.restype = i
+        for name in GROUP_KERNELS:
+            fn = getattr(lib, f"ipoc_{name}_occupancy")
+            fn.argtypes = [i, p]
+            fn.restype = i
         _LIBS[key] = lib
     return _LIBS[key]
 
 
-def fused_bwd_occupancy(ocp: OCP, nx: int, nu: int,
-                        dtype: torch.dtype) -> dict:
-    """The card's view of one model's ``fused_bwd_kernel``: resident blocks
-    per SM, threads, shared bytes and scenarios per block, registers and
-    local (spill) bytes per thread."""
+def group_occupancy(ocp: OCP, nx: int, nu: int, dtype: torch.dtype,
+                    kernel: str) -> dict:
+    """The card's view of one of the model's group-schedule kernels
+    (``GROUP_KERNELS``): resident blocks per SM, threads, shared bytes and
+    scenarios per block, registers and local (spill) bytes per thread."""
     out = (ctypes.c_int * 6)()
-    cuda.check(library(ocp, nx, nu).ipoc_fused_bwd_occupancy(
-        cuda.dtype_code(dtype), out), "fused_bwd_occupancy")
+    cuda.check(getattr(library(ocp, nx, nu), f"ipoc_{kernel}_occupancy")(
+        cuda.dtype_code(dtype), out), f"{kernel}_occupancy")
     return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
@@ -341,21 +398,24 @@ def pointers(tensors):
 def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu, mode=None):
     """Check the inputs, allocate the outputs and launch kernel ``name``;
     ``ins[0]`` is a stage array ``(T, rows, B)``.  ``mode`` (0 Newton, 1
-    DDP) goes to an entry point that takes one."""
+    DDP) goes to an entry point that takes one.  This host work paces
+    back-to-back launches of the shorter kernels (some 70 us a call on an
+    H100's host, 30 of them the output tensors), so it takes no device
+    guard where the tensors' card is current already."""
     code = cuda.check_inputs(name, ins, in_shapes)
-    if ins[0].device.type != "cuda":
+    dev = ins[0].device
+    if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes tensors on a card")
-    kw = dict(dtype=ins[0].dtype, device=ins[0].device)
-    outs = [torch.empty(s, **kw) for s in out_shapes]
+    outs = [ins[0].new_empty(s) for s in out_shapes]
     T, B = ins[0].shape[0], ins[0].shape[-1]
     if B == 0:
         return tuple(outs)
     lib = library(ocp, nx, nu)
     lead = (code,) if mode is None else (code, mode)
-    with torch.cuda.device(ins[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, f"ipoc_{name}")(*lead, pointers(ins),
-                                              pointers(outs), B, T, stream)
+    with cuda.device_guard(dev):
+        status = getattr(lib, f"ipoc_{name}")(
+            *lead, pointers(ins), pointers(outs), B, T,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(status, name)
     cuda.launches[name] += 1
     return tuple(outs)

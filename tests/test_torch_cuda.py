@@ -19,7 +19,8 @@ contraction, and the backward sweep carries rounding through T Riccati
 steps), equal NaN and inf entries, ok flags equal; the seq trial and the
 fused kernels at B=64, T=40 and at every B of {1, 33, 4096} with every T
 of {1, 7, 100, 1000} (each scenario a group of lanes there), the seq
-trial also on inputs off a 16-byte boundary (bit-equal to aligned ones); the merged trial
+trial, the forward sweep and the transition also on inputs off a 16-byte
+boundary (bit-equal to aligned ones); the merged trial
 (``merged_trial``, Newton and DDP modes) likewise.  The mega kernel
 (``ops/mega.py``) against its plain version in float64: on all lanes but
 at most one (an accept decision may flip within rounding), equal
@@ -130,8 +131,8 @@ def _data(case, dtype, device, B=64, T=40):
     return _random_data(B, T, 3, 2, 2, dtype, device)
 
 
-# (B, T) of the cases of the two kernels that spread a scenario over a
-# group of lanes (seq_trial, fused_bwd): B=64, T=40, and every B of
+# (B, T) of the cases of the kernels that spread a scenario over a group
+# of lanes (seq_trial, fused_bwd, fused_fwd, transition): B=64, T=40, and every B of
 # {1, 33, 4096} (33: not a whole number of blocks) with every T of
 # {1, 7, 100, 1000} (7: a partial chunk; 1000: the longest horizon).
 SIZES = [(64, 40)] + [(B, T) for B in (1, 33, 4096) for T in (1, 7, 100, 1000)]
@@ -301,6 +302,36 @@ def test_fused_kernels_match_plain(card, model, dtype, size):
     assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
                                  fused_bwd=1, fused_fwd=1, rollout_cost=1,
                                  transition=1)
+
+
+@pytest.mark.parametrize("T", [7, 100])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_fwd_and_transition_unaligned_views(card, dtype, T):
+    """The forward sweep and the transition (csrc/fused_fwd.h,
+    csrc/transition.h) on inputs that are views one element past an
+    allocation's start (off the 16-byte boundary of their rings' vector
+    copies), at B = 33 (not a whole number of 4-scenario blocks), give
+    what aligned inputs give, to the bit."""
+    B = 33
+    ocp, u, up, x0 = _lanes(cartpole, B, T, 7, dtype, card,
+                            ocp=_model_at_step(cartpole, 1.0 / 40))
+    bp = torch.full((B,), 0.05, dtype=dtype, device=card)
+    xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0, bp)
+    Kk = tf.fused_bwd_launch(ocp, xs, xT, u, bp, 100.0 * torch.sqrt(cunsq))[0]
+
+    def view(a):
+        v = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+        assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+        return v
+
+    fwd = (xs, xT, u, bp, Kk)
+    for got, ref in zip(tf.fused_fwd_launch(ocp, *map(view, fwd)),
+                        tf.fused_fwd_launch(ocp, *fwd)):
+        assert torch.equal(got, ref)
+    trans = (u, up, x0, bp)
+    for got, ref in zip(tf.transition_packed(ocp, *map(view, trans)),
+                        tf.transition_packed(ocp, *trans)):
+        assert torch.equal(got, ref)
 
 
 def test_fused_wrappers_raise_on_what_no_kernel_takes(card):
