@@ -535,9 +535,10 @@ def ptxas_report(lib, ocp, nx):
     """Registers, stack frame, spill and static shared-memory bytes that
     ``ptxas -v`` reported for the mega kernel and the merged trial of one
     library (``ocp``'s; the build keeps the report beside it), per dtype
-    and mode, with each kernel's stage ring: stages per slot W, slots S and
-    the dynamic shared memory per block (``ipoc_ring_layout``; ``ptxas``
-    reports static shared memory only)."""
+    and mode, with the mega kernel's stage ring: stages per slot W, slots S
+    and the dynamic shared memory per block (``ipoc_ring_layout``;
+    ``ptxas`` reports static shared memory only).  The merged trial's group
+    schedule is in ``rows_report``."""
     import torch
 
     from ipoc_tpu_torch.ops import mega
@@ -549,8 +550,9 @@ def ptxas_report(lib, ocp, nx):
             r"I5Model([fd])Lb([01])E").items():
         dt = "float32" if dt == "f" else "float64"
         key = f"{kernel}_{dt}_{'ddp' if ddp == '1' else 'newton'}"
-        out[key] = {**rec, "ring": mega.ring_layout(ocp, nx, 1,
-                                                     getattr(torch, dt))}
+        out[key] = rec
+        if kernel == "mega_kernel":
+            out[key]["ring"] = mega.ring_layout(ocp, nx, 1, getattr(torch, dt))
     check(len(out) == 8, f"ptxas report incomplete: {sorted(out)}")
     return out
 
@@ -628,13 +630,16 @@ def sass_stage_loops(lib, pattern, min_loop=30):
 
 def rows_report(seq_lib, fused):
     """The group-schedule kernels: the two that run the cooperative
-    Riccati step (seq_trial, fused_bwd) and the forward sweep and the
-    transition (fused_fwd, transition): registers and spill bytes as
-    ``ptxas -v`` reported them, the card's view (resident blocks per SM,
-    threads, shared bytes and scenarios per block), per dtype and shape
-    (``fused``: model name -> (ocp, nx, library path)), checked to hold a
-    B=4096 launch in one wave of resident blocks; and the SASS of their
-    loops (the float32 and float64 cartpole-shaped ones)."""
+    Riccati step (seq_trial, fused_bwd), the forward sweep and the
+    transition (fused_fwd, transition), the merged trial in both modes
+    (merged_trial, both sweeps) and the costate recursion (costates):
+    registers and spill bytes as ``ptxas -v`` reported them, the card's
+    view (resident blocks per SM, threads, shared bytes and scenarios per
+    block), per dtype and shape (``fused``: model name -> (ocp, nx, library
+    path)), checked to hold a B=4096 launch in one wave of resident blocks;
+    and the SASS of their loops (the float32 and float64 cartpole-shaped
+    ones; the merged trial's and the costate recursion's also pendulum's
+    and nx=2's)."""
     import torch
 
     from ipoc_tpu_torch.ops import fused_iter as tf
@@ -658,6 +663,11 @@ def rows_report(seq_lib, fused):
         nx, nu = int(nx), int(nu)
         one_wave(f"seq_trial_{str(dtypes[dt])[6:]}_nx{nx}_nu{nu}", rec,
                  sn.trial_occupancy(dtypes[dt], nx, nu))
+    costates = ptxas_entries(seq_lib.with_suffix(".ptxas.txt").read_text(),
+                             r"costate_kernelI([fd])Li(\d)E")
+    for (dt, nx), rec in sorted(costates.items()):
+        one_wave(f"costates_{str(dtypes[dt])[6:]}_nx{nx}", rec,
+                 sn.costate_occupancy(dtypes[dt], int(nx)))
     for name, (ocp, nx, lib) in fused.items():
         report = lib.with_suffix(".ptxas.txt").read_text()
         for kernel in tf.GROUP_KERNELS:
@@ -665,12 +675,21 @@ def rows_report(seq_lib, fused):
                     report, rf"{kernel}_kernelI5Model([fd])E").items()):
                 one_wave(f"{kernel}_{name}_{str(dtypes[dt])[6:]}", rec,
                          tf.group_occupancy(ocp, nx, 1, dtypes[dt], kernel))
-    check(len(out) == 6 + 4 * len(tf.GROUP_KERNELS),
+        for (dt, ddp), rec in sorted(ptxas_entries(
+                report, r"merged_trial_kernelI5Model([fd])Lb([01])E").items()):
+            one_wave(f"merged_trial_{name}_{str(dtypes[dt])[6:]}_"
+                     f"{'ddp' if ddp == '1' else 'newton'}", rec,
+                     tf.merged_occupancy(ocp, nx, 1, dtypes[dt], ddp == "1"))
+    check(len(out) == 6 + 6 + 4 * len(tf.GROUP_KERNELS) + 8,
           f"rows report incomplete: {sorted(out)}")
     out["sass_seq_trial"] = sass_stage_loops(seq_lib, "seq_trial_kernel")
+    out["sass_costates"] = sass_stage_loops(seq_lib, "costate_kernel")
     for kernel in tf.GROUP_KERNELS:
         out[f"sass_{kernel}_cartpole"] = sass_stage_loops(
             fused["cartpole"][2], f"{kernel}_kernel")
+    for name in ("cartpole", "pendulum"):
+        out[f"sass_merged_trial_{name}"] = sass_stage_loops(
+            fused[name][2], "merged_trial_kernel")
     return out
 
 
@@ -744,10 +763,10 @@ def phase_kernels(pool, dev):
             trial32, tol, prt, f"random nx=3 nu=2 {tag}")
         out[f"random_nx3_{tag}_costates"] = compare_costates(
             costate32, ltol, f"random nx=3 {tag} costates")
-        # Times at the slice's shape (B=4096, T=100): the trial in both
-        # dtypes, through its wrapper (ms) and its C entry on outputs
-        # allocated once (entry_ms, also per stage in SM cycles); the
-        # costate recursion in float32.
+        # Times at the slice's shape (B=4096, T=100), in both dtypes: the
+        # trial and the costate recursion, each through its wrapper (ms)
+        # and its C entry on outputs allocated once (entry_ms, also per
+        # stage in SM cycles).
         B, T_, nx, nu = trial[5].shape
         peak = (PEAK_F32_OPS_PER_S if dtype == torch.float32
                 else PEAK_F64_OPS_PER_S)
@@ -762,23 +781,30 @@ def phase_kernels(pool, dev):
             "entry": per_stage(rec["entry_ms"], T_, clock.mhz),
             **bound(nbytes(trial, seq_newton_trial_batched(*trial)),
                     B * T_ * riccati_ops(nx, nu), ops_per_s=peak)})
+        centry = costate_entry(costate)
+        with SmClock() as clock:
+            busy(centry, 0.5)
+            crec = {"ms": cuda_ms(lambda: seq_costates_batched(*costate), 50),
+                    "entry_ms": cuda_ms(centry, 50)}
+        crec.update({
+            "max_abs_err": out[f"cartpole_{tag}_costates"]["max_abs_err"],
+            "plain_ms": cuda_ms(lambda: seq_costates_plain(*costate), 5),
+            "entry": per_stage(crec["entry_ms"], T_, clock.mhz),
+            **bound(nbytes(costate, seq_costates_batched(*costate)),
+                    B * T_ * 2 * nx * nx, ops_per_s=peak)})
         if dtype == torch.float32:
             record["seq_newton_trial"] = rec
-            record["seq_costates"] = {
-                "max_abs_err": out[f"cartpole_{tag}_costates"]["max_abs_err"],
-                "ms": cuda_ms(lambda: seq_costates_batched(*costate), 20),
-                "plain_ms": cuda_ms(lambda: seq_costates_plain(*costate), 5),
-                **bound(nbytes(costate, seq_costates_batched(*costate)),
-                        B * T_ * 2 * nx * nx),
-            }
+            record["seq_costates"] = crec
         else:
-            out["timing_float64"] = {"seq_newton_trial": rec}
+            out["timing_float64"] = {"seq_newton_trial": rec,
+                                     "seq_costates": crec}
     out["timing"] = record
-    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (the trial also "
+    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (timing_float64: "
                            "float64), CUDA events around back-to-back calls; "
-                           "the trial through its wrapper (ms) and its C entry "
-                           "on outputs allocated once (entry_ms), per stage "
-                           "at the median SM clock nvidia-smi reported")
+                           "the trial and the costate recursion through their "
+                           "wrappers (ms) and their C entries on outputs "
+                           "allocated once (entry_ms), per stage at the "
+                           "median SM clock nvidia-smi reported")
     emit(out)
     return record
 
@@ -826,6 +852,27 @@ def seq_trial_entry(trial):
                                     torch.cuda.current_stream().cuda_stream)
         check(status == 0, f"seq trial launch status {status}")
         return outs[1:]
+    return call
+
+
+def costate_entry(costate):
+    """One launch of the seq library's C entry, ``ipoc_seq_costates``, on
+    ``costate`` with its output allocated once."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+
+    B, T_, nx = costate[0].shape
+    lam = torch.empty((B, T_ + 1, nx), dtype=costate[0].dtype,
+                      device=costate[0].device)
+    ptrs = [a.data_ptr() for a in (*costate, lam)]
+    lib, code = cuda.library(), cuda.dtype_code(lam.dtype)
+
+    def call():
+        status = lib.ipoc_seq_costates(code, nx, *ptrs, B, T_,
+                                       torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"costate launch status {status}")
+        return lam
     return call
 
 
@@ -1711,12 +1758,41 @@ def phase_mega_kernels(pool32, dev):
         rec["mega_k32"] = per_stage_iteration(
             rec["mega_k32_ms"], int(steps), u.shape[1], clock.mhz)
         timing[level] = rec
+    # The merged trial alone at the paths' shapes, both dtypes: Newton at
+    # T=100, DDP at T=25 (I's two-launch arm) and at T=100 (phase N's DDP
+    # configurations), through its wrapper and its C entry on outputs
+    # allocated once (also per stage in SM cycles).
+    merged = {}
+    for label, level, coarsen in (("newton_T100", "newton", 1),
+                                  ("ddp_T25", "ddp", COARSEN),
+                                  ("ddp_T100", "ddp", 1)):
+        ddp = LEVELS[level][1]
+        for dtype in (torch.float32, torch.float64):
+            ocp = model_ocp("cartpole", coarsen)
+            _, u, x0 = level_inputs(pool32, "newton" if coarsen == 1 else "ddp",
+                                    dtype, dev)
+            cfg = BATCH_CONFIG.replace(newton_impl="ddp" if ddp else "fused")
+            lane0 = open_packed(ocp, u, x0, cfg, 0.1)
+            reg = 100.0 * torch.clamp(lane0.cun, min=1e-6)
+            args = (ocp, lane0.xs, lane0.xT, lane0.u, lane0.bp, reg)
+            entry = merged_entry(*args, ddp)
+            with SmClock() as clock:
+                busy(entry, 0.5)
+                rec = {"ms": cuda_ms(
+                    lambda: tf.merged_trial_launch(*args, ddp=ddp), 50),
+                    "entry_ms": cuda_ms(entry, 50)}
+            rec["entry"] = per_stage(rec["entry_ms"], u.shape[1], clock.mhz)
+            merged[f"{label}_{str(dtype)[6:]}"] = rec
+    out["merged_trial_timing"] = merged
     out["timing"] = timing
     out["timing_shape"] = (f"B={LANES} lanes opened at bp=0.1, float32, "
                            "CUDA events; newton T=100, ddp T=25 (the "
                            "multigrid's coarse level); per stage-iteration "
                            "at the median SM clock nvidia-smi reported "
-                           "during the level's timing")
+                           "during the level's timing; merged_trial_timing "
+                           "also float64 and DDP at T=100, through the "
+                           "wrapper (ms) and the C entry (entry_ms, per "
+                           "stage at the median SM clock)")
     out["float32_tolerance"] = F32_TOL
     out["problems"] = problems
     emit(out)
@@ -1755,12 +1831,36 @@ def phase_mega_kernels(pool32, dev):
         "merged_trial": {
             "max_abs_err": max(r["merged_trial"]["max_abs_err"] for r in f32),
             "ms": timing["ddp"]["merged_trial_ms"],
+            "entry_ms": merged["ddp_T25_float32"]["entry_ms"],
             "plain_ms": timing["ddp"]["plain_trial_ms"], **merged_bound},
         "mega": {
             "max_abs_err": max(r["mega_k4"]["vs_plain"]["max_abs_err"]
                                for r in f32),
             "ms": timing["newton"]["mega_k32_ms"],
             "plain_ms": timing["newton"]["plain_k32_ms"], **mega_bound}}
+
+
+def merged_entry(ocp, xs, xT, u, bp, reg, ddp):
+    """One launch of the model library's C entry, ``ipoc_merged_trial``,
+    on outputs allocated once."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import fused_iter as tf
+
+    T_, nx, B = xs.shape
+    kw = dict(dtype=xs.dtype, device=xs.device)
+    outs = [torch.empty(sh, **kw) for sh in
+            [(T_, 1, B), (T_, nx, B), (nx, B)] + [(B,)] * 7
+            + [(T_, (1 + nx), B)]]
+    ip, op = tf.pointers((xs, u, xT, bp, reg)), tf.pointers(outs)
+    lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(xs.dtype)
+
+    def call():
+        status = lib.ipoc_merged_trial(code, int(ddp), ip, op, B, T_,
+                                       torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"merged trial launch status {status}")
+    return call
 
 
 def check_mega_path(counts, rounds, openings, gates=0):
@@ -2599,7 +2699,7 @@ def phase_batch_modes(pool32, dev):
            "dtype": "float32", "scenarios": LANES,
            "busy_window": "the first 11 lockstep iterations of the first "
                           "barrier stage"}
-    problems, sols, rollouts = [], {}, 0
+    problems, sols, rollouts, merged = [], {}, 0, 0
     for mode, (name, _) in BATCH_MODES.items():
         cfg = batch_cfg(mode)
         window = cfg.replace(bp_min=cfg.bp_init * 0.99, max_newton_iters=10)
@@ -2644,6 +2744,7 @@ def phase_batch_modes(pool32, dev):
                             f"{nonfinite}")
         if cfg.barrier_mode == "flat":
             rollouts += launches["rollout"]
+        merged += launches["merged_trial"]
 
     # The flat batch and the packed stream run the same per-lane semantics
     # but for the summation order of ||cu||: in float64 equal iterations
@@ -2682,7 +2783,7 @@ def phase_batch_modes(pool32, dev):
     out["problems"] = problems
     emit(out)
     check(not problems, "; ".join(problems))
-    return {"rollout": rollouts}
+    return {"rollout": rollouts, "merged_trial": merged}
 
 
 def phase_long_horizon(dev):
@@ -2983,9 +3084,15 @@ def main(argv=None):
             counts["value_scan"] = lqt_counts["value_scan"]
         run("L", lambda: phase_single_solve(dev, reference("L")))
         counts.update(run("M", phase_batch_solve, pool32, dev) or {})
-        # bench.py's batch mode (the rollout kernel's count) and the long
+        # bench.py's batch mode (the rollout kernel's count, and the merged
+        # trial's in its two DDP configurations, added to I's) and the long
         # horizon (the mega kernel at T=1000, row 14's record and count).
-        counts.update(run("N", phase_batch_modes, pool32, dev) or {})
+        counts_n = run("N", phase_batch_modes, pool32, dev) or {}
+        if "rollout" in counts_n:
+            counts["rollout"] = counts_n["rollout"]
+        if "merged_trial" in counts_n:
+            counts["merged_trial"] = (counts.get("merged_trial", 0)
+                                      + counts_n["merged_trial"])
         long_record, long_launches = run("O", phase_long_horizon,
                                          dev) or ({}, None)
         record["mega_streamed"] = long_record
@@ -3001,13 +3108,13 @@ def main(argv=None):
     pallas = "ipoc_tpu/ops/pallas/"
     kernels = {
         "seq_newton_trial": ("seq_newton.cu", "seq_newton_kernel.py:557"),
-        "seq_costates": ("seq_newton.cu", "seq_newton_kernel.py:622"),
+        "seq_costates": ("costates.h", "seq_newton_kernel.py:622"),
         "fused_bwd": ("fused_bwd.h", "fused_iter_kernel.py:1261"),
         "fused_fwd": ("fused_fwd.h", "fused_iter_kernel.py:1298"),
         "rollout": ("fused_iter.cuh", "fused_iter_kernel.py:1577"),
         "rollout_cost": ("fused_iter.cuh", "fused_iter_kernel.py:1956"),
         "transition": ("transition.h", "fused_iter_kernel.py:2053"),
-        "merged_trial": ("mega.cuh", "fused_iter_kernel.py:1206"),
+        "merged_trial": ("merged_trial.h", "fused_iter_kernel.py:1206"),
         "mega": ("mega.cuh", "mega_kernel.py:1148"),
         "mega_streamed": ("mega.cuh", "mega_kernel.py:1240"),
         "affine_scan": ("par_newton.cu", "scan_kernels.py:252"),
@@ -3028,7 +3135,8 @@ def main(argv=None):
          "replaces": pallas + rep, "launches": counts.get(k),
          **{f: record.get(k, {}).get(f) for f in keys},
          # The C entry alone, where a phase timed it (seq_newton_trial,
-         # fused_bwd, fused_fwd, transition, par_newton_trial).
+         # seq_costates, fused_bwd, fused_fwd, transition, merged_trial,
+         # par_newton_trial).
          **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})}}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,6 +30,15 @@
 // The per-stage arithmetic is the generated stage_bwd's (pre and post
 // compute its DAG's nodes with the same operations) and riccati_step's;
 // the cost is summed and max|ru| taken in the one-thread kernel's order.
+//
+// DDP = true is the merged trial's DDP mode (merged_trial.h; lane.h
+// trial_backward<..., true>): the costate argument of post is the value
+// gradient Vx, which starts at the terminal gradient and which the
+// Riccati step (RowStep<..., true>) produces, so the chain runs post(Vx)
+// -> step -> Vx; the step's Qx is post's lam_new.  The schedule's two
+// hooks let the merged trial keep a stage's gains in shared memory
+// (`put`, in place of the store to Kk) and start its forward sweep's
+// copies during the last chunks (`at_chunk`, at each chunk's start).
 
 #pragma once
 
@@ -39,11 +48,11 @@
 
 namespace ipoc {
 
-template <typename Model, typename scalar_t>
+template <typename Model, typename scalar_t, bool DDP = false>
 struct FusedBwd {
   static constexpr int NX = Model::NX, NU = Model::NU, NG = (1 + NX) * NU;
   static constexpr int NH = Model::NH;  // handoff values per stage
-  using Step = RowStep<scalar_t, NX, NU>;
+  using Step = RowStep<scalar_t, NX, NU, DDP>;
   static constexpr int G = Step::G;
   static constexpr int S = kRowWarp / G;  // scenarios per block (one warp)
   // A group's handoff buffers [2][G][NH], at an odd multiple of G scalars.
@@ -53,7 +62,7 @@ struct FusedBwd {
   static constexpr int kShared = S * (kHand + Step::kXch);
 
   struct Lane : Step::Lane {
-    scalar_t lam[NX];     // the costate carry
+    scalar_t lam[NX];     // the costate carry (DDP: the terminal gradient)
     scalar_t cost, hu;    // barrier cost, max_t |ru_t|
     scalar_t xn[NX], un[NU];  // the stage this lane pre-evaluates next
   };
@@ -85,18 +94,48 @@ struct FusedBwd {
                                             s.hand + ((c & 1) * G + L.r) * NH);
   }
 
+  // The lane's share of stage t's gains, stored into Kk: its column of K
+  // (an owning lane), k (lane 0).
+  IPOC_HD static void store_gains(const Scenario& s, const Lane& L, int t) {
+    if (!s.valid) return;
+    scalar_t* g = s.Kk + (size_t)t * NG * s.B + s.b;
+    if (Step::owns(L)) {
+#pragma unroll
+      for (int m = 0; m < NU; ++m) g[(size_t)(NU + m * NX + L.r) * s.B] = L.kc[m];
+    }
+    if (L.r == 0) {
+#pragma unroll
+      for (int m = 0; m < NU; ++m) g[(size_t)m * s.B] = L.k[m];
+    }
+  }
+
   // The sweep of one scenario; `ex(f)` runs f(lane) for each of the
   // group's lanes, then a barrier over them.
   template <class Exec>
   IPOC_HD static void schedule(Exec& ex, const Scenario& s, const scalar_t* xT,
                                scalar_t* cost_o, scalar_t* dv_o, scalar_t* piv_o,
                                scalar_t* hu_o) {
+    schedule(ex, s, xT, cost_o, dv_o, piv_o, hu_o,
+             [&](const Lane& L, int t) { store_gains(s, L, t); },
+             [](const Lane&, int) {});
+  }
+
+  // The same with the hooks: `put(L, t)` takes the lane's share of stage
+  // t's gains; `at_chunk(L, c)` runs at the start of chunk c.
+  template <class Exec, class Put, class AtChunk>
+  IPOC_HD static void schedule(Exec& ex, const Scenario& s, const scalar_t* xT,
+                               scalar_t* cost_o, scalar_t* dv_o, scalar_t* piv_o,
+                               scalar_t* hu_o, Put&& put, AtChunk&& at_chunk) {
     const int C = chunks(s.T);
     ex([&](Lane& L) {
       Step::init(L, L.r);
       scalar_t x[NX], Vxx[NX * NX];
       load_col<scalar_t, NX>(x, xT, s.B, s.b);
       Model::template term<scalar_t>(x, L.lam, Vxx, &L.cost);
+      if constexpr (DDP) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i) L.vx[i] = L.lam[i];
+      }
 #pragma unroll
       for (int j = 0; j < NX; ++j) L.vr[j] = pick<scalar_t, NX>(Vxx + j, NX, L.rr);
       L.hu = scalar_t(0);
@@ -118,37 +157,31 @@ struct FusedBwd {
             ex, s.xch, ru, R, fx, fu,
             [&](Lane& L) {
               if (w == 0) {
+                at_chunk(L, c);
                 pre(s, L, c + 1);
                 load_next(s, L, c + 2);
               }
-              Model::template stage_bwd_post<scalar_t>(hc + w * NH, L.lam, ru, Q, R, M,
-                                                       fx, fu, lam_new, &cst);
+              Model::template stage_bwd_post<scalar_t>(hc + w * NH,
+                                                       DDP ? L.vx : L.lam, ru, Q,
+                                                       R, M, fx, fu, lam_new, &cst);
               // Levenberg: R += reg * I (reg pre-scaled by the caller).
 #pragma unroll
               for (int i = 0; i < NU; ++i) R[i * (NU + 1)] = R[i * (NU + 1)] + s.reg;
             },
             [&](const auto& L, const scalar_t* xch, typename Step::Rows& rw) {
-              Step::rows_pick(L, Q, fx, M, xch, rw);
+              Step::rows_pick(L, Q, fx, M, xch, rw, lam_new);
             },
             [&](Lane& L) {
-              if (s.valid) {
-                scalar_t* g = s.Kk + (size_t)t * NG * s.B + s.b;
-                if (Step::owns(L)) {
-#pragma unroll
-                  for (int m = 0; m < NU; ++m) g[(size_t)(NU + m * NX + L.r) * s.B] = L.kc[m];
-                }
-                if (L.r == 0) {
-#pragma unroll
-                  for (int m = 0; m < NU; ++m) g[(size_t)m * s.B] = L.k[m];
-                }
-              }
+              put(L, t);
               L.cost = L.cost + cst;
               scalar_t ru_max = ipoc_abs(ru[0]);
 #pragma unroll
               for (int i = 1; i < NU; ++i) ru_max = ipoc_max(ru_max, ipoc_abs(ru[i]));
               L.hu = ipoc_max(L.hu, ru_max);
+              if constexpr (!DDP) {
 #pragma unroll
-              for (int i = 0; i < NX; ++i) L.lam[i] = lam_new[i];
+                for (int i = 0; i < NX; ++i) L.lam[i] = lam_new[i];
+              }
             });
       }
     }

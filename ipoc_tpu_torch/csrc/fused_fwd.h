@@ -37,12 +37,26 @@
 //          contracts into the sum as in the one-thread kernel);
 //   store: chunk j - 1's tu and tx, as runs of S columns;
 //
-// then the wait for chunk j + 2's copies and one barrier.  So the serial
-// chain carries stage_fwd_step, and the calls, the evaluation (2 logs, a
-// rem, 2 divisions at cartpole) and the loads are spread over the
-// group's lanes, off it.  term_fwd runs at the end on every lane (lane 0
+// then the wait for chunk j + 2's copies and one barrier.  The last
+// chunk's step runs its chain only up to T (Newton mode), and two steps
+// of eval, sum and store drain the pipeline.  So the serial chain carries
+// stage_fwd_step, and the calls, the evaluation (2 logs, a rem, 2
+// divisions at cartpole) and the loads are spread over the group's lanes,
+// off it.  term_fwd runs at the end on every lane (lane 0
 // writes).  A scenario past B (the last block's) runs on scenario B - 1's
 // data and writes nothing.
+//
+// The merged trial (merged_trial.h) runs this schedule after its backward
+// sweep with two template arguments: G_, the group size (RowStep's G, so
+// that one warp holds the same scenarios in both sweeps; W = G then), and
+// DDP, its DDP mode.  In DDP mode the chain is the closed-loop
+// re-rollout, whose carry is the trial state itself from x_0 (stage 0 of
+// x): Model::stage_ddp_fwd_step(x, u, tx, gains) -> (tu, tx, tx+), read
+// from the ring (its sin and cos read the carry, so nothing is handed
+// off and pre does nothing); the evaluation is stage_fwd_eval (the
+// codegen checks that stage_ddp_fwd's evaluation is that program) and
+// term_ddp_fwd ends it.  Its start hook issues the first chunks' copies
+// (some of them during the backward sweep).
 
 #pragma once
 
@@ -128,11 +142,11 @@ struct BlockRuns {
   }
 };
 
-template <typename Model, typename scalar_t>
+template <typename Model, typename scalar_t, int G_ = 8, bool DDP = false>
 struct FusedFwd {
   static constexpr int NX = Model::NX, NU = Model::NU, NG = (1 + NX) * NU;
   static constexpr int NH = Model::NHF;  // handoff values per stage
-  static constexpr int G = 8;            // lanes per scenario
+  static constexpr int G = G_;           // lanes per scenario
   static constexpr int S = kRowWarp / G;  // scenarios per block (one warp)
   static constexpr int W = G;            // stages per chunk
   static constexpr int kSlots = 4;       // chunk j + 3 is copied during step j (a power of 2)
@@ -146,7 +160,7 @@ struct FusedFwd {
   // [2][NO][W][S], the evaluations [2][NE][W][S].
   static constexpr int kSlot = R * W * S;
   static constexpr int kNH = NH | 1;
-  static constexpr int kHandS = W * kNH;
+  static constexpr int kHandS = DDP ? 0 : W * kNH;  // DDP hands nothing off
   static constexpr int oHand = kSlots * kSlot;
   static constexpr int oOut = oHand + 2 * S * kHandS;
   static constexpr int oEval = oOut + 2 * NO * W * S;
@@ -186,29 +200,40 @@ struct FusedFwd {
     return k.sh + oEval + (j & 1) * NE * W * S;
   }
 
-  // Lane l's copies of chunk j (one commit group, empty past the last).
-  IPOC_HD static void fetch(const Block& k, const Lane& L, int j) {
-    const int n = stages(k, j), l = L.s * G + L.r;
-    if (n > 0) {
-      scalar_t* d = slot(k, j);
-      const size_t B = static_cast<size_t>(k.B);
-      const int t0 = j * W;
+  // Lane l's copies of chunk j's x and u rows (XU) and gains rows (GAINS),
+  // uncommitted.
+  template <bool XU, bool GAINS>
+  IPOC_HD static void copy(const Block& k, int l, int j) {
+    const int n = stages(k, j);
+    if (n == 0) return;
+    scalar_t* d = slot(k, j);
+    const size_t B = static_cast<size_t>(k.B);
+    const int t0 = j * W;
+    if constexpr (XU) {
       Runs::template fetch<NX>(l, d, t0, n, k.nvalid, [&](int row, int t) {
         return k.xs + ((size_t)t * NX + row) * B + k.b0;
       });
       Runs::template fetch<NU>(l, d + NX * W * S, t0, n, k.nvalid, [&](int row, int t) {
         return k.us + ((size_t)t * NU + row) * B + k.b0;
       });
+    }
+    if constexpr (GAINS) {
       Runs::template fetch<NG>(l, d + (NX + NU) * W * S, t0, n, k.nvalid,
                                [&](int row, int t) {
                                  return k.Kk + ((size_t)t * NG + row) * B + k.b0;
                                });
     }
+  }
+
+  // Lane l's copies of chunk j (one commit group, empty past the last).
+  IPOC_HD static void fetch(const Block& k, const Lane& L, int j) {
+    copy<true, true>(k, L.s * G + L.r, j);
     RingCopy::commit();
   }
 
   // pre of stage r of chunk j, from the ring, into its handoff slot.
   IPOC_HD static void pre(const Block& k, const Lane& L, int j) {
+    if constexpr (DDP) return;
     const scalar_t* d = slot(k, j) + L.r * S + L.s;
     scalar_t x[NX], u[NU], g[NG];
 #pragma unroll
@@ -221,15 +246,29 @@ struct FusedFwd {
                                             hand(k, L, j) + L.r * kNH);
   }
 
-  // The chain over chunk j's stages (those past T leave dx as it is);
-  // every lane of the group stages the same tu and tx.
-  IPOC_HD static void chain(const Block& k, Lane& L, int j) {
+  // The chain over chunk j's first n stages (those past T leave dx as it
+  // is); every lane of the group stages the same tu and tx.  DDP: dx is
+  // the trial state, and the chain reads x, u and the gains from the ring.
+  IPOC_HD static void chain(const Block& k, Lane& L, int j, int n = W) {
     const scalar_t* h = hand(k, L, j);
+    const scalar_t* d = slot(k, j) + L.s;
     scalar_t* o = staged(k, j) + L.s;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
+      if (w >= n) break;
       scalar_t tu[NU], tx[NX], dxn[NX];
-      Model::template stage_fwd_step<scalar_t>(h + w * kNH, L.dx, tu, tx, dxn);
+      if constexpr (DDP) {
+        scalar_t x[NX], u[NU], g[NG];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) x[i] = d[(i * W + w) * S];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) u[i] = d[((NX + i) * W + w) * S];
+#pragma unroll
+        for (int i = 0; i < NG; ++i) g[i] = d[((NX + NU + i) * W + w) * S];
+        Model::template stage_ddp_fwd_step<scalar_t>(x, u, L.dx, g, tu, tx, dxn);
+      } else {
+        Model::template stage_fwd_step<scalar_t>(h + w * kNH, L.dx, tu, tx, dxn);
+      }
 #pragma unroll
       for (int i = 0; i < NU; ++i) o[(i * W + w) * S] = tu[i];
 #pragma unroll
@@ -293,6 +332,18 @@ struct FusedFwd {
   IPOC_HD static void schedule(Exec& ex, const Block& k, const scalar_t* xT,
                                const scalar_t* bp, scalar_t* txT_o, scalar_t* nc_o,
                                scalar_t* mc_o, scalar_t* cun_o) {
+    schedule(ex, k, xT, bp, txT_o, nc_o, mc_o, cun_o, [&](const Lane& L) {
+      for (int j = 0; j < kSlots - 1; ++j) fetch(k, L, j);
+    });
+  }
+
+  // The same with the copies of the first kSlots - 1 chunks issued by
+  // `start(L)`: kSlots - 1 commit groups in all, chunk 0's x and u in the
+  // oldest (which may have been committed before).
+  template <class Exec, class Start>
+  IPOC_HD static void schedule(Exec& ex, const Block& k, const scalar_t* xT,
+                               const scalar_t* bp, scalar_t* txT_o, scalar_t* nc_o,
+                               scalar_t* mc_o, scalar_t* cun_o, Start&& start) {
     const int C = chunks(k.T);
     ex([&](Lane& L) {
       const int b = k.b0 + (L.s < k.nvalid ? L.s : k.nvalid - 1);
@@ -302,14 +353,24 @@ struct FusedFwd {
       L.cost = scalar_t(0);
       L.mc = -scalar_t(INFINITY);
       L.cun = scalar_t(0);
-      for (int j = 0; j < kSlots - 1; ++j) fetch(k, L, j);
+      start(L);
       RingCopy::wait<kSlots - 2>();
     });
     ex([&](Lane& L) {
-      pre(k, L, 0);
-      RingCopy::wait<kSlots - 3>();
+      if constexpr (DDP) {
+        // The carry starts at x_0, from the ring (chunk 0 is in).
+        const scalar_t* d = slot(k, 0) + L.s;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) L.dx[i] = d[i * W * S];
+      } else {
+        pre(k, L, 0);
+        RingCopy::wait<kSlots - 3>();
+      }
     });
-    for (int j = 0; j < C + 2; ++j) {
+    // Newton mode takes its last chunk out of the loop (below); DDP mode
+    // runs it in the loop, which measured faster there (PERF.md section 5).
+    const int last = DDP ? C : C - 1;
+    for (int j = 0; j < last; ++j) {
       ex([&](Lane& L) {
         fetch(k, L, j + kSlots - 1);
         // pre, eval, the chain and the sums run unguarded, one straight
@@ -324,12 +385,34 @@ struct FusedFwd {
         RingCopy::wait<kSlots - 3>();
       });
     }
+    // The last chunk (copied and pre-evaluated already), its chain only
+    // over the stages before T; then the pipeline's drain: the last
+    // chunk's evaluations, the last two chunks' sums and the last chunk's
+    // stores.
+    if constexpr (!DDP) {
+      ex([&](Lane& L) {
+        eval(k, L, C - 2);
+        chain(k, L, C - 1, stages(k, C - 1));
+        sum(k, L, C - 3);
+        store(k, L, C - 2);
+      });
+    }
+    ex([&](Lane& L) {
+      eval(k, L, C - 1);
+      sum(k, L, C - 2);
+      store(k, L, C - 1);
+    });
+    ex([&](Lane& L) { sum(k, L, C - 1); });
     ex([&](Lane& L) {
       if (L.r != 0 || L.s >= k.nvalid) return;
       const int b = k.b0 + L.s;
       scalar_t x[NX], txT[NX], cT;
       load_col<scalar_t, NX>(x, xT, k.B, b);
-      Model::template term_fwd<scalar_t>(x, L.dx, txT, &cT);
+      if constexpr (DDP) {
+        Model::template term_ddp_fwd<scalar_t>(x, L.dx, txT, &cT);
+      } else {
+        Model::template term_fwd<scalar_t>(x, L.dx, txT, &cT);
+      }
       store_col<scalar_t, NX>(txT_o, txT, k.B, b);
       nc_o[b] = L.cost + cT;
       mc_o[b] = L.mc;

@@ -1,45 +1,60 @@
 // The resident mega kernel and the merged one-launch trial for Hopper
-// (sm_90a), one thread per scenario, templated on a generated model, on the
-// dtype and on the mode (Newton, or IP-DDP with DDP = true).
+// (sm_90a), templated on a generated model, on the dtype and on the mode
+// (Newton, or IP-DDP with DDP = true).
 //
 // Replaces, from ipoc_tpu/ops/pallas/:
 //   * merged_trial_kernel <- fused_iter_kernel.py:1206
 //     _fused_iter_merged_kernel: one trial per launch, the backward sweep
-//     and then the forward sweep in the same thread, the gains through a
-//     (T, (1+NX)*NU, B) scratch array.  Newton mode is fused_bwd + fused_fwd
-//     in one launch; DDP mode contracts the stage data with the value
-//     gradient Vx (Vx starts at the terminal gradient) and rolls the trial
-//     out through the true dynamics in closed loop (the DDP evaluator of the
-//     packed stream);
+//     and then the forward sweep, the gains through a (T, (1+NX)*NU, B)
+//     scratch array.  Newton mode is fused_bwd + fused_fwd in one launch;
+//     DDP mode contracts the stage data with the value gradient Vx (Vx
+//     starts at the terminal gradient) and rolls the trial out through the
+//     true dynamics in closed loop (the DDP evaluator of the packed
+//     stream).  One warp per block, a group of G lanes per scenario
+//     through both sweeps: the schedule of merged_trial.h (host and
+//     device; the CPU tests build it with g++);
 //   * mega_kernel <- mega_kernel.py:1148 _mega_kernel and :1240
-//     _mega_streamed_kernel: k lane iterations per launch, each the trial,
-//     the accept/Levenberg-Marquardt update, the convergence tests and, for
-//     a lane that rolls over to the next barrier stage, the stage transition
-//     with the central-path predictor; per-lane semantics are
-//     packed_lane_iter's (solvers/packed_stream.py).
+//     _mega_streamed_kernel: k lane iterations per launch, one thread per
+//     scenario, each the trial, the accept/Levenberg-Marquardt update, the
+//     convergence tests and, for a lane that rolls over to the next barrier
+//     stage, the stage transition with the central-path predictor;
+//     per-lane semantics are packed_lane_iter's (solvers/packed_stream.py).
 //
-// The lane's iteration, the sweeps and the transition are lane.h's, shared
-// with a host build that the CPU tests run; this file adds the device's
-// memory policy and the launches.
+// merged_trial_kernel.
+//   What bounded the one-thread kernel it replaces (lane.h's two sweeps
+//   through the mega kernel's ring): one warp per SM at B = 4096, each
+//   thread the whole stage programs and Riccati step on its serial chain,
+//   3,720-4,120 cycles per stage for the two sweeps at T = 25 in float32
+//   on an H100 (700 W), and one memory round trip at each sweep's start
+//   that nothing hid (PERF.md section 5).
+//   What the design does: the two sweeps are the group schedules of the
+//   two-launch arm (fused_bwd.h, fused_fwd.h) at one group size, so a warp
+//   holds G times the scenarios' lanes and the calls, the evaluations and
+//   the loads leave the chains; what lies between the sweeps (the gains of
+//   the first chunk, the first chunks' x and u) is kept in or fetched into
+//   shared memory during the backward sweep (merged_trial.h).  Registers,
+//   shared memory and resident blocks per SM: chip_smoke.py phase 0.
 //
-// Layout and state: batch-last like fused_iter.cuh, stage arrays (T, rows,
-// B), per-lane scalars (B,).  The mega kernel updates the lane state in
-// place (xs, xT, u, u_prev and the scalars) and keeps the trial point and
-// the gains in workspace arrays (tx, tu, Kk) that the caller allocates once
-// per stream.  A thread runs its lane until the lane is done or k
-// iterations have passed, so lanes leave the loop independently (the TPU
-// kernel skips an iteration only when a whole chunk is done; the per-lane
-// results are the same).  An inactive lane (active = 0) is not touched.
-// `steps` is the maximum over lanes of the iterations each ran (one
-// atomicMax), which is the number of iterations in which some active lane
-// was not done.
-//
-// What bounds them on the card: latency.  At B=4096 a launch is 128 warps,
-// about one per SM, each thread a serial chain of 2T dependent stages per
-// iteration (the costates, the value function, the rollout state) and T
-// more when it rolls over.  The design keeps memory off that chain, so
-// that what is left is the stage arithmetic run by one warp (about
-// 1,640 instructions per stage-iteration, PERF.md section 5):
+// mega_kernel.
+//   The lane's iteration, the sweeps and the transition are lane.h's,
+//   shared with a host build that the CPU tests run; this file adds the
+//   device's memory policy and the launch.  Layout and state: batch-last
+//   like fused_iter.cuh, stage arrays (T, rows, B), per-lane scalars (B,).
+//   It updates the lane state in place (xs, xT, u, u_prev and the scalars)
+//   and keeps the trial point and the gains in workspace arrays (tx, tu,
+//   Kk) that the caller allocates once per stream.  A thread runs its lane
+//   until the lane is done or k iterations have passed, so lanes leave the
+//   loop independently (the TPU kernel skips an iteration only when a
+//   whole chunk is done; the per-lane results are the same).  An inactive
+//   lane (active = 0) is not touched.  `steps` is the maximum over lanes of
+//   the iterations each ran (one atomicMax), which is the number of
+//   iterations in which some active lane was not done.
+//   What bounds it on the card: latency.  At B=4096 a launch is 128 warps,
+//   about one per SM, each thread a serial chain of 2T dependent stages per
+//   iteration (the costates, the value function, the rollout state) and T
+//   more when it rolls over.  The design keeps memory off that chain, so
+//   that what is left is the stage arithmetic run by one warp (about
+//   1,640 instructions per stage-iteration, PERF.md section 5):
 //   * stage reads come through a ring in shared memory that cp.async
 //     (LDGSTS) fills ahead of the sweep: kRingS slots of kRingW stages, the
 //     reads of chunk j + kRingS - 1 started when the sweep enters chunk j, so
@@ -53,9 +68,9 @@
 //   * the iterate ping-pongs between the lane's fields and the workspace
 //     (lane.h), so an accept and taking the predictor's candidate copy
 //     nothing; a lane that ends a launch in the workspace copies back once.
-// The TPU kernel's VMEM windows and DMA semaphores have no other
-// counterpart.  A later step spreads a lane's carry-independent arithmetic
-// over a second warp (ROADMAP.md).
+//   The TPU kernel's VMEM windows and DMA semaphores have no other
+//   counterpart.  A later step spreads a lane's carry-independent
+//   arithmetic over a second warp (ROADMAP.md).
 
 #pragma once
 
@@ -64,6 +79,7 @@
 
 #include "fused_iter.cuh"
 #include "lane.h"
+#include "merged_trial.h"
 #include "scalar_math.h"
 
 namespace ipoc {
@@ -71,8 +87,8 @@ namespace ipoc {
 constexpr int kRingW = 4;  // stages per ring slot
 constexpr int kRingS = 4;  // slots
 
-// The ring's bytes per block: the forward sweep's rows (x, u, the gains),
-// the most any sweep reads per stage.
+// The mega kernel's ring bytes per block: the forward sweep's rows (x, u,
+// the gains), the most any sweep reads per stage.
 template <typename Model, typename scalar_t>
 constexpr size_t ring_bytes() {
   return (size_t)kRingS * kRingW *
@@ -169,7 +185,7 @@ struct RingStages {
 extern __shared__ __align__(16) unsigned char ipoc_ring[];
 
 template <typename Model, typename scalar_t, bool DDP>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRowWarp)
 merged_trial_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
                     const scalar_t* __restrict__ us,   // (T, NU, B)
                     const scalar_t* __restrict__ xT,   // (NX, B)
@@ -187,27 +203,27 @@ merged_trial_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
                     scalar_t* __restrict__ cun_o,      // (B,)
                     scalar_t* __restrict__ Kk,         // (T, (1+NX)*NU, B) scratch
                     int B, int T) {
-  constexpr int NX = Model::NX;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const RingStages mem{ipoc_ring};
-  const scalar_t bpv = bp[b];
-  scalar_t xTv[NX], x0[NX], txT[NX];
-  load_col<scalar_t, NX>(xTv, xT, B, b);
-  load_col<scalar_t, NX>(x0, xs, B, b);  // stage 0: the DDP carry's start
-  scalar_t cost, dv, piv, hu, nc, mc, cun;
-  trial_backward<Model, scalar_t, DDP>(mem, xs, us, xTv, bpv, reg[b], Kk, B,
-                                       T, b, cost, dv, piv, hu);
-  trial_forward<Model, scalar_t, DDP>(mem, xs, us, xTv, x0, bpv, Kk, tu_o,
-                                      tx_o, B, T, b, txT, nc, mc, cun);
-  store_col<scalar_t, NX>(txT_o, txT, B, b);
-  cost_o[b] = cost;
-  nc_o[b] = nc;
-  mc_o[b] = mc;
-  dv_o[b] = dv;
-  piv_o[b] = piv;
-  hu_o[b] = hu;
-  cun_o[b] = cun;
+  using Mt = MergedTrial<Model, scalar_t, DDP>;
+  __shared__ __align__(16) scalar_t sh[Mt::kShared];
+  const typename Mt::Arrays a{xs, us, xT, bp, reg, tu_o, tx_o, txT_o, cost_o,
+                              nc_o, mc_o, dv_o, piv_o, hu_o, cun_o, Kk, B, T};
+  const int l = static_cast<int>(threadIdx.x);
+  const auto k = Mt::block(a, static_cast<int>(blockIdx.x), sh);
+  {
+    typename Mt::Bwd::Lane lane;
+    lane.r = l % Mt::G;
+    WarpExec<typename Mt::Bwd::Lane> ex{lane};
+    Mt::backward(ex, a, k, l / Mt::G);
+  }
+  // The forward sweep copies the gains the warp stored: order the stores
+  // before those reads.
+  __threadfence_block();
+  __syncwarp();
+  typename Mt::Fwd::Lane lane;
+  lane.s = l / Mt::G;
+  lane.r = l % Mt::G;
+  WarpExec<typename Mt::Fwd::Lane> ex{lane};
+  Mt::forward(ex, a, k);
 }
 
 template <typename Model, typename scalar_t, bool DDP>
@@ -238,15 +254,18 @@ int launch_merged_trial(const void* const* in, void* const* out, int B, int T,
                         cudaStream_t s) {
   using P = const scalar_t*;
   auto o = [out](int i) { return static_cast<scalar_t*>(out[i]); };
-  constexpr size_t bytes = ring_bytes<Model, scalar_t>();
-  const int attr =
-      ring_attribute(merged_trial_kernel<Model, scalar_t, DDP>, bytes);
-  if (attr != 0) return attr;
   merged_trial_kernel<Model, scalar_t, DDP>
-      <<<fused_blocks(B), kFusedThreads, bytes, s>>>(
+      <<<MergedTrial<Model, scalar_t, DDP>::blocks(B), kRowWarp, 0, s>>>(
           P(in[0]), P(in[1]), P(in[2]), P(in[3]), P(in[4]), o(0), o(1), o(2),
           o(3), o(4), o(5), o(6), o(7), o(8), o(9), o(10), B, T);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The card's view of merged_trial_kernel (launch_attr.cuh kernel_occupancy).
+template <typename Model, typename scalar_t, bool DDP>
+int merged_occupancy(int* out) {
+  return kernel_occupancy(merged_trial_kernel<Model, scalar_t, DDP>, kRowWarp, 0,
+                          MergedTrial<Model, scalar_t, DDP>::S, out);
 }
 
 // lane, ws: mega_arrays' order (lane.h); cfg: kLaneScalars doubles.
@@ -282,10 +301,17 @@ int launch_mega(void* const* lane, void* const* ws, const double* cfg, int k,
                                    void* const* out, int B, int T,           \
                                    void* stream) {                           \
     IPOC_MODE_DISPATCH(launch_merged_trial, MODEL, in, out, B, T, s)         \
+  }                                                                          \
+  extern "C" int ipoc_merged_trial_occupancy(int dtype, int ddp, int* out) { \
+    if (dtype == 0 && ddp) return ipoc::merged_occupancy<MODEL, float, true>(out);   \
+    if (dtype == 0) return ipoc::merged_occupancy<MODEL, float, false>(out);         \
+    if (dtype == 1 && ddp) return ipoc::merged_occupancy<MODEL, double, true>(out);  \
+    if (dtype == 1) return ipoc::merged_occupancy<MODEL, double, false>(out);        \
+    return -1;                                                               \
   }
 
-// ipoc_ring_layout writes kRingW, kRingS and the ring's bytes per block for
-// `dtype` to out[0..2] (both kernels use the same ring).
+// ipoc_ring_layout writes kRingW, kRingS and the mega kernel's ring bytes
+// per block for `dtype` to out[0..2].
 #define IPOC_MEGA_ENTRY(MODEL)                                               \
   extern "C" int ipoc_mega(int dtype, int ddp, void* const* lane,            \
                            void* const* ws, const double* cfg, int k, int B, \

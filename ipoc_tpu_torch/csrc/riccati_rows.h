@@ -38,6 +38,11 @@
 // after two stages).  As they are, the seq trial's results equal its
 // one-thread parent kernel's to the bit, and so do the fused sweep's at
 // cartpole, in float32 and float64 (PERF.md section 5).
+//
+// DDP = true is riccati_step<..., true>'s step (the merged trial's DDP
+// mode, merged_trial.h): Qu = ru, Qx_r = hx_r (the stage's lam_new, which
+// the caller hands to rows_pick), dV += 1/2 k'Qu, the pivots of Quu alone;
+// every other entry as in Newton mode.
 
 #pragma once
 
@@ -65,7 +70,7 @@ IPOC_HD scalar_t pick(const scalar_t* a, int stride, int i) {
   return v;
 }
 
-template <typename scalar_t, int NX, int NU>
+template <typename scalar_t, int NX, int NU, bool DDP = false>
 struct RowStep {
   static constexpr int G = row_lanes(NX);
   // The group's exchange slice, in scalars: the rows of Vfx (G x NX) and
@@ -138,9 +143,11 @@ struct RowStep {
       for (int l = 1; l < NX; ++l) acc = acc + fxc[l] * Vfu[l * NU + j];
       w.qxu[j] = Mr[j] + acc;
     }
-    w.qx = fxc[0] * L.vx[0];
+    if constexpr (!DDP) {
+      w.qx = fxc[0] * L.vx[0];
 #pragma unroll
-    for (int l = 1; l < NX; ++l) w.qx = w.qx + fxc[l] * L.vx[l];
+      for (int l = 1; l < NX; ++l) w.qx = w.qx + fxc[l] * L.vx[l];
+    }
   }
 
   // The lane's row of row-major Q (NX x NX) and M (NX x NU) and column of
@@ -163,10 +170,12 @@ struct RowStep {
   // indices known at compile time, as riccati_step computes it, then the
   // lane's row picked by selects, so that no register array is indexed at
   // run time and the compiler folds and contracts each row against the
-  // constants as it does in riccati_step.
+  // constants as it does in riccati_step.  In DDP mode Qx_r is hx_r,
+  // picked alike.
   IPOC_HD static void rows_pick(const Lane& L, const scalar_t* Q,
                                 const scalar_t* fx, const scalar_t* M,
-                                const scalar_t* xch, Rows& w) {
+                                const scalar_t* xch, Rows& w,
+                                const scalar_t* hx = nullptr) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       scalar_t Qr[NX], fxc[NX], Mr[NU];
@@ -178,6 +187,7 @@ struct RowStep {
       for (int m = 0; m < NU; ++m) Mr[m] = M[i * NU + m];
       Rows wi;
       rows_from(L, Qr, fxc, Mr, xch, wi);
+      if constexpr (DDP) wi.qx = hx[i];
       const bool take = i == 0 || L.rr == i;
 #pragma unroll
       for (int j = 0; j < NX; ++j) w.qxx[j] = take ? wi.qxx[j] : w.qxx[j];
@@ -236,13 +246,17 @@ struct RowStep {
         L.quu[j * NU + i] = acc;
       }
     }
-    // Qu = ru + fu' Vx.
+    // Qu = ru + fu' Vx (DDP: ru).
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
-      scalar_t acc = fu[i] * L.vx[0];
+      if constexpr (DDP) {
+        L.qu[i] = ru[i];
+      } else {
+        scalar_t acc = fu[i] * L.vx[0];
 #pragma unroll
-      for (int l = 1; l < NX; ++l) acc = acc + fu[l * NU + i] * L.vx[l];
-      L.qu[i] = ru[i] + acc;
+        for (int l = 1; l < NX; ++l) acc = acc + fu[l * NU + i] * L.vx[l];
+        L.qu[i] = ru[i] + acc;
+      }
     }
     // Quu [k | K[:][r]] = -[Qu | Qxu[r][:]'], two of riccati_step's 1 + NX
     // right-hand side columns.
@@ -254,8 +268,8 @@ struct RowStep {
       sol[i * 2] = L.qu[i];
       sol[i * 2 + 1] = L.qxu[i];
     }
-    L.piv_t = nan_min(solve_track<scalar_t, NU, 2>(a, sol),
-                      pivots_only<scalar_t, NU>(R));
+    L.piv_t = solve_track<scalar_t, NU, 2>(a, sol);
+    if constexpr (!DDP) L.piv_t = nan_min(L.piv_t, pivots_only<scalar_t, NU>(R));
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       L.k[i] = -sol[i * 2];
@@ -286,10 +300,15 @@ struct RowStep {
         xch[kVxx + j * NX + L.r] = acc;
       }
     }
-    // dV += k'Qu + 1/2 k'Quu k.
+    // dV += k'Qu + 1/2 k'Quu k (DDP: 1/2 k'Qu).
     scalar_t kQu = L.k[0] * L.qu[0];
 #pragma unroll
     for (int i = 1; i < NU; ++i) kQu = kQu + L.k[i] * L.qu[i];
+    if constexpr (DDP) {
+      L.dv = L.dv + scalar_t(0.5) * kQu;
+      L.piv = nan_min(L.piv, L.piv_t);
+      return;
+    }
     scalar_t kQk = scalar_t(0);
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
@@ -338,6 +357,10 @@ struct RowStep {
 // lane: it runs the step's part for its lane, then a barrier over the
 // warp (every lane of the warp runs every step).  On the host the group's
 // lanes run the step in turn (the barrier is the end of the loop).
+// `share<g>(get, put)` hands each lane's value get(lane) to every lane of
+// its group of g consecutive lanes, put(lane, j, value of the group's lane
+// j): on the card by __shfl_sync (no barrier), on the host once every lane
+// has made its value.
 #ifdef __CUDACC__
 template <class LaneT>
 struct WarpExec {
@@ -347,6 +370,13 @@ struct WarpExec {
     f(lane);
     __syncwarp();
   }
+  template <int g, class Get, class Put>
+  __device__ __forceinline__ void share(Get&& get, Put&& put) {
+    const auto v = get(lane);
+    const int base = static_cast<int>(threadIdx.x) & (kRowWarp - 1) & ~(g - 1);
+#pragma unroll
+    for (int j = 0; j < g; ++j) put(lane, j, __shfl_sync(0xffffffffu, v, base + j));
+  }
 };
 #else
 template <class LaneT, int G>
@@ -355,6 +385,13 @@ struct GroupExec {
   template <class F>
   void operator()(F&& f) {
     for (int l = 0; l < G; ++l) f(lanes[l]);
+  }
+  template <int g, class Get, class Put>
+  void share(Get&& get, Put&& put) {
+    decltype(get(lanes[0])) v[G];
+    for (int l = 0; l < G; ++l) v[l] = get(lanes[l]);
+    for (int l = 0; l < G; ++l)
+      for (int j = 0; j < g; ++j) put(lanes[l], j, v[(l & ~(g - 1)) + j]);
   }
 };
 #endif

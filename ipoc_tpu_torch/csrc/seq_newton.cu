@@ -38,9 +38,21 @@
 //   are not measured (no such model yet), the lane holding rows of 6
 //   rather than 4.
 //
-// costate_kernel: one thread per scenario, unchanged.  It reads the
-// (B, T, rows) inputs as they are, uncoalesced (the same problem, ranked
-// later in PERF.md section 6's order).
+// costate_kernel: one warp per block, a group of G lanes per scenario
+// (G = 4 at nx = 3, 4; 2 at nx = 2), the schedule of costates.h (host and
+// device; the CPU tests build it with g++).
+//   What bounded the one-thread-per-scenario kernel it replaces: its loads.
+//   It read the (B, T, rows) inputs as they are, so neighbouring threads
+//   read T * NX^2 values apart, and each stage's NX^2 + NX loads were
+//   requested on the serial chain: about one memory round trip a stage
+//   (0.102 ms at B = 4096, T = 100 through its wrapper on an H100, 700 W,
+//   against a bound of 0.0118 ms set by its bytes; PERF.md section 6).
+//   What the design does: a scenario's W = 8 stages of cx and of fx are
+//   one contiguous run each, copied by the group into a shared-memory
+//   ring two chunks ahead of the chain; lam leaves through a staging slice
+//   as contiguous runs.  The chain keeps the parent's arithmetic, one row
+//   a lane, the rows handed across the group by __shfl_sync.  Shared
+//   memory per block and resident blocks per SM: chip_smoke.py phase 0.
 //
 // Semantics follow the JAX kernel exactly (seq_newton_kernel.py:172-252):
 // the backward step is riccati.cuh's riccati_step, spread over the group's
@@ -51,12 +63,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "costates.h"
 #include "launch_attr.cuh"
 #include "seq_trial.h"
 
 namespace {
-
-constexpr int kThreads = 32;  // costate_kernel: one thread per scenario
 
 template <typename scalar_t, int NX, int NU>
 __global__ void __launch_bounds__(ipoc::kRowWarp)
@@ -87,37 +98,21 @@ seq_trial_kernel(const scalar_t* __restrict__ ru,  // (B, T, NU)
 }
 
 template <typename scalar_t, int NX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(ipoc::kRowWarp)
 costate_kernel(const scalar_t* __restrict__ cx,    // (B, T, NX)
                const scalar_t* __restrict__ fx,    // (B, T, NX, NX)
                const scalar_t* __restrict__ lamT,  // (B, NX)
                scalar_t* __restrict__ lam,         // (B, T+1, NX)
                int B, int T) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  scalar_t l[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    l[i] = lamT[(size_t)b * NX + i];
-    lam[((size_t)b * (T + 1) + T) * NX + i] = l[i];
-  }
-  // lam_t = cx_t + fx_t' lam_{t+1}, t = T-1 .. 0.
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t s = (size_t)b * T + t;
-    scalar_t nl[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      scalar_t acc = fx[s * NX * NX + i] * l[0];
-#pragma unroll
-      for (int j = 1; j < NX; ++j) acc = acc + fx[s * NX * NX + j * NX + i] * l[j];
-      nl[i] = cx[s * NX + i] + acc;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      l[i] = nl[i];
-      lam[((size_t)b * (T + 1) + t) * NX + i] = nl[i];
-    }
-  }
+  using Cs = ipoc::Costates<scalar_t, NX>;
+  __shared__ __align__(16) scalar_t sh[Cs::kShared];
+  const int s = static_cast<int>(threadIdx.x) / Cs::G;
+  const auto sc = Cs::scenario(cx, fx, lamT, lam,
+                               static_cast<int>(blockIdx.x) * Cs::S + s, B, T, s, sh);
+  typename Cs::Lane lane;
+  lane.r = static_cast<int>(threadIdx.x) % Cs::G;
+  ipoc::WarpExec<typename Cs::Lane> ex{lane};
+  Cs::schedule(ex, sc);
 }
 
 template <typename scalar_t, int NX, int NU>
@@ -140,8 +135,8 @@ int launch_trial(const void* ru, const void* Q, const void* R, const void* M,
 template <typename scalar_t, int NX>
 int launch_costates(const void* cx, const void* fx, const void* lamT,
                     void* lam, int B, int T, cudaStream_t stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  costate_kernel<scalar_t, NX><<<blocks, kThreads, 0, stream>>>(
+  const int blocks = ipoc::Costates<scalar_t, NX>::blocks(B);
+  costate_kernel<scalar_t, NX><<<blocks, ipoc::kRowWarp, 0, stream>>>(
       static_cast<const scalar_t*>(cx), static_cast<const scalar_t*>(fx),
       static_cast<const scalar_t*>(lamT), static_cast<scalar_t*>(lam), B, T);
   return static_cast<int>(cudaGetLastError());
@@ -218,5 +213,26 @@ extern "C" int ipoc_seq_costates(int dtype, int nx, const void* cx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_costates<float>(nx, cx, fx, lamT, lam, B, T, s);
   if (dtype == 1) return dispatch_costates<double>(nx, cx, fx, lamT, lam, B, T, s);
+  return -1;
+}
+
+// The card's view of one instantiation of costate_kernel.
+template <typename scalar_t, int NX>
+int costate_occupancy(int* out) {
+  return ipoc::kernel_occupancy(costate_kernel<scalar_t, NX>, ipoc::kRowWarp, 0,
+                                ipoc::Costates<scalar_t, NX>::S, out);
+}
+
+template <typename scalar_t>
+int dispatch_costate_occupancy(int nx, int* out) {
+  if (nx == 2) return costate_occupancy<scalar_t, 2>(out);
+  if (nx == 3) return costate_occupancy<scalar_t, 3>(out);
+  if (nx == 4) return costate_occupancy<scalar_t, 4>(out);
+  return -1;
+}
+
+extern "C" int ipoc_seq_costates_occupancy(int dtype, int nx, int* out) {
+  if (dtype == 0) return dispatch_costate_occupancy<float>(nx, out);
+  if (dtype == 1) return dispatch_costate_occupancy<double>(nx, out);
   return -1;
 }

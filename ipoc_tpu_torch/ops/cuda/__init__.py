@@ -176,7 +176,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "seq_newton": {"ipoc_seq_trial": [_I] * 3 + [_P] * 12 + [_I, _I, _P],
                    "ipoc_seq_costates": [_I] * 2 + [_P] * 4 + [_I, _I, _P],
-                   "ipoc_seq_trial_occupancy": [_I] * 3 + [_P]},
+                   "ipoc_seq_trial_occupancy": [_I] * 3 + [_P],
+                   "ipoc_seq_costates_occupancy": [_I] * 2 + [_P]},
     "par_newton": {
         "ipoc_affine_scan": [_I] * 3 + [_P] * 4 + [_I, _I, _P],
         "ipoc_value_scan": [_I] * 2 + [_P] * 10 + [_I, _I, _P],

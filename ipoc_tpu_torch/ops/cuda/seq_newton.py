@@ -36,13 +36,25 @@ def row_lanes(nx: int) -> int:
 
 
 def row_geometry(nx: int, B: int) -> dict:
-    """The launch of ``seq_trial_kernel`` and ``fused_bwd_kernel`` for B
-    scenarios of state size nx: one warp per block, 32 / G scenarios a
-    block."""
+    """The launch of ``seq_trial_kernel``, ``costate_kernel`` and
+    ``fused_bwd_kernel`` (and of ``merged_trial_kernel``, whose groups are
+    the backward sweep's) for B scenarios of state size nx: one warp per
+    block, 32 / G scenarios a block."""
     lanes = row_lanes(nx)
     per_block = WARP // lanes
     return {"lanes_per_scenario": lanes, "scenarios_per_block": per_block,
             "blocks": -(-B // per_block), "threads_per_block": WARP}
+
+
+def costate_occupancy(dtype: torch.dtype, nx: int) -> dict:
+    """The card's view of one instantiation of the costate kernel (as
+    :func:`trial_occupancy`)."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    cuda.check(cuda.library().ipoc_seq_costates_occupancy(
+        cuda.dtype_code(dtype), nx, out), "seq_costates_occupancy")
+    return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
 def trial_occupancy(dtype: torch.dtype, nx: int, nu: int) -> dict:
@@ -196,8 +208,8 @@ def seq_newton_trial_batched(ru, Q, R, M, fx, fu, XT):
     if B == 0:
         return du, dx, pred, ok
     lib = cuda.library()
-    with torch.cuda.device(fu.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with cuda.device_guard(fu.device):
+        stream = torch.cuda.current_stream(fu.device).cuda_stream
         status = lib.ipoc_seq_trial(
             code, nx, nu, *(a.data_ptr() for a in args), gains.data_ptr(),
             du.data_ptr(), dx.data_ptr(), pred.data_ptr(), ok.data_ptr(),
@@ -226,8 +238,8 @@ def seq_costates_batched(cx, fx, lam_T):
     if B == 0:
         return lam
     lib = cuda.library()
-    with torch.cuda.device(cx.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with cuda.device_guard(cx.device):
+        stream = torch.cuda.current_stream(cx.device).cuda_stream
         status = lib.ipoc_seq_costates(
             code, nx, cx.data_ptr(), fx.data_ptr(), lam_T.data_ptr(),
             lam.data_ptr(), B, T, stream)

@@ -29,9 +29,11 @@ are written with ``torch.func`` on one element (shapes ``(nx,)``, ``(nu,)``,
 function of a generated ``Model`` struct; ``fused_bwd`` runs ``stage_bwd``
 split at the costate into its two halves (:func:`backward_halves`),
 ``fused_fwd`` runs ``stage_fwd`` cut at the deviation and at the trial
-point into three parts (:func:`forward_parts`), ``transition`` runs
-``transition`` cut per candidate (:func:`transition_parts`).  One library
-per model is built from that text (:func:`model_spec`).
+point into three parts (:func:`forward_parts`), ``merged_trial`` runs
+those halves and parts, in DDP mode ``stage_ddp_fwd`` cut at the trial
+point (:func:`ddp_forward_parts`), ``transition`` runs ``transition`` cut
+per candidate (:func:`transition_parts`).  One library per model is
+built from that text (:func:`model_spec`).
 
 Layout (the packed stream's, batch-last): stage arrays ``(T, rows, B)``,
 terminal and initial states ``(nx, B)``, per-lane scalars ``(B,)``.  Each
@@ -283,6 +285,30 @@ def forward_parts(ocp: OCP, nx: int, nu: int) -> tuple:
     return _HALVES[key]
 
 
+def ddp_forward_parts(ocp: OCP, nx: int, nu: int) -> tuple:
+    """The merged trial's DDP forward sweep's two parts of
+    ``stage_ddp_fwd`` (``csrc/merged_trial.h``): ``stage_ddp_fwd_step(x,
+    u, tx, gains) -> (tu, tx, tx+)``, the closed-loop step that runs on the
+    chain (the program cut at its inputs but ``bp``); and its evaluation,
+    the trial point's cost, maximum constraint value and ``||cu||^2`` from
+    ``(tx, tu, bp)``, each summand as the pair of operands whose product it
+    is.  Raises ``ValueError`` unless the evaluation is
+    :func:`forward_parts`' ``stage_fwd_eval`` program, which the kernel
+    runs for it."""
+    key = (ocp, nx, nu, "ddp_fwd")
+    if key not in _HALVES:
+        prog = scalar_programs(ocp, nx, nu)["stage_ddp_fwd"]
+        step = prog.cut([("in", 0), ("in", 1), ("in", 3), ("in", 4)],
+                        (0, 1, 2), "stage_ddp_fwd_step")
+        ev = prog.cut([("out", 1), ("out", 0), ("in", 2)], (3, 4, 5),
+                      "stage_fwd_eval", factor=(3, 5))
+        if not same_program(ev, forward_parts(ocp, nx, nu)[2]):
+            raise ValueError("stage_ddp_fwd: its evaluation is not "
+                             "stage_fwd_eval's program")
+        _HALVES[key] = step, ev
+    return _HALVES[key]
+
+
 def transition_parts(ocp: OCP, nx: int, nu: int) -> tuple:
     """The transition kernel's per-candidate parts of ``transition``
     (``csrc/transition.h``), cut at candidate a's inputs:
@@ -310,10 +336,13 @@ def transition_parts(ocp: OCP, nx: int, nu: int) -> tuple:
 def model_struct(ocp: OCP, nx: int, nu: int) -> str:
     """The generated ``struct Model``: the shapes, the handoff counts of
     ``stage_bwd_pre`` (NH) and ``stage_fwd_pre`` (NHF), every scalarized
-    stage program and the parts of those that the kernels split."""
+    stage program and the parts of those that the kernels split (the DDP
+    forward sweep's evaluation is ``stage_fwd_eval``, so only its step is
+    emitted)."""
     pre, post = backward_halves(ocp, nx, nu)
     fwd = forward_parts(ocp, nx, nu)
     progs = [*scalar_programs(ocp, nx, nu).values(), pre, post, *fwd,
+             ddp_forward_parts(ocp, nx, nu)[0],
              *transition_parts(ocp, nx, nu)]
     body = "\n\n".join(p.c_source(indent="  ") for p in progs)
     return ("struct Model {\n"
@@ -367,6 +396,8 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
             fn.restype = i
         lib.ipoc_merged_trial.argtypes = [i, i, p, p, i, i, p]
         lib.ipoc_merged_trial.restype = i
+        lib.ipoc_merged_trial_occupancy.argtypes = [i, i, p]
+        lib.ipoc_merged_trial_occupancy.restype = i
         lib.ipoc_mega.argtypes = [i, i, p, p, p, i, i, i, p]
         lib.ipoc_mega.restype = i
         lib.ipoc_ring_layout.argtypes = [i, p]
@@ -387,6 +418,16 @@ def group_occupancy(ocp: OCP, nx: int, nu: int, dtype: torch.dtype,
     out = (ctypes.c_int * 6)()
     cuda.check(getattr(library(ocp, nx, nu), f"ipoc_{kernel}_occupancy")(
         cuda.dtype_code(dtype), out), f"{kernel}_occupancy")
+    return dict(zip(cuda.OCCUPANCY_KEYS, out))
+
+
+def merged_occupancy(ocp: OCP, nx: int, nu: int, dtype: torch.dtype,
+                     ddp: bool) -> dict:
+    """The card's view of the model's merged trial kernel in one mode (as
+    :func:`group_occupancy`)."""
+    out = (ctypes.c_int * 6)()
+    cuda.check(library(ocp, nx, nu).ipoc_merged_trial_occupancy(
+        cuda.dtype_code(dtype), int(ddp), out), "merged_trial_occupancy")
     return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
@@ -445,8 +486,8 @@ def fused_fwd_launch(ocp: OCP, xs, xT, u, bp, Kk):
 
 def merged_trial_launch(ocp: OCP, xs, xT, u, bp, reg, ddp: bool = False):
     """The merged one-launch trial on a card's tensors, Newton or DDP mode:
-    the backward sweep, then the forward sweep in the same thread, the
-    gains through a scratch ``(T, (1+nx)*nu, B)`` output.  Returns
+    the backward sweep, then the forward sweep on the same warp, the gains
+    through shared memory and a scratch ``(T, (1+nx)*nu, B)`` output.  Returns
     :func:`fused_newton_iter_packed`'s ten outputs."""
     T, nx, B = xs.shape
     nu = u.shape[1]

@@ -163,9 +163,9 @@ def mega_k_iterations(ocp: OCP, lane: PackedLane, active, cfg: SolverConfig,
 
 
 def ring_layout(ocp: OCP, nx: int, nu: int, dtype: torch.dtype) -> dict:
-    """The stage ring of the mega kernel and the merged trial in one
-    model's library (``csrc/mega.cuh``): stages per slot ``W``, slots
-    ``S`` and the dynamic shared memory per block in bytes."""
+    """The mega kernel's stage ring in one model's library
+    (``csrc/mega.cuh``): stages per slot ``W``, slots ``S`` and the dynamic
+    shared memory per block in bytes."""
     out = (ctypes.c_int * 3)()
     cuda.check(fused_iter.library(ocp, nx, nu).ipoc_ring_layout(
         cuda.dtype_code(dtype), out), "ring_layout")

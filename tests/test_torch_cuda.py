@@ -21,7 +21,9 @@ fused kernels at B=64, T=40 and at every B of {1, 33, 4096} with every T
 of {1, 7, 100, 1000} (each scenario a group of lanes there), the seq
 trial, the forward sweep and the transition also on inputs off a 16-byte
 boundary (bit-equal to aligned ones); the merged trial
-(``merged_trial``, Newton and DDP modes) likewise.  The mega kernel
+(``merged_trial``, Newton and DDP modes) likewise, and with the costate
+recursion at every B of {1, 33, 4096} with every T of {1, 7, 25, 100,
+1000}, on offset views too.  The mega kernel
 (``ops/mega.py``) against its plain version in float64: on all lanes but
 at most one (an accept decision may flip within rounding), equal
 iteration counts, stage iterations and done flags and every float field
@@ -160,11 +162,11 @@ def test_kernels_match_plain(card, case, dtype, size):
     assert float((du - du_p).abs().max()) <= tol * scale
     assert float((dx - dx_p).abs().max()) <= tol * scale
     assert float(((pred - pred_p).abs() / pred_p.abs()).max()) <= pred_rtol
-    # The costate kernel (one thread per scenario, as before) at every size
-    # in float64; in float32 up to T=100, the horizons its 1e-5 was set
-    # for: over 1000 float32 stages of the cartpole recursion its rounding
-    # and the plain version's part by 1e-5 of lam's scale of 2e4 (on an
-    # H100).
+    # The costate kernel (a group of lanes per scenario, csrc/costates.h)
+    # at every size in float64; in float32 up to T=100, the horizons its
+    # 1e-5 was set for: over 1000 float32 stages of the cartpole recursion
+    # its rounding and the plain version's part by 1e-5 of lam's scale of
+    # 2e4 (on an H100, the one-thread parent kernel likewise).
     if dtype == torch.float64 or size[1] <= 100:
         lam_p = seq_costates_plain(*costate)
         assert float((lam - lam_p).abs().max()) <= lam_tol * float(
@@ -376,31 +378,84 @@ def test_fused_stream_on_card_matches_cpu(card):
                                raw(ref.controls).numpy(), rtol=1e-8)
 
 
+# (B, T) of the redesigned merged trial and costate recursion
+# (csrc/merged_trial.h, csrc/costates.h): every B of {1, 33, 4096} with
+# every T of {1, 7, 25, 100, 1000} (25: the multigrid's coarse level; 7
+# and 25: partial chunks).
+GROUP_SIZES = [(B, T) for B in (1, 33, 4096) for T in (1, 7, 25, 100, 1000)]
+
+
+def _offset_view(a):
+    """``a`` as a contiguous view one element past an allocation's start
+    (off the 16-byte boundary of the rings' vector copies)."""
+    v = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+    assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+    return v
+
+
+@pytest.mark.parametrize("size", GROUP_SIZES, ids=_size_id)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["cartpole", "pendulum", "random_nx3_nu2"])
+def test_costate_kernel_matches_plain(card, case, dtype, size):
+    """The costate recursion against its plain version (float64 at every
+    size, float32 up to T=100: test_kernels_match_plain's tolerances and
+    reason), finite everywhere; at B = 33 on offset views, to the bit of
+    the aligned inputs."""
+    lam_tol = TOLS[dtype][2]
+    B, T = size
+    _, costate = _data(case, dtype, card, B, T)
+    cuda.reset_launches()
+    lam = seq_costates_batched(*costate)
+    torch.cuda.synchronize()
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                 seq_costates=1)
+    assert bool(torch.isfinite(lam).all())
+    if dtype == torch.float64 or T <= 100:
+        lam_p = seq_costates_plain(*costate)
+        assert float((lam - lam_p).abs().max()) <= lam_tol * float(
+            lam_p.abs().max())
+    if B == 33:
+        assert torch.equal(
+            seq_costates_batched(*map(_offset_view, costate)), lam)
+
+
+@pytest.mark.parametrize("size", [(64, 40)] + GROUP_SIZES, ids=_size_id)
 @pytest.mark.parametrize("ddp", [False, True], ids=["newton", "ddp"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("model", [cartpole, pendulum],
                          ids=["cartpole", "pendulum"])
-def test_merged_trial_matches_plain(card, model, dtype, ddp):
+def test_merged_trial_matches_plain(card, model, dtype, ddp, size):
     """The merged one-launch trial against the plain fused trial of its
-    mode, B=64, T=40; the DDP wrapper launches it."""
-    B, T = 64, 40
+    mode, B=64, T=40 and every (B, T) of GROUP_SIZES, the model at dt =
+    1/40 (T=1000: dt = 1/1000, as test_fused_kernels_match_plain): every
+    output within FUSED_TOL of its scale, equal ok flags; the DDP wrapper
+    launches it; at B = 33 on offset views, to the bit of the aligned
+    inputs."""
+    B, T = size
     tol = FUSED_TOL[dtype]
-    ocp, u, _, x0 = _lanes(model, B, T, 7, dtype, card)
+    ocp, u, _, x0 = _lanes(model, B, T, 7, dtype, card,
+                           ocp=_model_at_step(model, 1.0 / (T if T == 1000
+                                                            else 40)))
     bp = torch.full((B,), 0.05, dtype=dtype, device=card)
     xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0, bp)
     reg = 100.0 * torch.sqrt(cunsq)
     cuda.reset_launches()
     got = (tf.fused_newton_iter_packed(ocp, xs, xT, u, bp, reg, ddp=True)
            if ddp else tf.merged_trial_launch(ocp, xs, xT, u, bp, reg))
+    torch.cuda.synchronize()
+    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                 merged_trial=1)
     ref = tf.fused_newton_iter_plain(ocp, xs, xT, u, bp, reg, ddp=ddp)
     for g, r in zip(got, ref):
         _close(g, r, tol)
     ok = [torch.isfinite(o[7]) & (o[7] > 0) & torch.isfinite(o[6])
           for o in (got, ref)]
     assert torch.equal(ok[0], ok[1]) and bool(ok[1].all())
-    torch.cuda.synchronize()
-    assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
-                                 merged_trial=1)
+    if B == 33:
+        views = tf.merged_trial_launch(
+            ocp, *map(_offset_view, (xs, xT, u, bp, reg)), ddp=ddp)
+        for g, v in zip(got, views):
+            assert torch.equal(g, v)
 
 
 def _agreeing_lanes(got, ref, tol):
