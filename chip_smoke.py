@@ -696,13 +696,17 @@ def rows_report(seq_lib, fused):
 def par_ptxas_report(lib):
     """Registers and spill bytes of each instantiation of the three
     parallel-in-time kernels (``csrc/par_newton.cu``), keyed by kernel,
-    dtype and template shape (the trial's: nx, nu and lanes per scenario
-    P); for the trial also the card's view (``trial_occupancy``): resident
-    blocks per SM, threads, shared bytes and scenarios per block, checked
-    against the launch rule's RESIDENT_WARPS for the (4, 1) shape."""
+    dtype and template shape (the affine scan's: n, lanes per scenario P
+    and the direction; the trial's: nx, nu and P); for the trial and the
+    affine scan's suffix mode also the card's view (``trial_occupancy``,
+    ``scan_occupancy``): resident blocks per SM, threads, shared bytes and
+    scenarios per block, checked against the launch rules' resident warps
+    (RESIDENT_WARPS for the trial's (4, 1) shape, SCAN_RESIDENT_WARPS for
+    the scan at n = 4)."""
     import torch
 
     from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
 
     out = {}
     for (kernel, dt, args), rec in ptxas_entries(
@@ -722,7 +726,17 @@ def par_ptxas_report(lib):
             check((nx, nu) != (4, 1) or warps == nk.RESIDENT_WARPS,
                   f"{key}: {warps} resident warps per SM, the launch rule "
                   f"assumes {nk.RESIDENT_WARPS}")
-    expect = 2 * 3 * (2 + 1 + len(nk.TRIAL_LANES))
+        if kernel == "affine_scan_kernel" and shape.endswith("_1"):
+            n, lanes, _ = map(int, shape.split("_"))
+            dtype = torch.float32 if dt == "f" else torch.float64
+            occ = sk.scan_occupancy(dtype, n, lanes)
+            out[key].update(occ)
+            warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
+            assumed = sk.SCAN_RESIDENT_WARPS[dtype][lanes]
+            check(n != 4 or warps == assumed,
+                  f"{key}: {warps} resident warps per SM, the launch rule "
+                  f"assumes {assumed}")
+    expect = 2 * 3 * (2 * len(sk.SCAN_LANES) + 1 + len(nk.TRIAL_LANES))
     check(len(out) == expect,
           f"par_newton ptxas report incomplete: {sorted(out)}")
     return out
@@ -1262,19 +1276,39 @@ def rollout_tol(dtype):
     return 1e-12 if dtype == torch.float64 else F32_TOL
 
 
-def compare_rollout(ocp, u, x0, label):
-    """The rollout kernel against its plain version; the first stage must
-    be x0 itself."""
+def compare_rollout(ocp, u, x0, label, offset=False):
+    """The rollout kernel against the one-thread loop it replaced
+    (``rollout_reference``) to the bit and against its plain version; the
+    first stage must be x0 itself.  With ``offset``, also on inputs one
+    scalar past a 16-byte boundary, to the bit of the aligned ones."""
     import torch
 
     from ipoc_tpu_torch.ops import fused_iter as tf
 
     got = tf.rollout_packed(ocp, u, x0)
     check(torch.equal(got[0][0], x0), f"{label} rollout: xs[0] != x0")
+    check(all(torch.equal(g, r) for g, r in zip(
+        got, tf.rollout_reference(ocp, u, x0))),
+        f"{label} rollout: not bit for bit the one-thread loop")
+    if offset:
+        views = tf.rollout_packed(ocp, *(offset_view(a) for a in (u, x0)))
+        check(all(torch.equal(g, v) for g, v in zip(got, views)),
+              f"{label} rollout: offset views differ from aligned inputs")
     errs = [compare_out(f"{label} rollout[{i}]", g, r, rollout_tol(u.dtype))
             for i, (g, r) in enumerate(zip(got, tf.rollout_plain(ocp, u, x0)))]
     return {"max_abs_err": max(e[0] for e in errs),
-            "max_rel_err": max(e[1] for e in errs)}
+            "max_rel_err": max(e[1] for e in errs),
+            "equal_to_one_thread_loop": True, "offset_views_equal": offset}
+
+
+def offset_view(a):
+    """``a`` as a contiguous view one scalar past an allocation's start
+    (off the 16-byte boundary of the kernels' vector copies)."""
+    import torch
+
+    v = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+    check(v.data_ptr() % 16 != 0 and v.is_contiguous(), "offset view")
+    return v
 
 
 def compare_fused(ocp, pool, dtype, device, bp, tol, label):
@@ -1337,12 +1371,22 @@ def phase_fused_kernels(pool32, dev):
         pp = make_pool(pendulum, 512, torch.float32, seed=SEED + 1)
         out[f"pendulum_{tag}"] = compare_fused(
             pd, pp, dtype, dev, 0.1, tol, f"pendulum {tag}")
-        # The rollout kernel at the reference sweep's longest horizon.
+        # The rollout kernel at the reference sweep's longest horizon, and
+        # at a partial first chunk and a part block, offset views too.
         u1k, x1k = (a.to(dev, dtype) for a in make_pool(
             cartpole, 256, torch.float32, horizon=LONG_T))
         out[f"cartpole_T{LONG_T}_B256_{tag}_rollout"] = compare_rollout(
             model_ocp("cartpole", 1, LONG_T), u1k.permute(1, 2, 0)
-            .contiguous(), x1k.T.contiguous(), f"cartpole T={LONG_T} {tag}")
+            .contiguous(), x1k.T.contiguous(), f"cartpole T={LONG_T} {tag}",
+            offset=True)
+        for name, model in (("cartpole", cartpole), ("pendulum", pendulum)):
+            for T_ in (1, 7):
+                us, xs0 = (a.to(dev, dtype) for a in make_pool(
+                    model, 37, torch.float32, seed=SEED + T_, horizon=T_))
+                out[f"{name}_T{T_}_B37_{tag}_rollout"] = compare_rollout(
+                    model_ocp(name), us.permute(1, 2, 0).contiguous(),
+                    xs0.T.contiguous(), f"{name} T={T_} B=37 {tag}",
+                    offset=True)
 
     # Times at the slice's shape (cartpole, B=4096, T=100, float32; the
     # three group-schedule kernels also float64).
@@ -1351,17 +1395,7 @@ def phase_fused_kernels(pool32, dev):
     reg = rp * torch.clamp(torch.sqrt(cunsq), min=1e-6)
     up = (u + 0.2 * (u - u_other)).contiguous()
     T_, nx, B = xs.shape
-    plain_iter = cuda_ms(lambda: tf.fused_newton_iter_plain(
-        cp, xs, xT, u, bpt, reg), 3)
-    record = group_times(cp, xs, xT, u, up, x0, bpt, reg, plain_iter,
-                         cuda_ms(lambda: tf.transition_plain(
-                             cp, u, up, x0, bpt), 3))
-    record["rollout"] = {
-        "ms": cuda_ms(lambda: tf.rollout_packed(cp, u, x0), 20),
-        "plain_ms": cuda_ms(lambda: tf.rollout_plain(cp, u, x0), 3)}
-    record["rollout_cost"] = {
-        "ms": cuda_ms(lambda: tf.rollout_cost_packed(cp, u, x0, bpt), 20),
-        "plain_ms": cuda_ms(lambda: tf.rollout_cost_plain(cp, u, x0, bpt), 3)}
+    record = fused_times(cp, xs, xT, u, up, x0, bpt, reg)
     f32 = [out[f"cartpole_float32_bp{bp}"] for bp in (0.1, 0.004)]
     for k in tf.KERNELS:
         record[k]["max_abs_err"] = max(o[k]["max_abs_err"] for o in f32)
@@ -1392,12 +1426,10 @@ def phase_fused_kernels(pool32, dev):
 
     for k, (ins, outs) in ios(xs, xT, u, bpt, reg, Kk).items():
         record[k].update(bound(nbytes(ins, outs), B * per_lane[k]))
-    # The group-schedule kernels in float64 too, on the same lanes.
+    # Float64 too, on the same lanes.
     xs, xT, u, up, x0, bpt, reg = (a.double() for a in (xs, xT, u, up, x0,
                                                         bpt, reg))
-    rec64 = group_times(cp, xs, xT, u, up, x0, bpt, reg, cuda_ms(
-        lambda: tf.fused_newton_iter_plain(cp, xs, xT, u, bpt, reg), 3),
-        cuda_ms(lambda: tf.transition_plain(cp, u, up, x0, bpt), 3))
+    rec64 = fused_times(cp, xs, xT, u, up, x0, bpt, reg)
     Kk = tf.fused_bwd_launch(cp, xs, xT, u, bpt, reg)[0]
     io64 = ios(xs, xT, u, bpt, reg, Kk)
     for k in rec64:
@@ -1405,14 +1437,13 @@ def phase_fused_kernels(pool32, dev):
                               ops_per_s=PEAK_F64_OPS_PER_S))
     out["timing_float64"] = rec64
     out["timing"] = record
-    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (fused_bwd, fused_fwd "
-                           "and transition also float64), CUDA events "
-                           "around back-to-back calls; fused_bwd, fused_fwd "
-                           "and transition through their wrappers (ms) and "
-                           "their C entries on outputs allocated once "
-                           "(entry_ms), per stage at the median SM clock "
-                           "nvidia-smi reported; the plain time of fused_bwd "
-                           "and fused_fwd is the plain fused iteration, which "
+    out["timing_shape"] = (f"B={LANES}, T={T}, float32 (timing_float64: "
+                           "float64), CUDA events around back-to-back calls; "
+                           "each kernel through its wrapper (ms) and its C "
+                           "entry on outputs allocated once (entry_ms), per "
+                           "stage at the median SM clock nvidia-smi "
+                           "reported; the plain time of fused_bwd and "
+                           "fused_fwd is the plain fused iteration, which "
                            "covers both launches")
     out["errors"] = ("largest absolute error, and error / largest |plain|, "
                      "over each kernel's outputs")
@@ -1422,11 +1453,10 @@ def phase_fused_kernels(pool32, dev):
     return record
 
 
-def group_times(ocp, xs, xT, u, up, x0, bpt, reg, plain_iter, plain_trans):
-    """The three group-schedule kernels (fused_bwd, fused_fwd, transition)
-    through their wrappers (ms) and through the model library's C entries
-    on outputs allocated once (entry_ms, also per stage in SM cycles);
-    ``plain_iter`` and ``plain_trans`` are the plain versions' times."""
+def fused_times(ocp, xs, xT, u, up, x0, bpt, reg):
+    """The five fused kernels through their wrappers (ms) and through the
+    model library's C entries on outputs allocated once (entry_ms, also per
+    stage in SM cycles), beside their plain versions' times."""
     import torch
 
     from ipoc_tpu_torch.ops import cuda
@@ -1436,19 +1466,29 @@ def group_times(ocp, xs, xT, u, up, x0, bpt, reg, plain_iter, plain_trans):
     kw = dict(dtype=xs.dtype, device=xs.device)
     lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(xs.dtype)
     Kk = tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg)[0]
+    plain_iter = cuda_ms(lambda: tf.fused_newton_iter_plain(
+        ocp, xs, xT, u, bpt, reg), 3)
     kernels = {
         "fused_bwd": ((xs, u, xT, bpt, reg),
                       [(T_, 1 + nx, B)] + [(B,)] * 4,
                       lambda: tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg),
-                      plain_iter),
+                      lambda: plain_iter),
         "fused_fwd": ((xs, u, xT, bpt, Kk),
                       [(T_, 1, B), (T_, nx, B), (nx, B)] + [(B,)] * 3,
                       lambda: tf.fused_fwd_launch(ocp, xs, xT, u, bpt, Kk),
-                      plain_iter),
+                      lambda: plain_iter),
+        "rollout": ((u, x0), [(T_, nx, B), (nx, B)],
+                    lambda: tf.rollout_packed(ocp, u, x0),
+                    lambda: cuda_ms(lambda: tf.rollout_plain(ocp, u, x0), 3)),
+        "rollout_cost": ((u, x0, bpt), [(T_, nx, B), (nx, B), (B,), (B,)],
+                         lambda: tf.rollout_cost_packed(ocp, u, x0, bpt),
+                         lambda: cuda_ms(lambda: tf.rollout_cost_plain(
+                             ocp, u, x0, bpt), 3)),
         "transition": ((u, up, x0, bpt),
                        [(T_, nx, B)] * 2 + [(nx, B)] * 2 + [(B,)] * 4,
                        lambda: tf.transition_packed(ocp, u, up, x0, bpt),
-                       plain_trans),
+                       lambda: cuda_ms(lambda: tf.transition_plain(
+                           ocp, u, up, x0, bpt), 3)),
     }
     record = {}
     for name, (ins, shapes, wrapper, plain_ms) in kernels.items():
@@ -1464,7 +1504,7 @@ def group_times(ocp, xs, xT, u, up, x0, bpt, reg, plain_iter, plain_trans):
             busy(entry, 0.5)
             rec = {"ms": cuda_ms(wrapper, 50), "entry_ms": cuda_ms(entry, 50)}
         rec["entry"] = per_stage(rec["entry_ms"], T_, clock.mhz)
-        rec["plain_ms"] = plain_ms
+        rec["plain_ms"] = plain_ms()
         record[name] = rec
     return record
 
@@ -2220,6 +2260,12 @@ def phase_par_kernels(dev):
             trial, scans = par_inputs(T_, B, dtype, dev)
             out[label] = {**compare_scans(scans, tol, label),
                           "trial": compare_par_trial(trial, tol, label)}
+        # The scans alone at a horizon below one lane each, a partial
+        # chunk and one past a warp of lanes.
+        for T_ in (1, 7, 33):
+            label = f"cartpole T={T_} B={PAR_BATCH} {tag}"
+            out[label] = compare_scans(
+                par_inputs(T_, PAR_BATCH, dtype, dev)[1], tol, label)
         gen = torch.Generator().manual_seed(SEED)
         trial, _ = random_stage_data(gen, PAR_BATCH, 129, 3, 2, dtype, dev)
         label = f"random nx=3 nu=2 T=129 B={PAR_BATCH} {tag}"
@@ -2251,8 +2297,8 @@ def phase_par_kernels(dev):
     out["lqt_passes_launches"] = pipeline_counts
 
     # Times: B=1024 at T=100 (phase M's batch) and B=1 at T=1000 (phase
-    # L's single solve); the scans in float32, the trial in float32 and
-    # float64 with the launch geometry its wrapper picked.
+    # L's single solve), float32 and float64; the trial with the launch
+    # geometry its wrapper picked, the affine scan with its lanes.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     timing = {}
     for T_, B in ((T, PAR_BATCH), (1000, 1)):
@@ -2263,15 +2309,18 @@ def phase_par_kernels(dev):
                 lambda: nk.fused_newton_step(*trial),
                 lambda: nk.fused_newton_step_plain(*trial), trial,
                 par_trial_ops(B, T_, nx, nu))}
-            if dtype == torch.float32:
-                fns["affine_scan"] = (
-                    lambda: sk.affine_scan(*scans["suffix"], True),
-                    lambda: sk.affine_scan_plain(*scans["suffix"], True),
-                    scans["suffix"], B * T_ * affine_combine_ops(nx))
-                fns["value_scan"] = (
-                    lambda: sk.value_scan(*scans["value"]),
-                    lambda: sk.value_scan_plain(*scans["value"]),
-                    scans["value"], B * (T_ - 1) * value_combine_ops(nx))
+            for kind in ("suffix", "prefix"):
+                name = "affine_scan" + ("" if kind == "suffix" else "_prefix")
+                rev = kind == "suffix"
+                fns[name] = (
+                    lambda a=scans[kind], r=rev: sk.affine_scan(*a, r),
+                    lambda a=scans[kind], r=rev: sk.affine_scan_plain(*a, r),
+                    scans[kind], B * scans[kind][1].shape[1]
+                    * affine_combine_ops(nx))
+            fns["value_scan"] = (
+                lambda: sk.value_scan(*scans["value"]),
+                lambda: sk.value_scan_plain(*scans["value"]),
+                scans["value"], B * (T_ - 1) * value_combine_ops(nx))
             peak = (PEAK_F32_OPS_PER_S if dtype == torch.float32
                     else PEAK_F64_OPS_PER_S)
             rec = {}
@@ -2280,6 +2329,18 @@ def phase_par_kernels(dev):
                              "plain_ms": cuda_ms(plain, 3),
                              **bound(nbytes(ins, kernel()), ops,
                                      ops_per_s=peak)}
+                if name != "par_newton_trial":
+                    # The scan's C entry on outputs allocated once, also
+                    # per element of its horizon in SM cycles.
+                    entry = scan_entry(name, ins)
+                    with SmClock() as clock:
+                        busy(entry, 0.3)
+                        rec[name]["entry_ms"] = cuda_ms(entry, 50)
+                    rec[name]["entry"] = per_stage(
+                        rec[name]["entry_ms"], ins[1].shape[1], clock.mhz)
+                    if name != "value_scan":
+                        rec[name]["lanes"] = sk.scan_lanes(
+                            B, ins[1].shape[1], dtype, sms)
             # Through its wrapper (ms) the trial is paced by the wrapper's
             # host work at these shapes: its C entry on preallocated
             # outputs (entry_ms) gives the kernel's time.
@@ -2294,19 +2355,22 @@ def phase_par_kernels(dev):
             tag = "" if dtype == torch.float32 else " float64"
             timing[f"T={T_} B={B}{tag}"] = rec
     out["timing"] = timing
-    out["timing_shape"] = ("float32 (the trial also float64), CUDA events "
-                           "around back-to-back calls after a warm one; the "
-                           "trial through its wrapper (ms) and its C entry "
-                           "on preallocated outputs (entry_ms); the affine "
-                           "scan in its suffix mode on the costate elements "
-                           "(T+1)")
+    out["timing_shape"] = ("float32 and float64, CUDA events around "
+                           "back-to-back calls after a warm one; each kernel "
+                           "through its wrapper (ms) and its C entry on "
+                           "preallocated outputs (entry_ms; the scans' also "
+                           "per element of their horizon in SM cycles); the "
+                           "affine scan in its suffix mode on the costate "
+                           "elements (T+1), affine_scan_prefix on the LQT "
+                           "forward pass's closed-loop elements (T)")
     out["float32_tolerance"] = F32_TOL
     emit(out)
     f32 = [v for k, v in out.items() if k.endswith("float32")]
     record = {}
     for name in ("affine_scan", "value_scan", "par_newton_trial"):
         if name == "par_newton_trial":
-            err = max(r["trial"]["vs_plain"]["max_abs_err"] for r in f32)
+            err = max(r["trial"]["vs_plain"]["max_abs_err"] for r in f32
+                      if "trial" in r)
         else:
             err = max(r[k]["max_abs_err"] for r in f32 for k in r
                       if k.endswith("_scan")
@@ -2314,6 +2378,35 @@ def phase_par_kernels(dev):
         record[name] = {"max_abs_err": err,
                         **timing[f"T={T} B={PAR_BATCH}"][name]}
     return record, pipeline_counts
+
+
+def scan_entry(name, args):
+    """One launch of a scan's C entry (``ipoc_affine_scan`` in the suffix
+    mode, or in the prefix mode for ``affine_scan_prefix``, at the
+    wrapper's lanes per scenario; ``ipoc_value_scan``) on ``args`` with
+    outputs allocated once."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    lib = cuda.library(cuda.PAR_NEWTON)
+    B, T_, n = args[1].shape
+    outs = [torch.empty_like(a) for a in args]
+    ptrs = [a.data_ptr() for a in (*args, *outs)]
+    code = cuda.dtype_code(args[0].dtype)
+    if name == "value_scan":
+        fn, head = lib.ipoc_value_scan, (code, n)
+    else:
+        fn, head = lib.ipoc_affine_scan, (
+            code, n, int(name == "affine_scan"),
+            sk.scan_lanes(B, T_, args[0].dtype, cuda.sm_count(args[0].device)))
+
+    def call():
+        status = fn(*head, *ptrs, B, T_,
+                    torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"{name} launch status {status}")
+    return call
 
 
 def trial_entry(lib, trial, sms):
@@ -3111,13 +3204,13 @@ def main(argv=None):
         "seq_costates": ("costates.h", "seq_newton_kernel.py:622"),
         "fused_bwd": ("fused_bwd.h", "fused_iter_kernel.py:1261"),
         "fused_fwd": ("fused_fwd.h", "fused_iter_kernel.py:1298"),
-        "rollout": ("fused_iter.cuh", "fused_iter_kernel.py:1577"),
+        "rollout": ("rollout.h", "fused_iter_kernel.py:1577"),
         "rollout_cost": ("fused_iter.cuh", "fused_iter_kernel.py:1956"),
         "transition": ("transition.h", "fused_iter_kernel.py:2053"),
         "merged_trial": ("merged_trial.h", "fused_iter_kernel.py:1206"),
         "mega": ("mega.cuh", "mega_kernel.py:1148"),
         "mega_streamed": ("mega.cuh", "mega_kernel.py:1240"),
-        "affine_scan": ("par_newton.cu", "scan_kernels.py:252"),
+        "affine_scan": ("affine_scan.h", "scan_kernels.py:252"),
         "value_scan": ("par_newton.cu", "scan_kernels.py:252"),
         "par_newton_trial": ("par_trial.cuh", "newton_kernel.py:229"),
     }
@@ -3134,9 +3227,8 @@ def main(argv=None):
          "source": f"ipoc_tpu_torch/csrc/{src}",
          "replaces": pallas + rep, "launches": counts.get(k),
          **{f: record.get(k, {}).get(f) for f in keys},
-         # The C entry alone, where a phase timed it (seq_newton_trial,
-         # seq_costates, fused_bwd, fused_fwd, transition, merged_trial,
-         # par_newton_trial).
+         # The C entry alone, where a phase timed it (all but the mega
+         # kernel's two rows).
          **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})}}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -86,13 +86,28 @@
 //   #12 0.083 -> 0.057 (0.200 -> 0.088).  Registers, shared memory and
 //   resident blocks per SM: chip_smoke.py phase 0.
 //
-// The other two kernels run one thread per scenario.  What bounds them:
-// latency, not bytes.  At B = 4096 each is one serial loop of T dependent
-// stages per thread with 128 warps on the card, about one warp per SM, so
-// nothing hides the latency of a stage's arithmetic chain or of its loads.
-// Per stage a thread moves a few values (x, u, the outputs), far below
-// what the memory could stream in the time.  The resident mega kernel
-// (mega.cuh) fuses a lane iteration's launches.
+// rollout_kernel: one lane per scenario, the loop of rollout.h (host and
+// device; the CPU tests build it with g++).
+//   What bounds it: its chain, not its bytes.  x_{t+1} = dynamics(x_t,
+//   u_t) is serial, so T steps of the dynamics' latency are its floor: on
+//   an H100 (700 W) at B = 4096, T = 100, the one-thread loop it replaces
+//   with u pinned to stage 0 and no stores took 0.0199 ms in float32 (394
+//   cycles a stage; float64 0.0383, 759), against a byte bound of 0.0025
+//   and the loop's own 0.0295 (585 cycles; float64 0.0400): in float32 the
+//   load of u_t sat on the chain.
+//   What the design does: the controls of the next chunk of 8 stages are
+//   loaded into registers at the start of a chunk, so no load is on the
+//   chain; the chain keeps all of its arithmetic, so the results are the
+//   one-thread loop's bit for bit.  Float32 0.0295 -> 0.0225 ms; float64
+//   keeps the loop's time (its chain is 96% of it; one stage ahead) (PERF.md
+//   section 6).  rollout_reference_kernel keeps the loop it replaced, as
+//   the oracle the checks hold it to.
+//
+// rollout_cost_kernel runs one thread per scenario.  What bounds it:
+// latency, not bytes: one serial loop of T dependent stages per thread,
+// 128 warps on the card at B = 4096, the loads of u and the stage cost's
+// logs and divisions on the chain.  The resident mega kernel (mega.cuh)
+// fuses a lane iteration's launches.
 
 #pragma once
 
@@ -104,6 +119,7 @@
 #include "launch_attr.cuh"
 #include "lane.h"  // load_col, store_col
 #include "riccati.cuh"
+#include "rollout.h"
 #include "scalar_math.h"
 #include "transition.h"
 
@@ -163,16 +179,30 @@ fused_fwd_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
   F::schedule(ex, k, xT, bp, txT_o, nc_o, mc_o, cun_o);
 }
 
-// Open-loop rollout x_{t+1} = f(x_t, u_t), x kept in registers.  Bound by
-// bytes: each thread reads its u column once and writes its x column once,
-// (T*(NU+NX) + 2*NX) values per lane, coalesced across the warp.
+// Open-loop rollout x_{t+1} = f(x_t, u_t), one lane per scenario
+// (rollout.h).
 template <typename Model, typename scalar_t>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRolloutWarp)
 rollout_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
                const scalar_t* __restrict__ x0,  // (NX, B)
                scalar_t* __restrict__ xs_o,      // (T, NX, B) stages 0..T-1
                scalar_t* __restrict__ xT_o,      // (NX, B)
                int B, int T) {
+  const int b = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (b < B) Rollout<Model, scalar_t>::run(us, x0, xs_o, xT_o, B, T, b);
+}
+
+// The one-thread loop that rollout_kernel replaced (one thread per
+// scenario, u_t loaded and x_t stored in the chain's loop), kept as the
+// oracle that holds rollout_kernel to the bit (chip_smoke.py phase D,
+// tests/test_torch_cuda.py); no path launches it.
+template <typename Model, typename scalar_t>
+__global__ void __launch_bounds__(kFusedThreads)
+rollout_reference_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
+                         const scalar_t* __restrict__ x0,  // (NX, B)
+                         scalar_t* __restrict__ xs_o,      // (T, NX, B)
+                         scalar_t* __restrict__ xT_o,      // (NX, B)
+                         int B, int T) {
   constexpr int NX = Model::NX, NU = Model::NU;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -285,9 +315,21 @@ template <typename Model, typename scalar_t>
 int launch_rollout(const void* const* in, void* const* out, int B, int T,
                    cudaStream_t s) {
   using P = const scalar_t*;
-  rollout_kernel<Model, scalar_t><<<fused_blocks(B), kFusedThreads, 0, s>>>(
-      P(in[0]), P(in[1]), static_cast<scalar_t*>(out[0]),
-      static_cast<scalar_t*>(out[1]), B, T);
+  rollout_kernel<Model, scalar_t>
+      <<<Rollout<Model, scalar_t>::blocks(B), kRolloutWarp, 0, s>>>(
+          P(in[0]), P(in[1]), static_cast<scalar_t*>(out[0]),
+          static_cast<scalar_t*>(out[1]), B, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Model, typename scalar_t>
+int launch_rollout_reference(const void* const* in, void* const* out, int B,
+                             int T, cudaStream_t s) {
+  using P = const scalar_t*;
+  rollout_reference_kernel<Model, scalar_t>
+      <<<fused_blocks(B), kFusedThreads, 0, s>>>(
+          P(in[0]), P(in[1]), static_cast<scalar_t*>(out[0]),
+          static_cast<scalar_t*>(out[1]), B, T);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,6 +399,8 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
   IPOC_FUSED_ENTRY(ipoc_fused_fwd, launch_fused_fwd, MODEL)            \
   IPOC_FUSED_ENTRY(ipoc_rollout, launch_rollout, MODEL)                \
   IPOC_FUSED_ENTRY(ipoc_rollout_cost, launch_rollout_cost, MODEL)      \
+  IPOC_FUSED_ENTRY(ipoc_rollout_reference, launch_rollout_reference,   \
+                   MODEL)                                              \
   IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)          \
   IPOC_FUSED_OCCUPANCY(ipoc_fused_bwd_occupancy, fused_bwd_kernel,     \
                        FusedBwd, MODEL)                                \
@@ -364,5 +408,7 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
                        FusedFwd, MODEL)                                \
   IPOC_FUSED_OCCUPANCY(ipoc_transition_occupancy, transition_kernel,   \
                        Transition, MODEL)                              \
+  IPOC_FUSED_OCCUPANCY(ipoc_rollout_occupancy, rollout_kernel, Rollout, \
+                       MODEL)                                          \
   IPOC_MERGED_ENTRY(MODEL)                                             \
   IPOC_MEGA_ENTRY(MODEL)

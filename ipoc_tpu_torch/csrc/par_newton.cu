@@ -14,13 +14,28 @@
 //
 // The two scans.  The TPU kernels laid the horizon along the 128 lanes,
 // padded to a multiple of 128, and ran ceil(log2 Tp) Hillis-Steele rounds
-// over the whole horizon.  Here one block of kScanThreads = 128 threads
-// takes one scenario (the grid is B blocks) and each thread a contiguous
-// chunk of ceil(T / 128) stages: the thread combines its chunk serially in
-// registers, the block scans the 128 chunk aggregates in shared memory
-// (scan.cuh block_carry, double-buffered, 2 x 128 elements), and the
-// thread walks its chunk again from the carried-in aggregate.  No horizon
-// cap: only the chunk grows with T.
+// over the whole horizon.  The value scan runs one block of kScanThreads =
+// 128 threads per scenario (the grid is B blocks), each thread a
+// contiguous chunk of ceil(T / 128) stages: the thread combines its chunk
+// serially in registers, the block scans the 128 chunk aggregates in
+// shared memory (scan.cuh block_carry, double-buffered, 2 x 128 elements),
+// and the thread walks its chunk again from the carried-in aggregate.  No
+// horizon cap: only the chunk grows with T.
+//
+// The affine scan ran so too.  What bounded it on an H100 (700 W), at B =
+// 1024, T = 101 (the costates of solve_batch(method="par")): its C entry
+// took 0.066 ms against a byte bound of 0.0049; without the block's 7
+// rounds 0.025 (each a barrier and 128 combines where the work needs
+// 99); the rest was the two walks' loads, each thread's rows a chunk apart
+// from its neighbours', so every load instruction of a warp touched 32
+// lines.  Its design (affine_scan.h): P lanes per scenario by the launch
+// rule (ops/scan_kernels.py scan_lanes: at this batch 64 in float32, 32
+// in float64; 256 for one scenario at T = 1001), the chunks staged through
+// shared memory in tiles whose copies and stores are whole lines, the
+// chunk aggregates scanned inside each warp by shuffles and over the
+// warps' totals with one barrier.  C entry 0.066 -> 0.011-0.020 ms at
+// B = 1024 (float64 0.146 -> 0.015-0.020), 0.049 -> 0.011-0.019 at B = 1,
+// the spread from call to call (PERF.md sections 5 and 7).
 //
 // The trial (par_trial.h holds its lanes' phases and schedule, and
 // par_trial.cuh its kernel and launch).  What bounds it on the card is
@@ -69,76 +84,43 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "affine_scan.h"
 #include "riccati.cuh"
 #include "scan.cuh"
 
 namespace {
 
-using ipoc::AffineOp;
+using ipoc::AffineScan;
 using ipoc::allow_smem;
 using ipoc::block_carry;
 using ipoc::copy_elem;
+using ipoc::kernel_occupancy;
 using ipoc::kScanThreads;
+using ipoc::ScanExec;
 using ipoc::thread_chunk;
 using ipoc::ValueOp;
 
-template <typename scalar_t, int N, bool REVERSE>
-__global__ void __launch_bounds__(kScanThreads)
+// The affine scan of one scenario per P threads (affine_scan.h).
+template <typename scalar_t, int N, int P, bool REVERSE>
+__global__ void __launch_bounds__(AffineScan<scalar_t, N, P, REVERSE>::kBlock)
 affine_scan_kernel(const scalar_t* __restrict__ F,  // (B, T, N, N)
                    const scalar_t* __restrict__ c,  // (B, T, N)
                    scalar_t* __restrict__ Fo,       // (B, T, N, N)
                    scalar_t* __restrict__ co,       // (B, T, N)
-                   int T) {
-  using Op = AffineOp<scalar_t, N>;
-  constexpr int E = Op::E;
+                   int B, int T) {
+  using Sc = AffineScan<scalar_t, N, P, REVERSE>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* buf = reinterpret_cast<scalar_t*>(smem_raw);
-  const size_t base = static_cast<size_t>(blockIdx.x) * T;
-  int t0, t1;
-  thread_chunk(T, t0, t1);
-  const int len = t1 - t0;
-
-  auto load = [&](int t, scalar_t* e) {
-#pragma unroll
-    for (int r = 0; r < N * N; ++r) e[r] = F[(base + t) * N * N + r];
-#pragma unroll
-    for (int r = 0; r < N; ++r) e[N * N + r] = c[(base + t) * N + r];
-  };
-
-  // 1. This chunk's aggregate, walking in the scan's direction.
-  scalar_t agg[E];
-  Op::identity(agg);
-  for (int s = 0; s < len; ++s) {
-    const int t = REVERSE ? t1 - 1 - s : t0 + s;
-    scalar_t e[E], nxt[E];
-    load(t, e);
-    if (s == 0) {
-      copy_elem<scalar_t, E>(e, agg);
-    } else {
-      Op::combine(e, agg, nxt);
-      copy_elem<scalar_t, E>(nxt, agg);
-    }
-  }
-  // 2. The block's scan of the aggregates.
-  scalar_t run[E];
-  bool have = block_carry<Op, scalar_t, REVERSE>(agg, buf, run);
-  // 3. The chunk again from the carried-in aggregate.
-  for (int s = 0; s < len; ++s) {
-    const int t = REVERSE ? t1 - 1 - s : t0 + s;
-    scalar_t e[E], nxt[E];
-    load(t, e);
-    if (have) {
-      Op::combine(e, run, nxt);
-      copy_elem<scalar_t, E>(nxt, run);
-    } else {
-      copy_elem<scalar_t, E>(e, run);
-      have = true;
-    }
-#pragma unroll
-    for (int r = 0; r < N * N; ++r) Fo[(base + t) * N * N + r] = run[r];
-#pragma unroll
-    for (int r = 0; r < N; ++r) co[(base + t) * N + r] = run[N * N + r];
-  }
+  scalar_t* sh = reinterpret_cast<scalar_t*>(smem_raw);
+  const int within = static_cast<int>(threadIdx.x) / P;  // scenario in block
+  const int b = static_cast<int>(blockIdx.x) * Sc::kScenarios + within;
+  if (b >= B) return;  // the scenario's P threads leave together
+  const auto s = Sc::scenario(F, c, Fo, co, b, T);
+  typename Sc::Lane lane;
+  Sc::init(lane, static_cast<int>(threadIdx.x) % P, T);
+  ScanExec<typename Sc::Lane, P> ex{lane};
+  Sc::schedule(ex, s, sh + within * Sc::kShared);
 }
 
 template <typename scalar_t, int N>
@@ -218,18 +200,49 @@ value_scan_kernel(const scalar_t* __restrict__ A,    // (B, T, N, N)
   }
 }
 
-template <typename scalar_t, int N>
-int launch_affine(int reverse, const void* F, const void* c, void* Fo,
-                  void* co, int B, int T, cudaStream_t stream) {
-  constexpr size_t smem = 2 * kScanThreads * AffineOp<scalar_t, N>::E * sizeof(scalar_t);
-  auto kernel = reverse ? affine_scan_kernel<scalar_t, N, true>
-                        : affine_scan_kernel<scalar_t, N, false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, kScanThreads, smem, stream>>>(
-      static_cast<const scalar_t*>(F), static_cast<const scalar_t*>(c),
-      static_cast<scalar_t*>(Fo), static_cast<scalar_t*>(co), T);
-  return static_cast<int>(cudaGetLastError());
+template <typename scalar_t, int N, int P, bool REVERSE>
+struct ScanLaunch {
+  using Sc = AffineScan<scalar_t, N, P, REVERSE>;
+  static constexpr size_t smem = Sc::kScenarios * Sc::kShared * sizeof(scalar_t);
+
+  static int launch(const void* F, const void* c, void* Fo, void* co, int B, int T,
+                    cudaStream_t stream) {
+    auto kernel = affine_scan_kernel<scalar_t, N, P, REVERSE>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<(B + Sc::kScenarios - 1) / Sc::kScenarios, Sc::kBlock, smem, stream>>>(
+        static_cast<const scalar_t*>(F), static_cast<const scalar_t*>(c),
+        static_cast<scalar_t*>(Fo), static_cast<scalar_t*>(co), B, T);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  // launch_attr.cuh kernel_occupancy.
+  static int occupancy(int* out) {
+    return kernel_occupancy(affine_scan_kernel<scalar_t, N, P, REVERSE>, Sc::kBlock, smem,
+                            Sc::kScenarios, out);
+  }
+};
+
+// fn(ScanLaunch<scalar_t, n, P, reverse>()); -1 for an n or P with no
+// instantiation.
+template <typename scalar_t, class Fn>
+int with_scan(int n, int P, int reverse, Fn&& fn) {
+  auto lanes = [&](auto nn, auto rev) -> int {
+    constexpr int N = decltype(nn)::value;
+    constexpr bool R = decltype(rev)::value;
+    if (P == 32) return fn(ScanLaunch<scalar_t, N, 32, R>());
+    if (P == 64) return fn(ScanLaunch<scalar_t, N, 64, R>());
+    if (P == 128) return fn(ScanLaunch<scalar_t, N, 128, R>());
+    if (P == 256) return fn(ScanLaunch<scalar_t, N, 256, R>());
+    return -1;
+  };
+  auto dir = [&](auto nn) -> int {
+    return reverse ? lanes(nn, std::true_type()) : lanes(nn, std::false_type());
+  };
+  if (n == 2) return dir(std::integral_constant<int, 2>());
+  if (n == 3) return dir(std::integral_constant<int, 3>());
+  if (n == 4) return dir(std::integral_constant<int, 4>());
+  return -1;
 }
 
 template <typename scalar_t, int N>
@@ -247,15 +260,6 @@ int launch_value(const void* const* in, void* const* out, int B, int T,
 }
 
 template <typename scalar_t>
-int dispatch_affine(int n, int reverse, const void* F, const void* c,
-                    void* Fo, void* co, int B, int T, cudaStream_t s) {
-  if (n == 2) return launch_affine<scalar_t, 2>(reverse, F, c, Fo, co, B, T, s);
-  if (n == 3) return launch_affine<scalar_t, 3>(reverse, F, c, Fo, co, B, T, s);
-  if (n == 4) return launch_affine<scalar_t, 4>(reverse, F, c, Fo, co, B, T, s);
-  return -1;
-}
-
-template <typename scalar_t>
 int dispatch_value(int n, const void* const* in, void* const* out, int B,
                    int T, cudaStream_t s) {
   if (n == 2) return launch_value<scalar_t, 2>(in, out, B, T, s);
@@ -269,12 +273,22 @@ int dispatch_value(int n, const void* const* in, void* const* out, int B,
 // C entry points, bound with ctypes.  `dtype` is 0 for float32, 1 for
 // float64.  Each returns cudaGetLastError() after the launch (0 on success)
 // or -1 for a shape with no instantiation; nothing is synchronised.
-extern "C" int ipoc_affine_scan(int dtype, int n, int reverse, const void* F,
+extern "C" int ipoc_affine_scan(int dtype, int n, int reverse, int P, const void* F,
                                 const void* c, void* Fo, void* co, int B,
                                 int T, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_affine<float>(n, reverse, F, c, Fo, co, B, T, s);
-  if (dtype == 1) return dispatch_affine<double>(n, reverse, F, c, Fo, co, B, T, s);
+  auto go = [&](auto l) { return l.launch(F, c, Fo, co, B, T, s); };
+  if (dtype == 0) return with_scan<float>(n, P, reverse, go);
+  if (dtype == 1) return with_scan<double>(n, P, reverse, go);
+  return -1;
+}
+
+// The affine scan's launch geometry and residency for (dtype, n, P) in its
+// suffix mode: six ints, as launch_attr.cuh kernel_occupancy.
+extern "C" int ipoc_affine_scan_occupancy(int dtype, int n, int P, int* out) {
+  auto go = [&](auto l) { return l.occupancy(out); };
+  if (dtype == 0) return with_scan<float>(n, P, 1, go);
+  if (dtype == 1) return with_scan<double>(n, P, 1, go);
   return -1;
 }
 

@@ -44,10 +44,8 @@
 
 #pragma once
 
-#include <type_traits>
-
 #include "riccati.cuh"
-#include "scan.cuh"
+#include "scan.cuh"  // AffineOp, ValueOp, load_row
 
 namespace ipoc {
 
@@ -64,28 +62,6 @@ struct StageData {
   alignas(16) scalar_t fx[NX * NX];
   alignas(16) scalar_t fu[NX * NU];
 };
-
-// Row s (N scalars) of a (rows, N) array.  On the card, in 16- or 8-byte
-// vectors where N scalars fill them (the wrapper hands over 16-byte aligned
-// tensors): a lane's rows lie a chunk apart from its neighbours', so each
-// load instruction of a warp touches 32 lines, and wider loads need fewer
-// of them.
-template <typename scalar_t, int N>
-IPOC_HD void load_row(const scalar_t* a, size_t s, scalar_t* dst) {
-  constexpr int bytes = N * static_cast<int>(sizeof(scalar_t));
-  constexpr int V = bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : 0;
-#ifdef __CUDA_ARCH__
-  if constexpr (V > 0) {
-    using vec = typename std::conditional<V == 16, uint4, uint2>::type;
-    const vec* src = reinterpret_cast<const vec*>(a + s * N);
-#pragma unroll
-    for (int k = 0; k < bytes / V; ++k) reinterpret_cast<vec*>(dst)[k] = src[k];
-    return;
-  }
-#endif
-#pragma unroll
-  for (int r = 0; r < N; ++r) dst[r] = a[s * N + r];
-}
 
 template <typename scalar_t, int NX, int NU>
 IPOC_HD void load_stage(const scalar_t* ru, const scalar_t* Q,

@@ -1,6 +1,6 @@
 // Associative-scan algebra shared by the parallel-in-time kernels
-// (csrc/par_newton.cu, csrc/par_trial.h) and the block scan of the affine
-// and value scan kernels.  Counterpart of the lane-layout helpers of
+// (csrc/par_newton.cu, csrc/affine_scan.h, csrc/par_trial.h), their
+// row loads and stores, and the block scan of the value scan kernel.  Counterpart of the lane-layout helpers of
 // ipoc_tpu/ops/pallas/scan_kernels.py: _affine_combine_lanes,
 // _value_combine_lanes and the Hillis-Steele rounds of _scan_rounds.
 //
@@ -11,8 +11,8 @@
 // Arithmetic follows the JAX lane kernels term by term (same products, same
 // summation order, unpivoted eliminations through riccati.cuh's
 // solve_track); nvcc may contract a product and a sum into one FMA.  The
-// algebra is host and device (IPOC_HD): the trial's host build
-// (par_trial.h) compiles it with g++.
+// algebra is host and device (IPOC_HD): the host builds of the trial
+// (par_trial.h) and the affine scan (affine_scan.h) compile it with g++.
 //
 // The block scan (device only): a block of kScanThreads threads scans one scenario's
 // horizon.  Each thread owns a contiguous chunk of stages; the caller
@@ -32,6 +32,10 @@
 #include "launch_attr.cuh"  // allow_smem
 #endif
 #include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "riccati.cuh"
 
@@ -200,6 +204,46 @@ template <typename scalar_t, int E>
 IPOC_HD void copy_elem(const scalar_t* src, scalar_t* dst) {
 #pragma unroll
   for (int r = 0; r < E; ++r) dst[r] = src[r];
+}
+
+// Row s (N scalars) of a (rows, N) array.  On the card, in 16- or 8-byte
+// vectors where N scalars fill them (the wrappers hand over 16-byte aligned
+// tensors, and `dst` is 16-byte aligned): a lane's rows lie a chunk apart
+// from its neighbours', so each load instruction of a warp touches 32
+// lines, and wider loads need fewer of them.
+template <typename scalar_t, int N>
+IPOC_HD void load_row(const scalar_t* a, size_t s, scalar_t* dst) {
+  constexpr int bytes = N * static_cast<int>(sizeof(scalar_t));
+  constexpr int V = bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : 0;
+#ifdef __CUDA_ARCH__
+  if constexpr (V > 0) {
+    using vec = typename std::conditional<V == 16, uint4, uint2>::type;
+    const vec* src = reinterpret_cast<const vec*>(a + s * N);
+#pragma unroll
+    for (int k = 0; k < bytes / V; ++k) reinterpret_cast<vec*>(dst)[k] = src[k];
+    return;
+  }
+#endif
+#pragma unroll
+  for (int r = 0; r < N; ++r) dst[r] = a[s * N + r];
+}
+
+// The store of row s, as load_row reads it.
+template <typename scalar_t, int N>
+IPOC_HD void store_row(scalar_t* a, size_t s, const scalar_t* src) {
+  constexpr int bytes = N * static_cast<int>(sizeof(scalar_t));
+  constexpr int V = bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : 0;
+#ifdef __CUDA_ARCH__
+  if constexpr (V > 0) {
+    using vec = typename std::conditional<V == 16, uint4, uint2>::type;
+    vec* dst = reinterpret_cast<vec*>(a + s * N);
+#pragma unroll
+    for (int k = 0; k < bytes / V; ++k) dst[k] = reinterpret_cast<const vec*>(src)[k];
+    return;
+  }
+#endif
+#pragma unroll
+  for (int r = 0; r < N; ++r) a[s * N + r] = src[r];
 }
 
 #ifdef __CUDACC__

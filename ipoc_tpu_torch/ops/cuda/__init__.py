@@ -65,6 +65,19 @@ PAR_NEWTON = LibSpec("par_newton", (CSRC / "par_newton.cu",
                                     CSRC / "par_trial_f64.cu"))
 
 
+# The SMs of an H100 (SXM): the launch rules' default card.
+H100_SMS = 132
+_sms = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of card ``device`` (read once per card)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
 # What the occupancy entries (``ipoc_*_occupancy``) write, in order.
 OCCUPANCY_KEYS = ("blocks_per_sm", "threads_per_block", "shared_bytes_per_block",
                   "scenarios_per_block", "registers", "local_bytes")
@@ -179,7 +192,8 @@ _SIGNATURES = {
                    "ipoc_seq_trial_occupancy": [_I] * 3 + [_P],
                    "ipoc_seq_costates_occupancy": [_I] * 2 + [_P]},
     "par_newton": {
-        "ipoc_affine_scan": [_I] * 3 + [_P] * 4 + [_I, _I, _P],
+        "ipoc_affine_scan": [_I] * 4 + [_P] * 4 + [_I, _I, _P],
+        "ipoc_affine_scan_occupancy": [_I] * 3 + [_P],
         "ipoc_value_scan": [_I] * 2 + [_P] * 10 + [_I, _I, _P],
         "ipoc_par_newton_trial": [_I] * 4 + [_P] * 12 + [_I, _I, _P],
         "ipoc_par_trial_occupancy": [_I] * 4 + [_P]},

@@ -378,9 +378,10 @@ _LIBS: dict = {}
 # stream); the merged trial and the mega kernel (``ops/mega.py``) take a
 # mode and more.
 KERNELS = ("fused_bwd", "fused_fwd", "rollout", "rollout_cost", "transition")
-# The kernels that spread a scenario over a group of lanes (csrc/fused_bwd.h,
-# fused_fwd.h, transition.h), each with an occupancy entry.
-GROUP_KERNELS = ("fused_bwd", "fused_fwd", "transition")
+# The kernels launched in one-warp blocks of several scenarios
+# (csrc/fused_bwd.h, fused_fwd.h, transition.h, rollout.h), each with an
+# occupancy entry.
+GROUP_KERNELS = ("fused_bwd", "fused_fwd", "transition", "rollout")
 
 
 def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
@@ -390,7 +391,7 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
     if key not in _LIBS:
         lib = ctypes.CDLL(str(cuda.build(model_spec(ocp, nx, nu))))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in KERNELS:
+        for name in KERNELS + ("rollout_reference",):
             fn = getattr(lib, f"ipoc_{name}")
             fn.argtypes = [i, p, p, i, i, p]
             fn.restype = i
@@ -436,8 +437,10 @@ def pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu, mode=None):
-    """Check the inputs, allocate the outputs and launch kernel ``name``;
+def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu, mode=None,
+            counted=True):
+    """Check the inputs, allocate the outputs and launch kernel ``name``
+    (counted in ``cuda.launches`` unless ``counted`` is false);
     ``ins[0]`` is a stage array ``(T, rows, B)``.  ``mode`` (0 Newton, 1
     DDP) goes to an entry point that takes one.  This host work paces
     back-to-back launches of the shorter kernels (some 70 us a call on an
@@ -458,7 +461,8 @@ def _launch(ocp, name, ins, in_shapes, out_shapes, nx, nu, mode=None):
             *lead, pointers(ins), pointers(outs), B, T,
             torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(status, name)
-    cuda.launches[name] += 1
+    if counted:
+        cuda.launches[name] += 1
     return tuple(outs)
 
 
@@ -651,6 +655,17 @@ def rollout_packed(ocp: OCP, u, x0):
     nx = x0.shape[0]
     return _launch(ocp, "rollout", (u, x0), [(T, nu, B), (nx, B)],
                    [(T, nx, B), (nx, B)], nx, nu)
+
+
+def rollout_reference(ocp: OCP, u, x0):
+    """The one-thread loop that the rollout kernel replaced, on a card
+    (``csrc/fused_iter.cuh`` rollout_reference_kernel): the oracle that
+    holds :func:`rollout_packed` to the bit.  No path launches it, and its
+    launches are not counted."""
+    T, nu, B = u.shape
+    nx = x0.shape[0]
+    return _launch(ocp, "rollout_reference", (u, x0), [(T, nu, B), (nx, B)],
+                   [(T, nx, B), (nx, B)], nx, nu, counted=False)
 
 
 def rollout_cost_packed(ocp: OCP, u, x0, bp):

@@ -31,10 +31,9 @@ TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2))
 # block shape is the kernel's own (csrc/par_trial.h).
 TRIAL_LANES = (32, 64, 128, 256)
 RESIDENT_WARPS = 8
-H100_SMS = 132
 
 
-def trial_lanes(B: int, T: int, sms: int = H100_SMS) -> int:
+def trial_lanes(B: int, T: int, sms: int = cuda.H100_SMS) -> int:
     """P, the trial kernel's lanes per scenario for B scenarios of T
     stages on a card of ``sms`` SMs.  P starts at 32 and doubles while it
     is below 256 and below T (each lane keeps a stage) and the doubled

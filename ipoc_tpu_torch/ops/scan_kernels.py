@@ -7,7 +7,9 @@ LQT forward pass) and conditional-value 5-tuples ``(A, b, C, eta, J)`` (the
 LQT backward pass).  Each wrapper takes the plain version for tensors on the
 CPU and launches the hand-written CUDA kernel (``csrc/par_newton.cu``) for
 tensors on a card; anything else raises.  There is no gate on dtype or n:
-a card without an instantiation for the shape raises.
+a card without an instantiation for the shape raises.  The affine scan
+spreads a scenario over ``P`` lanes (``csrc/affine_scan.h``) picked by
+:func:`scan_lanes`.
 
 The plain versions are :func:`ipoc_tpu_torch.parallel.scan.associative_scan`
 over the two combines, the same recursion and argument order as the JAX
@@ -15,6 +17,8 @@ package's ``lax.associative_scan`` paths.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,6 +28,42 @@ from ipoc_tpu_torch.parallel.scan import associative_scan
 # State dimensions the scan kernels are instantiated for (pendulum,
 # cartpole and the nx=3 layout pin).
 SCAN_N = (2, 3, 4)
+# Lanes per scenario the affine scan is instantiated for, and its launch
+# rule's constants: the warps an SM holds of the n=4 kernel in each dtype
+# at each lane count (its tile in shared memory, 40-83 KB a block in
+# float32 and 90-182 KB in float64, sets them; phase 0 of chip_smoke.py
+# checks them against scan_occupancy).
+SCAN_LANES = (32, 64, 128, 256)
+SCAN_RESIDENT_WARPS = {torch.float32: {32: 20, 64: 16, 128: 20, 256: 16},
+                       torch.float64: {32: 8, 64: 8, 128: 8, 256: 8}}
+
+
+def scan_lanes(B: int, T: int, dtype: torch.dtype,
+               sms: int = cuda.H100_SMS) -> int:
+    """P, the affine scan's lanes per scenario for B scenarios of T stages
+    on a card of ``sms`` SMs: the trial's rule (``ops/newton_kernel.py``
+    trial_lanes) with the scan's resident warps.  P starts at 32 and
+    doubles while it is below 256 and below T (each lane keeps a stage)
+    and the doubled launch's warps, B * 2P / 32, still fit in one wave of
+    ``sms`` x SCAN_RESIDENT_WARPS[dtype][2P].  So a float32 batch of 1024
+    takes 64 lanes (B=1024, T=101: 2 stages a lane; float64 32 lanes of
+    4) and a single scenario spreads its horizon (T=1001: 256 lanes of 4
+    stages)."""
+    warps = SCAN_RESIDENT_WARPS[dtype]
+    P = SCAN_LANES[0]
+    while P < SCAN_LANES[-1] and P < T and B * 2 * P <= sms * warps[2 * P] * 32:
+        P *= 2
+    return P
+
+
+def scan_occupancy(dtype: torch.dtype, n: int, lanes: int) -> dict:
+    """The card's view of the affine scan's suffix kernel at ``n`` and
+    ``lanes``: resident blocks per SM, threads, shared bytes and scenarios
+    per block, registers and local (spill) bytes per thread."""
+    out = (ctypes.c_int * 6)()
+    cuda.check(cuda.library(cuda.PAR_NEWTON).ipoc_affine_scan_occupancy(
+        cuda.dtype_code(dtype), n, lanes, out), "affine_scan_occupancy")
+    return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
 def affine_scan_plain(F, c, reverse: bool = False):
@@ -63,15 +103,20 @@ def affine_scan(F, c, reverse: bool = False):
         raise NotImplementedError(
             f"affine_scan: no kernel for n = {n}; instantiated: {SCAN_N}")
     code = cuda.check_inputs("affine_scan", (F, c), ((B, T, n, n), (B, T, n)))
+    # The kernel reads and writes rows in 16-byte vectors: a view that
+    # starts off a 16-byte boundary goes through a copy.
+    F, c = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (F, c))
     Fo, co = torch.empty_like(F), torch.empty_like(c)
     if B == 0 or T == 0:
         return Fo, co
     lib = cuda.library(cuda.PAR_NEWTON)
-    with torch.cuda.device(F.device):
+    dev = F.device
+    with cuda.device_guard(dev):
         status = lib.ipoc_affine_scan(
-            code, n, int(bool(reverse)), F.data_ptr(), c.data_ptr(),
-            Fo.data_ptr(), co.data_ptr(), B, T,
-            torch.cuda.current_stream().cuda_stream)
+            code, n, int(bool(reverse)),
+            scan_lanes(B, T, F.dtype, cuda.sm_count(dev)), F.data_ptr(),
+            c.data_ptr(), Fo.data_ptr(), co.data_ptr(), B, T,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(status, "affine_scan")
     cuda.launches["affine_scan"] += 1
     return Fo, co
@@ -96,11 +141,11 @@ def value_scan(A, b, C, eta, J):
     if B == 0 or T == 0:
         return outs
     lib = cuda.library(cuda.PAR_NEWTON)
-    with torch.cuda.device(A.device):
+    with cuda.device_guard(A.device):
         status = lib.ipoc_value_scan(
             code, n, *(a.data_ptr() for a in args),
             *(o.data_ptr() for o in outs), B, T,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream(A.device).cuda_stream)
     cuda.check(status, "value_scan")
     cuda.launches["value_scan"] += 1
     return outs

@@ -642,6 +642,32 @@ def test_rollout_kernel_matches_plain(card, B, T, dtype):
         _close(g, r, ROLLOUT_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", [1, 7, 40, 1000])
+@pytest.mark.parametrize("model", [cartpole, pendulum],
+                         ids=["cartpole", "pendulum"])
+def test_rollout_kernel_matches_parent(card, model, T, dtype):
+    """The rollout's lane loop (csrc/rollout.h) at the host tests'
+    shapes, B in {1, 3, 37} (T=1000: B=256, dt 1/1000): equal to the
+    one-thread loop it replaced (``rollout_reference``) bit for bit, within
+    ROLLOUT_TOL of its plain version, and on inputs one scalar past a
+    16-byte boundary equal to the aligned ones."""
+    for B in ((256,) if T == 1000 else (1, 3, 37)):
+        ocp, u, _, x0 = _lanes(model, B, T, B + T, dtype, card,
+                               ocp=_model_at_step(model, 1.0 / max(T, 40)))
+        cuda.reset_launches()
+        got = tf.rollout_packed(ocp, u, x0)
+        torch.cuda.synchronize()
+        assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0), rollout=1)
+        for g, r in zip(got, tf.rollout_reference(ocp, u, x0)):
+            assert torch.equal(g, r), (B, T)
+        for g, r in zip(got, tf.rollout_plain(ocp, u, x0)):
+            _close(g, r, ROLLOUT_TOL[dtype])
+        views = tf.rollout_packed(ocp, _offset_view(u), _offset_view(x0))
+        for g, v in zip(got, views):
+            assert torch.equal(g, v), (B, T)
+
+
 def test_rollout_kernel_raises_on_what_it_does_not_take(card):
     ocp, u, _, x0 = _lanes(pendulum, 8, 5, 6, torch.float64, card)
     with pytest.raises(NotImplementedError):
@@ -779,7 +805,7 @@ def test_scan_kernels_match_plain(card, n, dtype):
 
     tol = SCAN_TOL[dtype]
     rng = np.random.default_rng(n)
-    for T in (5, 128, 130, 1001):
+    for T in (1, 5, 7, 33, 128, 129, 130, 1001):
         F = torch.tensor(0.5 * rng.normal(size=(3, T, n, n)), dtype=dtype,
                          device=card)
         c = torch.tensor(rng.normal(size=(3, T, n)), dtype=dtype,
@@ -800,6 +826,42 @@ def test_scan_kernels_match_plain(card, n, dtype):
         assert cuda.launches["value_scan"] == 1
         for g, r in zip(got, sk.value_scan_plain(*elems)):
             assert _rel_err(g, r) <= tol, T
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_affine_scan_every_lane_count(card, n, dtype):
+    """The affine scan's C entry at every lane count P in {32, 64, 128,
+    256}, both directions, three scenarios at the host tests' horizons
+    (1000 and 129: no multiple of P times the chunk), against the plain
+    version; and at B=1024, T=1000 through the wrapper, at the lanes
+    ``scan_lanes`` picks."""
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    tol = SCAN_TOL[dtype]
+    rng = np.random.default_rng(10 + n)
+    lib = cuda.library(cuda.PAR_NEWTON)
+    code = cuda.dtype_code(dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, T in [(3, T) for T in (1, 7, 33, 129, 1000)] + [(1024, 1000)]:
+        F = torch.tensor(0.5 * rng.normal(size=(B, T, n, n)), dtype=dtype,
+                         device=card)
+        c = torch.tensor(rng.normal(size=(B, T, n)), dtype=dtype, device=card)
+        for reverse in (True, False):
+            ref = sk.affine_scan_plain(F, c, reverse)
+            if B == 1024:
+                got = sk.affine_scan(F, c, reverse)
+                for g, r in zip(got, ref):
+                    assert _rel_err(g, r) <= tol, (B, T, reverse)
+                continue
+            for P in sk.SCAN_LANES:
+                Fo, co = torch.full_like(F, float("nan")), torch.full_like(c, float("nan"))
+                cuda.check(lib.ipoc_affine_scan(
+                    code, n, int(reverse), P, F.data_ptr(), c.data_ptr(),
+                    Fo.data_ptr(), co.data_ptr(), B, T, stream), "affine_scan")
+                torch.cuda.synchronize()
+                for g, r in zip((Fo, co), ref):
+                    assert _rel_err(g, r) <= tol, (T, reverse, P)
 
 
 # The trial's launch geometries: every lane count the launch rule picks
