@@ -23,7 +23,9 @@ line:
      transition of cartpole and pendulum), per dtype, registers, spills,
      shared memory per block, resident blocks per SM and scenarios per
      block (checked to hold a B=4096 launch in one wave), and the SASS of
-     their stage loops;
+     their stage loops; the rollout-cost kernel's group schedule among
+     them, and the value scan per lane count with its residency (checked
+     against the launch rule's);
   A. each kernel against its plain PyTorch version on the card, on stage
      data taken from the real slice (cartpole, T=100, B=4096), in float32
      and float64, on random nx=3, nu=2 data, and on an indefinite R that
@@ -41,16 +43,22 @@ line:
      slice's data (cartpole T=100, the pool's first 4096 lanes, at bp=0.1
      and at bp=0.004), float64 then float32, and on pendulum at B=256;
      the rollout kernel also on cartpole T=1000 at B=256 (float64 within
-     1e-12 of scale); then each kernel's time beside its plain version's
-     (the backward and forward sweeps and the transition also in float64,
-     and through their C entries alone, in SM cycles per stage);
+     1e-12 of scale); the rollout-cost kernel bit for bit the one-thread
+     loop it replaced at cartpole (pendulum's parting recorded), also at
+     T 1 and 7 on B=37 and on offset views; then each kernel's time beside
+     its plain version's (the backward and forward sweeps and the
+     transition also in float64, and through their C entries alone, in SM
+     cycles per stage), and the rollout-cost kernel's C entry against the
+     one-thread loop's in turns at B=4096 and at the streams' median lane
+     opening (OPEN_B), both dtypes;
   E. ``solve_stream`` with ``BATCH_CONFIG`` (the packed stream on its mega
      executor) on 256 cartpole scenarios in float64: the card against the
      CPU;
   F. the packed stream's two-launch arm (``mega=False``) at the bench's
      width: cartpole H=100, float32, ``BATCH_CONFIG`` unmodified, 4096
      lanes, refill every 32, a pool of 4 x 4096 scenarios, with the device
-     busy share and every kernel's launch count; then the first 512 raw
+     busy share, every kernel's launch count and the lane openings' B
+     (count, min, median, max; so too H, I and O); then the first 512 raw
      costs against the float64 solve on the card;
   G. the merged trial (Newton at T=100, DDP at T=25) and the mega kernel
      (Newton at T=100 and DDP at T=25, k=4 with two iterations per barrier
@@ -80,7 +88,8 @@ line:
      public LQT passes on the scan kernels, whose launches are counted
      there; then each kernel's time beside its plain version's (the trial
      in float32 and float64, with the lanes and blocks it launched,
-     through its wrapper and its C entry alone);
+     through its wrapper and its C entry alone; the scans with the lanes
+     per scenario their launch rule picked);
   L. ``par_interior_point_optimal_control``: the goldens (pendulum and
      cartpole H=100, float64) against tests/golden/*.npz and the CPU run,
      the seq solve beside them; cartpole H=1000 under FAST_CONFIG in
@@ -143,6 +152,10 @@ SEED = 1
 T = 100
 DT = 1.0 / T
 LANES = 4096
+# The median B of the streams' lane openings (phases F and H record them:
+# 965 and 963 at this pool and seed), where phase D also times the
+# rollout-cost kernel.
+OPEN_B = 965
 POOL = 4 * LANES  # the bench's pool is 32 x lanes; 4 x keeps this smoke short
 REFILL = 32
 COARSEN = 4  # the multigrid's coarse level: T=25 at 4 x the time step
@@ -697,12 +710,13 @@ def par_ptxas_report(lib):
     """Registers and spill bytes of each instantiation of the three
     parallel-in-time kernels (``csrc/par_newton.cu``), keyed by kernel,
     dtype and template shape (the affine scan's: n, lanes per scenario P
-    and the direction; the trial's: nx, nu and P); for the trial and the
-    affine scan's suffix mode also the card's view (``trial_occupancy``,
-    ``scan_occupancy``): resident blocks per SM, threads, shared bytes and
-    scenarios per block, checked against the launch rules' resident warps
-    (RESIDENT_WARPS for the trial's (4, 1) shape, SCAN_RESIDENT_WARPS for
-    the scan at n = 4)."""
+    and the direction; the value scan's: n and P; the trial's: nx, nu and
+    P); for the trial, the value scan and the affine scan's suffix mode
+    also the card's view (``trial_occupancy``, ``scan_occupancy``):
+    resident blocks per SM, threads, shared bytes and scenarios per block,
+    checked against the launch rules' resident warps (RESIDENT_WARPS for
+    the trial's (4, 1) shape, SCAN_RESIDENT_WARPS and VALUE_RESIDENT_WARPS
+    for the scans at n = 4)."""
     import torch
 
     from ipoc_tpu_torch.ops import newton_kernel as nk
@@ -726,17 +740,19 @@ def par_ptxas_report(lib):
             check((nx, nu) != (4, 1) or warps == nk.RESIDENT_WARPS,
                   f"{key}: {warps} resident warps per SM, the launch rule "
                   f"assumes {nk.RESIDENT_WARPS}")
-        if kernel == "affine_scan_kernel" and shape.endswith("_1"):
-            n, lanes, _ = map(int, shape.split("_"))
+        value = kernel == "value_scan_kernel"
+        if value or (kernel == "affine_scan_kernel" and shape.endswith("_1")):
+            n, lanes = map(int, shape.split("_")[:2])
             dtype = torch.float32 if dt == "f" else torch.float64
-            occ = sk.scan_occupancy(dtype, n, lanes)
+            occ = sk.scan_occupancy(dtype, n, lanes, value=value)
             out[key].update(occ)
             warps = occ["blocks_per_sm"] * occ["threads_per_block"] // 32
-            assumed = sk.SCAN_RESIDENT_WARPS[dtype][lanes]
+            assumed = (sk.VALUE_RESIDENT_WARPS if value
+                       else sk.SCAN_RESIDENT_WARPS)[dtype][lanes]
             check(n != 4 or warps == assumed,
                   f"{key}: {warps} resident warps per SM, the launch rule "
                   f"assumes {assumed}")
-    expect = 2 * 3 * (2 * len(sk.SCAN_LANES) + 1 + len(nk.TRIAL_LANES))
+    expect = 2 * 3 * (3 * len(sk.SCAN_LANES) + len(nk.TRIAL_LANES))
     check(len(out) == expect,
           f"par_newton ptxas report incomplete: {sorted(out)}")
     return out
@@ -1154,6 +1170,10 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
     wall = time.perf_counter() - t0
     counts = dict(cuda.launches)
     events = {k: len(v) - before[k] for k, v in counters.items()}
+    for k, v in counters.items():
+        # A counter that records each call's size (lane openings: B).
+        if any(x is not None for x in v[before[k]:]):
+            events[f"{k}_B"] = size_summary(v[before[k]:])
 
     costs = raw_costs(ocp, sol.controls, x0).double().cpu()
     iters = sol.iterations.cpu().double()
@@ -1301,6 +1321,38 @@ def compare_rollout(ocp, u, x0, label, offset=False):
             "equal_to_one_thread_loop": True, "offset_views_equal": offset}
 
 
+def compare_rollout_cost(ocp, u, x0, bp, label, exact, offset=False):
+    """The rollout-cost kernel against the one-thread loop it replaced
+    (``rollout_cost_reference``): bit for bit where ``exact`` (cartpole;
+    elsewhere ``nvcc`` may contract the two programs apart), else the
+    outputs that part and by how much.  With ``offset``, also on inputs one
+    scalar past a 16-byte boundary, to the bit of the aligned ones."""
+    import torch
+
+    from ipoc_tpu_torch.ops import fused_iter as tf
+
+    got = tf.rollout_cost_packed(ocp, u, x0, bp)
+    ref = tf.rollout_cost_reference(ocp, u, x0, bp)
+    parted = [i for i, (g, r) in enumerate(zip(got, ref))
+              if not torch.equal(g, r)]
+    check(not exact or not parted, f"{label} rollout_cost: outputs {parted} "
+          "not bit for bit the one-thread loop")
+    rec = {"equal_to_one_thread_loop": not parted}
+    if parted:
+        rec["parted_outputs"] = parted
+        rec["max_rel_diff_vs_one_thread_loop"] = max(
+            float((got[i] - ref[i]).abs().max() / ref[i].abs().max())
+            for i in parted)
+    if offset:
+        views = tf.rollout_cost_packed(ocp, *(offset_view(a)
+                                              for a in (u, x0, bp)))
+        check(all(torch.equal(g, v) for g, v in zip(got, views)),
+              f"{label} rollout_cost: offset views differ from aligned "
+              "inputs")
+        rec["offset_views_equal"] = True
+    return rec
+
+
 def offset_view(a):
     """``a`` as a contiguous view one scalar past an allocation's start
     (off the 16-byte boundary of the kernels' vector copies)."""
@@ -1344,6 +1396,8 @@ def compare_fused(ocp, pool, dtype, device, bp, tol, label):
                 for n, g, r in triples]
         out[kernel] = {"max_abs_err": max(e[0] for e in errs),
                        "max_rel_err": max(e[1] for e in errs)}
+    out["rollout_cost"].update(compare_rollout_cost(
+        ocp, u, x0, bpt, label, label.startswith("cartpole")))
     ok = [torch.isfinite(o[7]) & (o[7] > 0) & torch.isfinite(o[6])
           for o in (got_it, ref_it)]
     check(torch.equal(ok[0], ok[1]), f"{label}: ok flags differ")
@@ -1383,10 +1437,18 @@ def phase_fused_kernels(pool32, dev):
             for T_ in (1, 7):
                 us, xs0 = (a.to(dev, dtype) for a in make_pool(
                     model, 37, torch.float32, seed=SEED + T_, horizon=T_))
+                us, xs0 = us.permute(1, 2, 0).contiguous(), xs0.T.contiguous()
                 out[f"{name}_T{T_}_B37_{tag}_rollout"] = compare_rollout(
-                    model_ocp(name), us.permute(1, 2, 0).contiguous(),
-                    xs0.T.contiguous(), f"{name} T={T_} B=37 {tag}",
+                    model_ocp(name), us, xs0, f"{name} T={T_} B=37 {tag}",
                     offset=True)
+                # The rollout-cost kernel at a partial chunk and a part
+                # block, offset views too.
+                bp37 = torch.full((37,), 0.1, dtype=dtype, device=dev)
+                out[f"{name}_T{T_}_B37_{tag}_rollout_cost"] = \
+                    compare_rollout_cost(
+                        model_ocp(name), us, xs0, bp37,
+                        f"{name} T={T_} B=37 {tag}", name == "cartpole",
+                        offset=True)
 
     # Times at the slice's shape (cartpole, B=4096, T=100, float32; the
     # three group-schedule kernels also float64).
@@ -1426,6 +1488,15 @@ def phase_fused_kernels(pool32, dev):
 
     for k, (ins, outs) in ios(xs, xT, u, bpt, reg, Kk).items():
         record[k].update(bound(nbytes(ins, outs), B * per_lane[k]))
+    # The rollout-cost kernel against the loop it replaced, at the slice's
+    # width and at the streams' median lane opening, both dtypes.
+    turns = {}
+    for dtype in (torch.float32, torch.float64):
+        for b in (B, OPEN_B):
+            ins = (u[..., :b], x0[:, :b], bpt[:b])
+            turns[f"B={b} {str(dtype)[6:]}"] = rollout_cost_turns(
+                cp, *(a.to(dtype).contiguous() for a in ins))
+    out["rollout_cost_turns"] = turns
     # Float64 too, on the same lanes.
     xs, xT, u, up, x0, bpt, reg = (a.double() for a in (xs, xT, u, up, x0,
                                                         bpt, reg))
@@ -1451,6 +1522,41 @@ def phase_fused_kernels(pool32, dev):
     out["rollout_float64_tolerance"] = rollout_tol(torch.float64)
     emit(out)
     return record
+
+
+def rollout_cost_turns(ocp, u, x0, bp):
+    """The rollout-cost kernel's C entry and the one-thread loop's
+    (``ipoc_rollout_cost_reference``) on the same inputs with outputs
+    allocated once, timed in turns (loop, kernel, kernel, loop) at the SM
+    clock: ms, and cycles per stage of the faster of each pair."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import fused_iter as tf
+
+    T_, _, B = u.shape
+    nx = x0.shape[0]
+    lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(u.dtype)
+    ip = tf.pointers((u, x0, bp))
+    calls = {}
+    for name in ("rollout_cost_reference", "rollout_cost"):
+        outs = [torch.empty(sh, dtype=u.dtype, device=u.device)
+                for sh in ((T_, nx, B), (nx, B), (B,), (B,))]
+        op, fn = tf.pointers(outs), getattr(lib, f"ipoc_{name}")
+
+        def call(fn=fn, op=op, outs=outs, name=name):
+            status = fn(code, ip, op, B, T_,
+                        torch.cuda.current_stream().cuda_stream)
+            check(status == 0, f"{name} launch status {status}")
+        calls[name] = call
+    order = ("rollout_cost_reference", "rollout_cost", "rollout_cost",
+             "rollout_cost_reference")
+    with SmClock() as clock:
+        busy(calls["rollout_cost"], 0.3)
+        ms = [cuda_ms(calls[n], 50) for n in order]
+    return {"B": B, "entry_ms": ms[1:3], "reference_entry_ms": [ms[0], ms[3]],
+            "entry": per_stage(min(ms[1:3]), T_, clock.mhz),
+            "reference_entry": per_stage(min(ms[0], ms[3]), T_, clock.mhz)}
 
 
 def fused_times(ocp, xs, xT, u, up, x0, bpt, reg):
@@ -1510,17 +1616,19 @@ def fused_times(ocp, xs, xT, u, up, x0, bpt, reg):
 
 
 class counting:
-    """Count the calls of ``module.name`` inside the ``with`` block (one
-    entry appended to ``self.calls`` per call)."""
+    """Count the calls of ``module.name`` inside the ``with`` block: one
+    entry appended to ``self.calls`` per call, ``size(*args, **kwargs)``
+    where ``size`` is given, else None."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, size=None):
         self.module, self.name, self.calls = module, name, []
+        self.size = size
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
 
         def counted(*a, **k):
-            self.calls.append(1)
+            self.calls.append(self.size(*a, **k) if self.size else None)
             return self.real(*a, **k)
 
         setattr(self.module, self.name, counted)
@@ -1528,6 +1636,21 @@ class counting:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
+
+
+def opened_lanes(ocp, u, *a, **k):
+    """B of a ``packed_lane_init`` call: the lanes it opens."""
+    return int(u.shape[-1])
+
+
+def size_summary(sizes):
+    """Count, min, lower median and max of the sizes a ``counting`` block
+    recorded."""
+    s = sorted(sizes)
+    if not s:
+        return {"count": 0}
+    return {"count": len(s), "min": s[0], "median": s[(len(s) - 1) // 2],
+            "max": s[-1]}
 
 
 def open_packed(ocp, u, x0, cfg, bp):
@@ -1552,7 +1675,7 @@ def phase_fused_bench_size(pool32, pool64, dev):
     from ipoc_tpu_torch.solvers import packed_stream as ps
 
     cfg = BATCH_CONFIG
-    with counting(ps, "packed_lane_init") as opened:
+    with counting(ps, "packed_lane_init", opened_lanes) as opened:
         rec, _ = phase_stream_at_width(
             "F", cfg, "BATCH_CONFIG, two-launch arm (mega=False)", pool32,
             pool64, dev,
@@ -1926,7 +2049,7 @@ def phase_mega_stream(pool32, pool64, dev):
     from ipoc_tpu_torch.solvers import packed_stream as ps
 
     cfg = BATCH_CONFIG
-    with counting(ps, "packed_lane_init") as opened, \
+    with counting(ps, "packed_lane_init", opened_lanes) as opened, \
             counting(mega, "mega_k_iterations") as rounds:
         rec, sol = phase_stream_at_width(
             "H", cfg, "BATCH_CONFIG (mega executor)", pool32, pool64, dev,
@@ -1966,7 +2089,7 @@ def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
                                       coarse_impl="ddp", **kw)
 
     solve(u[:256], x0[:256], lanes=256).iterations.cpu()  # warm-up
-    with counting(ps, "packed_lane_init") as opened, \
+    with counting(ps, "packed_lane_init", opened_lanes) as opened, \
             counting(mega, "mega_k_iterations") as rounds:
         cuda.reset_launches()
         t0 = time.perf_counter()
@@ -1975,6 +2098,7 @@ def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
         wall = time.perf_counter() - t0
         counts = dict(cuda.launches)
         n_open, n_rounds = len(opened.calls), len(rounds.calls)
+        open_b = size_summary(opened.calls)
     busy, top = run_busy_share(lambda: solve(u, x0).iterations.cpu(), wall)
 
     c_mg = raw_costs(ocp, sol.controls, x0).double().cpu()
@@ -1996,7 +2120,8 @@ def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
         "fine": {"steps": sol.steps, "mean_iterations": float(it_f.mean()),
                  "max_iterations": int(it_f.max())},
         "launches": counts, "refill_rounds": n_rounds,
-        "lane_openings": n_open, "max_abs_u": umax,
+        "lane_openings": n_open, "lane_openings_B": open_b,
+        "max_abs_u": umax,
         "basin_switch_frac_vs_single_grid": float(switched.double().mean()),
         "mean_signed_rel_cost_delta_switched": float(
             ((c_mg - c_sg) / c_sg.abs().clamp(min=1e-12))[switched].mean())
@@ -2338,9 +2463,9 @@ def phase_par_kernels(dev):
                         rec[name]["entry_ms"] = cuda_ms(entry, 50)
                     rec[name]["entry"] = per_stage(
                         rec[name]["entry_ms"], ins[1].shape[1], clock.mhz)
-                    if name != "value_scan":
-                        rec[name]["lanes"] = sk.scan_lanes(
-                            B, ins[1].shape[1], dtype, sms)
+                    rec[name]["lanes"] = sk.scan_lanes(
+                        B, ins[1].shape[1], dtype, sms,
+                        value=name == "value_scan")
             # Through its wrapper (ms) the trial is paced by the wrapper's
             # host work at these shapes: its C entry on preallocated
             # outputs (entry_ms) gives the kernel's time.
@@ -2382,9 +2507,9 @@ def phase_par_kernels(dev):
 
 def scan_entry(name, args):
     """One launch of a scan's C entry (``ipoc_affine_scan`` in the suffix
-    mode, or in the prefix mode for ``affine_scan_prefix``, at the
-    wrapper's lanes per scenario; ``ipoc_value_scan``) on ``args`` with
-    outputs allocated once."""
+    mode, or in the prefix mode for ``affine_scan_prefix``;
+    ``ipoc_value_scan``), at the wrapper's lanes per scenario, on ``args``
+    with outputs allocated once."""
     import torch
 
     from ipoc_tpu_torch.ops import cuda
@@ -2395,12 +2520,14 @@ def scan_entry(name, args):
     outs = [torch.empty_like(a) for a in args]
     ptrs = [a.data_ptr() for a in (*args, *outs)]
     code = cuda.dtype_code(args[0].dtype)
+    sms = cuda.sm_count(args[0].device)
     if name == "value_scan":
-        fn, head = lib.ipoc_value_scan, (code, n)
+        fn, head = lib.ipoc_value_scan, (
+            code, n, sk.scan_lanes(B, T_, args[0].dtype, sms, value=True))
     else:
         fn, head = lib.ipoc_affine_scan, (
             code, n, int(name == "affine_scan"),
-            sk.scan_lanes(B, T_, args[0].dtype, cuda.sm_count(args[0].device)))
+            sk.scan_lanes(B, T_, args[0].dtype, sms))
 
     def call():
         status = fn(*head, *ptrs, B, T_,
@@ -2988,7 +3115,7 @@ def phase_long_horizon(dev):
                            "nvidia-smi reported during the timing")
 
     # 3. The single-grid stream on the mega executor.
-    with counting(ps, "packed_lane_init") as opened, \
+    with counting(ps, "packed_lane_init", opened_lanes) as opened, \
             counting(mega, "mega_k_iterations") as rounds:
         rec3, single = phase_stream_at_width(
             "O3", BATCH_CONFIG, "BATCH_CONFIG (mega executor)", pool32,
@@ -3205,13 +3332,13 @@ def main(argv=None):
         "fused_bwd": ("fused_bwd.h", "fused_iter_kernel.py:1261"),
         "fused_fwd": ("fused_fwd.h", "fused_iter_kernel.py:1298"),
         "rollout": ("rollout.h", "fused_iter_kernel.py:1577"),
-        "rollout_cost": ("fused_iter.cuh", "fused_iter_kernel.py:1956"),
+        "rollout_cost": ("rollout_cost.h", "fused_iter_kernel.py:1956"),
         "transition": ("transition.h", "fused_iter_kernel.py:2053"),
         "merged_trial": ("merged_trial.h", "fused_iter_kernel.py:1206"),
         "mega": ("mega.cuh", "mega_kernel.py:1148"),
         "mega_streamed": ("mega.cuh", "mega_kernel.py:1240"),
         "affine_scan": ("affine_scan.h", "scan_kernels.py:252"),
-        "value_scan": ("par_newton.cu", "scan_kernels.py:252"),
+        "value_scan": ("affine_scan.h", "scan_kernels.py:252"),
         "par_newton_trial": ("par_trial.cuh", "newton_kernel.py:229"),
     }
     total_s = time.perf_counter() - t_start

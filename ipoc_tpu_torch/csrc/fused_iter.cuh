@@ -103,11 +103,29 @@
 //   section 6).  rollout_reference_kernel keeps the loop it replaced, as
 //   the oracle the checks hold it to.
 //
-// rollout_cost_kernel runs one thread per scenario.  What bounds it:
-// latency, not bytes: one serial loop of T dependent stages per thread,
-// 128 warps on the card at B = 4096, the loads of u and the stage cost's
-// logs and divisions on the chain.  The resident mega kernel (mega.cuh)
-// fuses a lane iteration's launches.
+// rollout_cost_kernel: one warp per block, a group of G lanes per
+// scenario, the schedule of rollout_cost.h (host and device; the CPU tests
+// build it with g++).
+//   What bounded the one-thread loop it replaces: latency, not bytes (a
+//   byte bound of 0.0025 ms at B = 4096, T = 100): one serial loop of T
+//   stages per thread, 128 warps on the card at B = 4096 and a handful at
+//   the refill sizes the streams open, with the stage cost's logs, rem and
+//   divisions and the loads of u in the loop beside the dynamics: 932
+//   cycles a stage in float32 (1,983 in float64) against the dynamics'
+//   chain alone, 394 (759), on an H100 (700 W).
+//   What the design does: the codegen cuts roll_cost into the dynamics
+//   and the evaluation (transition.h's programs); every lane of a group
+//   runs the chain, and each evaluates its own stages of a chunk a chunk
+//   behind, from the state and control it kept in registers as the chain
+//   passed them, so the evaluation leaves the chain and the card holds G
+//   = 4 warps where it held one.  The sums stay in stage order, so the
+//   results are the one-thread loop's bit for bit (cartpole and pendulum,
+//   both dtypes, on an H100).  C entry at B = 4096, T = 100: 0.047 ->
+//   0.031 ms in float32, 0.100 -> 0.063 in float64, and the same at the
+//   streams' median lane opening, B = 965 (PERF.md section 6).
+//   rollout_cost_reference_kernel keeps the loop it replaced, as the
+//   oracle the checks hold it to.
+// The resident mega kernel (mega.cuh) fuses a lane iteration's launches.
 
 #pragma once
 
@@ -120,6 +138,7 @@
 #include "lane.h"  // load_col, store_col
 #include "riccati.cuh"
 #include "rollout.h"
+#include "rollout_cost.h"
 #include "scalar_math.h"
 #include "transition.h"
 
@@ -219,9 +238,10 @@ rollout_reference_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
   store_col<scalar_t, NX>(xT_o, x, B, b);
 }
 
-// Open-loop rollout fused with the barrier total cost and sum ||cu||^2.
+// Open-loop rollout fused with the barrier total cost and sum ||cu||^2, a
+// group of lanes per scenario (rollout_cost.h).
 template <typename Model, typename scalar_t>
-__global__ void __launch_bounds__(kFusedThreads)
+__global__ void __launch_bounds__(kRowWarp)
 rollout_cost_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
                     const scalar_t* __restrict__ x0,  // (NX, B)
                     const scalar_t* __restrict__ bp,  // (B,)
@@ -230,6 +250,29 @@ rollout_cost_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
                     scalar_t* __restrict__ cost_o,    // (B,)
                     scalar_t* __restrict__ cun_o,     // (B,)
                     int B, int T) {
+  using Rc = RollCost<Model, scalar_t>;
+  typename Rc::Lane lane;
+  lane.s = static_cast<int>(threadIdx.x) / Rc::G;
+  lane.r = static_cast<int>(threadIdx.x) % Rc::G;
+  WarpExec<typename Rc::Lane> ex{lane};
+  Rc::schedule(ex, Rc::block(us, xs_o, B, T, static_cast<int>(blockIdx.x)), x0, bp,
+               xT_o, cost_o, cun_o);
+}
+
+// The one-thread loop that rollout_cost_kernel replaced (one thread per
+// scenario, roll_cost whole in the loop), kept as the oracle that holds
+// rollout_cost_kernel to the bit (chip_smoke.py phase D,
+// tests/test_torch_cuda.py); no path launches it.
+template <typename Model, typename scalar_t>
+__global__ void __launch_bounds__(kFusedThreads)
+rollout_cost_reference_kernel(const scalar_t* __restrict__ us,  // (T, NU, B)
+                              const scalar_t* __restrict__ x0,  // (NX, B)
+                              const scalar_t* __restrict__ bp,  // (B,)
+                              scalar_t* __restrict__ xs_o,      // (T, NX, B)
+                              scalar_t* __restrict__ xT_o,      // (NX, B)
+                              scalar_t* __restrict__ cost_o,    // (B,)
+                              scalar_t* __restrict__ cun_o,     // (B,)
+                              int B, int T) {
   constexpr int NX = Model::NX, NU = Model::NU;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -338,6 +381,18 @@ int launch_rollout_cost(const void* const* in, void* const* out, int B,
                         int T, cudaStream_t s) {
   using P = const scalar_t*;
   rollout_cost_kernel<Model, scalar_t>
+      <<<RollCost<Model, scalar_t>::blocks(B), kRowWarp, 0, s>>>(
+          P(in[0]), P(in[1]), P(in[2]), static_cast<scalar_t*>(out[0]),
+          static_cast<scalar_t*>(out[1]), static_cast<scalar_t*>(out[2]),
+          static_cast<scalar_t*>(out[3]), B, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Model, typename scalar_t>
+int launch_rollout_cost_reference(const void* const* in, void* const* out,
+                                  int B, int T, cudaStream_t s) {
+  using P = const scalar_t*;
+  rollout_cost_reference_kernel<Model, scalar_t>
       <<<fused_blocks(B), kFusedThreads, 0, s>>>(
           P(in[0]), P(in[1]), P(in[2]), static_cast<scalar_t*>(out[0]),
           static_cast<scalar_t*>(out[1]), static_cast<scalar_t*>(out[2]),
@@ -401,6 +456,8 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
   IPOC_FUSED_ENTRY(ipoc_rollout_cost, launch_rollout_cost, MODEL)      \
   IPOC_FUSED_ENTRY(ipoc_rollout_reference, launch_rollout_reference,   \
                    MODEL)                                              \
+  IPOC_FUSED_ENTRY(ipoc_rollout_cost_reference,                        \
+                   launch_rollout_cost_reference, MODEL)               \
   IPOC_FUSED_ENTRY(ipoc_transition, launch_transition, MODEL)          \
   IPOC_FUSED_OCCUPANCY(ipoc_fused_bwd_occupancy, fused_bwd_kernel,     \
                        FusedBwd, MODEL)                                \
@@ -410,5 +467,7 @@ int launch_transition(const void* const* in, void* const* out, int B, int T,
                        Transition, MODEL)                              \
   IPOC_FUSED_OCCUPANCY(ipoc_rollout_occupancy, rollout_kernel, Rollout, \
                        MODEL)                                          \
+  IPOC_FUSED_OCCUPANCY(ipoc_rollout_cost_occupancy, rollout_cost_kernel, \
+                       RollCost, MODEL)                                \
   IPOC_MERGED_ENTRY(MODEL)                                             \
   IPOC_MEGA_ENTRY(MODEL)

@@ -14,28 +14,29 @@
 //
 // The two scans.  The TPU kernels laid the horizon along the 128 lanes,
 // padded to a multiple of 128, and ran ceil(log2 Tp) Hillis-Steele rounds
-// over the whole horizon.  The value scan runs one block of kScanThreads =
-// 128 threads per scenario (the grid is B blocks), each thread a
-// contiguous chunk of ceil(T / 128) stages: the thread combines its chunk
-// serially in registers, the block scans the 128 chunk aggregates in
-// shared memory (scan.cuh block_carry, double-buffered, 2 x 128 elements),
-// and the thread walks its chunk again from the carried-in aggregate.  No
-// horizon cap: only the chunk grows with T.
-//
-// The affine scan ran so too.  What bounded it on an H100 (700 W), at B =
-// 1024, T = 101 (the costates of solve_batch(method="par")): its C entry
-// took 0.066 ms against a byte bound of 0.0049; without the block's 7
-// rounds 0.025 (each a barrier and 128 combines where the work needs
-// 99); the rest was the two walks' loads, each thread's rows a chunk apart
-// from its neighbours', so every load instruction of a warp touched 32
-// lines.  Its design (affine_scan.h): P lanes per scenario by the launch
-// rule (ops/scan_kernels.py scan_lanes: at this batch 64 in float32, 32
-// in float64; 256 for one scenario at T = 1001), the chunks staged through
-// shared memory in tiles whose copies and stores are whole lines, the
-// chunk aggregates scanned inside each warp by shuffles and over the
-// warps' totals with one barrier.  C entry 0.066 -> 0.011-0.020 ms at
-// B = 1024 (float64 0.146 -> 0.015-0.020), 0.049 -> 0.011-0.019 at B = 1,
-// the spread from call to call (PERF.md sections 5 and 7).
+// over the whole horizon.  Both ran here first as one block of 128
+// threads per scenario, a chunk of ceil(T / 128) stages a thread walked
+// twice around a block scan of the chunk aggregates in shared memory.
+// What bounded them on an H100 (700 W): the block's 7 rounds (each a
+// barrier and 128 combines where the work needs T - 1) and the walks'
+// loads, each thread's rows a chunk apart from its neighbours', so every
+// load instruction of a warp touched 32 lines; at B = 1024, T = 100 the
+// affine scan's C entry took 0.066 ms (bound 0.0049) and the value
+// scan's 0.295 (bound 0.0137), whose element stride of 56 scalars also
+// put 8-way bank conflicts in the rounds.  Their design now is one lane
+// schedule for both algebras (affine_scan.h LaneScan): P lanes per
+// scenario by the launch rule (ops/scan_kernels.py scan_lanes, with each
+// kernel's resident warps), the chunks staged through shared memory in
+// tiles whose copies and stores are whole lines, the chunk aggregates
+// scanned inside each warp and over the warps' totals with one barrier.
+// The affine element is read into registers and the rounds shuffle it;
+// the value element, 56 scalars at n = 4, is read where it lies in shared
+// memory (registers: 222 in float32, 255 with spills in float64; 8 warps
+// an SM).  C entries: the affine scan 0.066 -> 0.011-0.020 ms at B = 1024
+// (64 lanes in float32), 0.049 -> 0.011-0.019 at B = 1, T = 1001 (256);
+// the value scan 0.295 -> 0.066 at B = 1024, T = 100 (32 lanes; float64
+// 0.686 -> 0.120), 0.154 -> 0.078 at B = 1, T = 1000 (256; 0.243 ->
+// 0.116) (PERF.md sections 5 and 6).
 //
 // The trial (par_trial.h holds its lanes' phases and schedule, and
 // par_trial.cuh its kernel and launch).  What bounds it on the card is
@@ -94,177 +95,108 @@ namespace {
 
 using ipoc::AffineScan;
 using ipoc::allow_smem;
-using ipoc::block_carry;
-using ipoc::copy_elem;
 using ipoc::kernel_occupancy;
-using ipoc::kScanThreads;
 using ipoc::ScanExec;
-using ipoc::thread_chunk;
-using ipoc::ValueOp;
+using ipoc::ValueScan;
 
-// The affine scan of one scenario per P threads (affine_scan.h).
-template <typename scalar_t, int N, int P, bool REVERSE>
-__global__ void __launch_bounds__(AffineScan<scalar_t, N, P, REVERSE>::kBlock)
-affine_scan_kernel(const scalar_t* __restrict__ F,  // (B, T, N, N)
-                   const scalar_t* __restrict__ c,  // (B, T, N)
-                   scalar_t* __restrict__ Fo,       // (B, T, N, N)
-                   scalar_t* __restrict__ co,       // (B, T, N)
-                   int B, int T) {
-  using Sc = AffineScan<scalar_t, N, P, REVERSE>;
+// One scan of one scenario per P threads (affine_scan.h): the affine scan
+// (Sc = AffineScan, NR = 2 rows: F, c) or the value scan (ValueScan, 5:
+// A, b, C, eta, J), each row's (B, T, ...) array in `ins` and `outs`.
+template <class Sc>
+struct Rows {
+  const typename Sc::scalar_t* in[Sc::NR];
+  typename Sc::scalar_t* out[Sc::NR];
+};
+
+template <class Sc>
+__device__ __forceinline__ void scan_scenarios(const Rows<Sc>& rows, int B, int T) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  using scalar_t = typename Sc::scalar_t;
   scalar_t* sh = reinterpret_cast<scalar_t*>(smem_raw);
+  constexpr int P = Sc::NW * ipoc::kScanWarp;
   const int within = static_cast<int>(threadIdx.x) / P;  // scenario in block
   const int b = static_cast<int>(blockIdx.x) * Sc::kScenarios + within;
   if (b >= B) return;  // the scenario's P threads leave together
-  const auto s = Sc::scenario(F, c, Fo, co, b, T);
+  const auto s = Sc::scenario(rows.in, rows.out, b, T);
   typename Sc::Lane lane;
   Sc::init(lane, static_cast<int>(threadIdx.x) % P, T);
   ScanExec<typename Sc::Lane, P> ex{lane};
   Sc::schedule(ex, s, sh + within * Sc::kShared);
 }
 
-template <typename scalar_t, int N>
-__global__ void __launch_bounds__(kScanThreads)
-value_scan_kernel(const scalar_t* __restrict__ A,    // (B, T, N, N)
-                  const scalar_t* __restrict__ b,    // (B, T, N)
-                  const scalar_t* __restrict__ C,    // (B, T, N, N)
-                  const scalar_t* __restrict__ eta,  // (B, T, N)
-                  const scalar_t* __restrict__ J,    // (B, T, N, N)
-                  scalar_t* __restrict__ Ao, scalar_t* __restrict__ bo,
-                  scalar_t* __restrict__ Co, scalar_t* __restrict__ etao,
-                  scalar_t* __restrict__ Jo, int T) {
-  using Op = ValueOp<scalar_t, N>;
-  constexpr int E = Op::E;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  scalar_t* buf = reinterpret_cast<scalar_t*>(smem_raw);
-  const size_t base = static_cast<size_t>(blockIdx.x) * T;
-  int t0, t1;
-  thread_chunk(T, t0, t1);
-  const int len = t1 - t0;
-
-  auto load = [&](int t, scalar_t* e) {
-    const size_t m = (base + t) * N * N, v = (base + t) * N;
-#pragma unroll
-    for (int r = 0; r < N * N; ++r) {
-      e[Op::kA + r] = A[m + r];
-      e[Op::kC + r] = C[m + r];
-      e[Op::kJ + r] = J[m + r];
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      e[Op::kB + r] = b[v + r];
-      e[Op::kEta + r] = eta[v + r];
-    }
-  };
-
-  // 1. This chunk's aggregate (a suffix scan: walk backward).
-  scalar_t agg[E];
-  Op::identity(agg);
-  for (int s = 0; s < len; ++s) {
-    scalar_t e[E], nxt[E];
-    load(t1 - 1 - s, e);
-    if (s == 0) {
-      copy_elem<scalar_t, E>(e, agg);
-    } else {
-      Op::combine(e, agg, nxt);
-      copy_elem<scalar_t, E>(nxt, agg);
-    }
-  }
-  // 2. The block's scan of the aggregates.
-  scalar_t run[E];
-  bool have = block_carry<Op, scalar_t, true>(agg, buf, run);
-  // 3. The chunk again from the carried-in aggregate.
-  for (int s = 0; s < len; ++s) {
-    const int t = t1 - 1 - s;
-    scalar_t e[E], nxt[E];
-    load(t, e);
-    if (have) {
-      Op::combine(e, run, nxt);
-      copy_elem<scalar_t, E>(nxt, run);
-    } else {
-      copy_elem<scalar_t, E>(e, run);
-      have = true;
-    }
-    const size_t m = (base + t) * N * N, v = (base + t) * N;
-#pragma unroll
-    for (int r = 0; r < N * N; ++r) {
-      Ao[m + r] = run[Op::kA + r];
-      Co[m + r] = run[Op::kC + r];
-      Jo[m + r] = run[Op::kJ + r];
-    }
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      bo[v + r] = run[Op::kB + r];
-      etao[v + r] = run[Op::kEta + r];
-    }
-  }
+// The affine scan: (B, T, N, N) F and (B, T, N) c in, the same shapes out.
+template <typename scalar_t, int N, int P, bool REVERSE>
+__global__ void __launch_bounds__(AffineScan<scalar_t, N, P, REVERSE>::kBlock)
+affine_scan_kernel(const Rows<AffineScan<scalar_t, N, P, REVERSE>> rows, int B, int T) {
+  scan_scenarios(rows, B, T);
 }
 
-template <typename scalar_t, int N, int P, bool REVERSE>
+// The value scan: (B, T, N, N) A, C, J and (B, T, N) b, eta in, the same
+// shapes out.
+template <typename scalar_t, int N, int P>
+__global__ void __launch_bounds__(ValueScan<scalar_t, N, P>::kBlock)
+value_scan_kernel(const Rows<ValueScan<scalar_t, N, P>> rows, int B, int T) {
+  scan_scenarios(rows, B, T);
+}
+
+template <class Sc, void (*Kernel)(Rows<Sc>, int, int)>
 struct ScanLaunch {
-  using Sc = AffineScan<scalar_t, N, P, REVERSE>;
+  using scalar_t = typename Sc::scalar_t;
   static constexpr size_t smem = Sc::kScenarios * Sc::kShared * sizeof(scalar_t);
 
-  static int launch(const void* F, const void* c, void* Fo, void* co, int B, int T,
+  // ins and outs: the rows' device pointers, in the algebra's order.
+  static int launch(const void* const* ins, void* const* outs, int B, int T,
                     cudaStream_t stream) {
-    auto kernel = affine_scan_kernel<scalar_t, N, P, REVERSE>;
+    auto kernel = Kernel;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    Rows<Sc> rows;
+    for (int r = 0; r < Sc::NR; ++r) {
+      rows.in[r] = static_cast<const scalar_t*>(ins[r]);
+      rows.out[r] = static_cast<scalar_t*>(outs[r]);
+    }
     kernel<<<(B + Sc::kScenarios - 1) / Sc::kScenarios, Sc::kBlock, smem, stream>>>(
-        static_cast<const scalar_t*>(F), static_cast<const scalar_t*>(c),
-        static_cast<scalar_t*>(Fo), static_cast<scalar_t*>(co), B, T);
+        rows, B, T);
     return static_cast<int>(cudaGetLastError());
   }
 
   // launch_attr.cuh kernel_occupancy.
   static int occupancy(int* out) {
-    return kernel_occupancy(affine_scan_kernel<scalar_t, N, P, REVERSE>, Sc::kBlock, smem,
-                            Sc::kScenarios, out);
+    return kernel_occupancy(Kernel, Sc::kBlock, smem, Sc::kScenarios, out);
   }
 };
 
-// fn(ScanLaunch<scalar_t, n, P, reverse>()); -1 for an n or P with no
-// instantiation.
+// fn(ScanLaunch<Sc>()) for the scan `value` (the value scan) or the affine
+// scan in direction `reverse`, of dimension n at P lanes per scenario; -1
+// for an n or P with no instantiation.
 template <typename scalar_t, class Fn>
-int with_scan(int n, int P, int reverse, Fn&& fn) {
-  auto lanes = [&](auto nn, auto rev) -> int {
+int with_scan(bool value, int n, int P, int reverse, Fn&& fn) {
+  auto lanes = [&](auto nn, auto kind) -> int {
     constexpr int N = decltype(nn)::value;
-    constexpr bool R = decltype(rev)::value;
-    if (P == 32) return fn(ScanLaunch<scalar_t, N, 32, R>());
-    if (P == 64) return fn(ScanLaunch<scalar_t, N, 64, R>());
-    if (P == 128) return fn(ScanLaunch<scalar_t, N, 128, R>());
-    if (P == 256) return fn(ScanLaunch<scalar_t, N, 256, R>());
+    constexpr int K = decltype(kind)::value;  // 0 prefix, 1 suffix, 2 value
+    auto go = [&](auto pp) -> int {
+      constexpr int Pv = decltype(pp)::value;
+      if constexpr (K == 2) {
+        return fn(ScanLaunch<ValueScan<scalar_t, N, Pv>, value_scan_kernel<scalar_t, N, Pv>>());
+      } else {
+        return fn(ScanLaunch<AffineScan<scalar_t, N, Pv, K == 1>,
+                             affine_scan_kernel<scalar_t, N, Pv, K == 1>>());
+      }
+    };
+    if (P == 32) return go(std::integral_constant<int, 32>());
+    if (P == 64) return go(std::integral_constant<int, 64>());
+    if (P == 128) return go(std::integral_constant<int, 128>());
+    if (P == 256) return go(std::integral_constant<int, 256>());
     return -1;
   };
-  auto dir = [&](auto nn) -> int {
-    return reverse ? lanes(nn, std::true_type()) : lanes(nn, std::false_type());
+  auto kind = [&](auto nn) -> int {
+    if (value) return lanes(nn, std::integral_constant<int, 2>());
+    return reverse ? lanes(nn, std::integral_constant<int, 1>())
+                   : lanes(nn, std::integral_constant<int, 0>());
   };
-  if (n == 2) return dir(std::integral_constant<int, 2>());
-  if (n == 3) return dir(std::integral_constant<int, 3>());
-  if (n == 4) return dir(std::integral_constant<int, 4>());
-  return -1;
-}
-
-template <typename scalar_t, int N>
-int launch_value(const void* const* in, void* const* out, int B, int T,
-                 cudaStream_t stream) {
-  constexpr size_t smem = 2 * kScanThreads * ValueOp<scalar_t, N>::E * sizeof(scalar_t);
-  auto kernel = value_scan_kernel<scalar_t, N>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto I = [&](int k) { return static_cast<const scalar_t*>(in[k]); };
-  auto O = [&](int k) { return static_cast<scalar_t*>(out[k]); };
-  kernel<<<B, kScanThreads, smem, stream>>>(I(0), I(1), I(2), I(3), I(4),
-                                            O(0), O(1), O(2), O(3), O(4), T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename scalar_t>
-int dispatch_value(int n, const void* const* in, void* const* out, int B,
-                   int T, cudaStream_t s) {
-  if (n == 2) return launch_value<scalar_t, 2>(in, out, B, T, s);
-  if (n == 3) return launch_value<scalar_t, 3>(in, out, B, T, s);
-  if (n == 4) return launch_value<scalar_t, 4>(in, out, B, T, s);
+  if (n == 2) return kind(std::integral_constant<int, 2>());
+  if (n == 3) return kind(std::integral_constant<int, 3>());
+  if (n == 4) return kind(std::integral_constant<int, 4>());
   return -1;
 }
 
@@ -277,9 +209,11 @@ extern "C" int ipoc_affine_scan(int dtype, int n, int reverse, int P, const void
                                 const void* c, void* Fo, void* co, int B,
                                 int T, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto l) { return l.launch(F, c, Fo, co, B, T, s); };
-  if (dtype == 0) return with_scan<float>(n, P, reverse, go);
-  if (dtype == 1) return with_scan<double>(n, P, reverse, go);
+  const void* in[2] = {F, c};
+  void* out[2] = {Fo, co};
+  auto go = [&](auto l) { return l.launch(in, out, B, T, s); };
+  if (dtype == 0) return with_scan<float>(false, n, P, reverse, go);
+  if (dtype == 1) return with_scan<double>(false, n, P, reverse, go);
   return -1;
 }
 
@@ -287,20 +221,31 @@ extern "C" int ipoc_affine_scan(int dtype, int n, int reverse, int P, const void
 // suffix mode: six ints, as launch_attr.cuh kernel_occupancy.
 extern "C" int ipoc_affine_scan_occupancy(int dtype, int n, int P, int* out) {
   auto go = [&](auto l) { return l.occupancy(out); };
-  if (dtype == 0) return with_scan<float>(n, P, 1, go);
-  if (dtype == 1) return with_scan<double>(n, P, 1, go);
+  if (dtype == 0) return with_scan<float>(false, n, P, 1, go);
+  if (dtype == 1) return with_scan<double>(false, n, P, 1, go);
   return -1;
 }
 
-extern "C" int ipoc_value_scan(int dtype, int n, const void* A, const void* b,
+// The value scan at P lanes per scenario.
+extern "C" int ipoc_value_scan(int dtype, int n, int P, const void* A, const void* b,
                                const void* C, const void* eta, const void* J,
                                void* Ao, void* bo, void* Co, void* etao,
                                void* Jo, int B, int T, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* in[5] = {A, b, C, eta, J};
   void* out[5] = {Ao, bo, Co, etao, Jo};
-  if (dtype == 0) return dispatch_value<float>(n, in, out, B, T, s);
-  if (dtype == 1) return dispatch_value<double>(n, in, out, B, T, s);
+  auto go = [&](auto l) { return l.launch(in, out, B, T, s); };
+  if (dtype == 0) return with_scan<float>(true, n, P, 1, go);
+  if (dtype == 1) return with_scan<double>(true, n, P, 1, go);
+  return -1;
+}
+
+// The value scan's launch geometry and residency for (dtype, n, P): six
+// ints, as launch_attr.cuh kernel_occupancy.
+extern "C" int ipoc_value_scan_occupancy(int dtype, int n, int P, int* out) {
+  auto go = [&](auto l) { return l.occupancy(out); };
+  if (dtype == 0) return with_scan<float>(true, n, P, 1, go);
+  if (dtype == 1) return with_scan<double>(true, n, P, 1, go);
   return -1;
 }
 

@@ -1,8 +1,8 @@
 // Associative-scan algebra shared by the parallel-in-time kernels
-// (csrc/par_newton.cu, csrc/affine_scan.h, csrc/par_trial.h), their
-// row loads and stores, and the block scan of the value scan kernel.  Counterpart of the lane-layout helpers of
-// ipoc_tpu/ops/pallas/scan_kernels.py: _affine_combine_lanes,
-// _value_combine_lanes and the Hillis-Steele rounds of _scan_rounds.
+// (csrc/par_newton.cu, csrc/affine_scan.h, csrc/par_trial.h) and their
+// row loads and stores.  Counterpart of the lane-layout helpers of
+// ipoc_tpu/ops/pallas/scan_kernels.py: _affine_combine_lanes and
+// _value_combine_lanes.
 //
 // Elements are flat row-major arrays in registers or shared memory:
 //   affine  (F, c):             [F (N*N) | c (N)]             v -> F v + c
@@ -12,17 +12,7 @@
 // summation order, unpivoted eliminations through riccati.cuh's
 // solve_track); nvcc may contract a product and a sum into one FMA.  The
 // algebra is host and device (IPOC_HD): the host builds of the trial
-// (par_trial.h) and the affine scan (affine_scan.h) compile it with g++.
-//
-// The block scan (device only): a block of kScanThreads threads scans one scenario's
-// horizon.  Each thread owns a contiguous chunk of stages; the caller
-// combines its chunk serially into one aggregate, block_carry scans the
-// block's aggregates in shared memory (Hillis-Steele, log2(kScanThreads)
-// rounds, double-buffered so that no round holds a result in registers
-// across a barrier), and returns the combination of every aggregate on the
-// far side of the thread, which the caller carries into a second walk of
-// its chunk.  About 2T + 7 * kScanThreads combines per scenario, with a
-// critical path of 2 * ceil(T / kScanThreads) + 7; no cap on T.
+// (par_trial.h) and the scans (affine_scan.h) compile it with g++.
 
 #pragma once
 
@@ -41,11 +31,19 @@
 
 namespace ipoc {
 
-constexpr int kScanThreads = 128;
-
+// Each algebra also describes its element's rows, the arrays it is stored
+// in (row r: row_len(r) scalars at row_off(r) of the element), and how the
+// lane schedule of affine_scan.h holds its operands: kInPlace, whether a
+// combine reads the tile's element where it lies in shared memory (the
+// value element, too large for two in registers) or from registers.
 template <typename scalar_t, int N>
 struct AffineOp {
+  using Scalar = scalar_t;
   static constexpr int E = N * N + N;
+  static constexpr int kRows = 2;  // F, c
+  static constexpr bool kInPlace = false;
+  IPOC_HD static constexpr int row_off(int r) { return r == 0 ? 0 : N * N; }
+  IPOC_HD static constexpr int row_len(int r) { return r == 0 ? N * N : N; }
 
   IPOC_HD static void identity(scalar_t* e) {
 #pragma unroll
@@ -76,9 +74,16 @@ struct AffineOp {
 
 template <typename scalar_t, int N>
 struct ValueOp {
+  using Scalar = scalar_t;
   static constexpr int E = 3 * N * N + 2 * N;
   static constexpr int kA = 0, kB = N * N, kC = N * N + N;
   static constexpr int kEta = 2 * N * N + N, kJ = 2 * N * N + 2 * N;
+  static constexpr int kRows = 5;  // A, b, C, eta, J
+  static constexpr bool kInPlace = true;
+  IPOC_HD static constexpr int row_off(int r) {
+    return r == 0 ? kA : r == 1 ? kB : r == 2 ? kC : r == 3 ? kEta : kJ;
+  }
+  IPOC_HD static constexpr int row_len(int r) { return r % 2 == 0 ? N * N : N; }
 
   IPOC_HD static void identity(scalar_t* e) {
 #pragma unroll
@@ -246,48 +251,5 @@ IPOC_HD void store_row(scalar_t* a, size_t s, const scalar_t* src) {
   for (int r = 0; r < N; ++r) a[s * N + r] = src[r];
 }
 
-#ifdef __CUDACC__
-// The chunk [t0, t1) of stage indices that this thread owns, of
-// ceil(T / kScanThreads) stages (empty beyond the horizon).
-__device__ __forceinline__ void thread_chunk(int T, int& t0, int& t1) {
-  const int len = (T + kScanThreads - 1) / kScanThreads;
-  t0 = min(T, static_cast<int>(threadIdx.x) * len);
-  t1 = min(T, t0 + len);
-}
-
-// Inclusive scan of the block's per-thread aggregates `agg` (one per
-// thread, in thread order) in shared memory `buf` (2 * kScanThreads * E
-// scalars).  Writes to `carry` the combination of the aggregates beyond
-// this thread (REVERSE: of threads > tid, combined earlier-first, for a
-// suffix scan; else of threads < tid, later-first, for a prefix scan) and
-// returns false where there is none.  Every round combines in[tid] o
-// in[tid +- d]; the buffers are free again on return.
-template <class Op, typename scalar_t, bool REVERSE>
-__device__ bool block_carry(const scalar_t* agg, scalar_t* buf,
-                            scalar_t* carry) {
-  constexpr int E = Op::E;
-  const int tid = threadIdx.x;
-  scalar_t* in = buf;
-  scalar_t* out = buf + kScanThreads * E;
-  copy_elem<scalar_t, E>(agg, in + tid * E);
-  __syncthreads();
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    const int j = REVERSE ? tid + d : tid - d;
-    if (j >= 0 && j < kScanThreads)
-      Op::combine(in + tid * E, in + j * E, out + tid * E);
-    else
-      copy_elem<scalar_t, E>(in + tid * E, out + tid * E);
-    __syncthreads();
-    scalar_t* swap = in;
-    in = out;
-    out = swap;
-  }
-  const int c = REVERSE ? tid + 1 : tid - 1;
-  const bool has = c >= 0 && c < kScanThreads;
-  if (has) copy_elem<scalar_t, E>(in + c * E, carry);
-  __syncthreads();
-  return has;
-}
-#endif  // __CUDACC__
 
 }  // namespace ipoc

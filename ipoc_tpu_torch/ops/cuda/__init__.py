@@ -194,7 +194,8 @@ _SIGNATURES = {
     "par_newton": {
         "ipoc_affine_scan": [_I] * 4 + [_P] * 4 + [_I, _I, _P],
         "ipoc_affine_scan_occupancy": [_I] * 3 + [_P],
-        "ipoc_value_scan": [_I] * 2 + [_P] * 10 + [_I, _I, _P],
+        "ipoc_value_scan": [_I] * 3 + [_P] * 10 + [_I, _I, _P],
+        "ipoc_value_scan_occupancy": [_I] * 3 + [_P],
         "ipoc_par_newton_trial": [_I] * 4 + [_P] * 12 + [_I, _I, _P],
         "ipoc_par_trial_occupancy": [_I] * 4 + [_P]},
 }

@@ -32,8 +32,9 @@ split at the costate into its two halves (:func:`backward_halves`),
 point into three parts (:func:`forward_parts`), ``merged_trial`` runs
 those halves and parts, in DDP mode ``stage_ddp_fwd`` cut at the trial
 point (:func:`ddp_forward_parts`), ``transition`` runs ``transition`` cut
-per candidate (:func:`transition_parts`).  One library per model is
-built from that text (:func:`model_spec`).
+per candidate (:func:`transition_parts`), ``rollout_cost`` runs
+``roll_cost`` cut into the same two programs (:func:`rollout_cost_parts`).
+One library per model is built from that text (:func:`model_spec`).
 
 Layout (the packed stream's, batch-last): stage arrays ``(T, rows, B)``,
 terminal and initial states ``(nx, B)``, per-lane scalars ``(B,)``.  Each
@@ -333,12 +334,36 @@ def transition_parts(ocp: OCP, nx: int, nu: int) -> tuple:
     return _HALVES[key]
 
 
+def rollout_cost_parts(ocp: OCP, nx: int, nu: int) -> tuple:
+    """The rollout-cost kernel's parts of ``roll_cost``
+    (``csrc/rollout_cost.h``), cut at its inputs: the dynamics ``(x, u) ->
+    x_next`` and the evaluation ``(x, u, bp) -> (cost, ||cu||^2)``, each
+    summand as the pair of operands whose product it is.  Raises
+    ``ValueError`` unless they are :func:`transition_parts`' programs,
+    ``transition_step`` and ``transition_eval``, which the kernel runs for
+    them."""
+    key = (ocp, nx, nu, "roll_cost")
+    if key not in _HALVES:
+        prog = scalar_programs(ocp, nx, nu)["roll_cost"]
+        parts = (prog.cut([("in", 0), ("in", 1)], (0,), "transition_step"),
+                 prog.cut([("in", 0), ("in", 1), ("in", 2)], (1, 2),
+                          "transition_eval", factor=(1, 2)))
+        for a, b in zip(parts, transition_parts(ocp, nx, nu)):
+            if not same_program(a, b):
+                raise ValueError(f"roll_cost: its cut {a.name} is not the "
+                                 "transition kernel's program")
+        _HALVES[key] = parts
+    return _HALVES[key]
+
+
 def model_struct(ocp: OCP, nx: int, nu: int) -> str:
     """The generated ``struct Model``: the shapes, the handoff counts of
     ``stage_bwd_pre`` (NH) and ``stage_fwd_pre`` (NHF), every scalarized
     stage program and the parts of those that the kernels split (the DDP
     forward sweep's evaluation is ``stage_fwd_eval``, so only its step is
-    emitted)."""
+    emitted; the rollout-cost kernel's parts are the transition's, so
+    :func:`rollout_cost_parts` only checks them)."""
+    rollout_cost_parts(ocp, nx, nu)
     pre, post = backward_halves(ocp, nx, nu)
     fwd = forward_parts(ocp, nx, nu)
     progs = [*scalar_programs(ocp, nx, nu).values(), pre, post, *fwd,
@@ -379,9 +404,10 @@ _LIBS: dict = {}
 # mode and more.
 KERNELS = ("fused_bwd", "fused_fwd", "rollout", "rollout_cost", "transition")
 # The kernels launched in one-warp blocks of several scenarios
-# (csrc/fused_bwd.h, fused_fwd.h, transition.h, rollout.h), each with an
-# occupancy entry.
-GROUP_KERNELS = ("fused_bwd", "fused_fwd", "transition", "rollout")
+# (csrc/fused_bwd.h, fused_fwd.h, transition.h, rollout.h, rollout_cost.h),
+# each with an occupancy entry.
+GROUP_KERNELS = ("fused_bwd", "fused_fwd", "transition", "rollout",
+                 "rollout_cost")
 
 
 def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
@@ -391,7 +417,7 @@ def library(ocp: OCP, nx: int, nu: int) -> ctypes.CDLL:
     if key not in _LIBS:
         lib = ctypes.CDLL(str(cuda.build(model_spec(ocp, nx, nu))))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in KERNELS + ("rollout_reference",):
+        for name in KERNELS + ("rollout_reference", "rollout_cost_reference"):
             fn = getattr(lib, f"ipoc_{name}")
             fn.argtypes = [i, p, p, i, i, p]
             fn.restype = i
@@ -682,6 +708,18 @@ def rollout_cost_packed(ocp: OCP, u, x0, bp):
     return _launch(ocp, "rollout_cost", (u, x0, bp),
                    [(T, nu, B), (nx, B), (B,)],
                    [(T, nx, B), (nx, B), (B,), (B,)], nx, nu)
+
+
+def rollout_cost_reference(ocp: OCP, u, x0, bp):
+    """The one-thread loop that the rollout-cost kernel replaced, on a card
+    (``csrc/fused_iter.cuh`` rollout_cost_reference_kernel): the oracle
+    that holds :func:`rollout_cost_packed` to the bit.  No path launches
+    it, and its launches are not counted."""
+    T, nu, B = u.shape
+    nx = x0.shape[0]
+    return _launch(ocp, "rollout_cost_reference", (u, x0, bp),
+                   [(T, nu, B), (nx, B), (B,)],
+                   [(T, nx, B), (nx, B), (B,), (B,)], nx, nu, counted=False)
 
 
 def transition_packed(ocp: OCP, u, up, x0, bp):

@@ -7,9 +7,9 @@ LQT forward pass) and conditional-value 5-tuples ``(A, b, C, eta, J)`` (the
 LQT backward pass).  Each wrapper takes the plain version for tensors on the
 CPU and launches the hand-written CUDA kernel (``csrc/par_newton.cu``) for
 tensors on a card; anything else raises.  There is no gate on dtype or n:
-a card without an instantiation for the shape raises.  The affine scan
-spreads a scenario over ``P`` lanes (``csrc/affine_scan.h``) picked by
-:func:`scan_lanes`.
+a card without an instantiation for the shape raises.  Both scans spread a
+scenario over ``P`` lanes (``csrc/affine_scan.h``, one schedule for both
+algebras) picked by :func:`scan_lanes` from each kernel's resident warps.
 
 The plain versions are :func:`ipoc_tpu_torch.parallel.scan.associative_scan`
 over the two combines, the same recursion and argument order as the JAX
@@ -36,33 +36,41 @@ SCAN_N = (2, 3, 4)
 SCAN_LANES = (32, 64, 128, 256)
 SCAN_RESIDENT_WARPS = {torch.float32: {32: 20, 64: 16, 128: 20, 256: 16},
                        torch.float64: {32: 8, 64: 8, 128: 8, 256: 8}}
+# The same for the value scan at n=4: its 222 (float32) and 255 (float64)
+# registers a thread set them, 8 warps an SM at every lane count.
+VALUE_RESIDENT_WARPS = {dtype: dict.fromkeys(SCAN_LANES, 8)
+                        for dtype in (torch.float32, torch.float64)}
 
 
 def scan_lanes(B: int, T: int, dtype: torch.dtype,
-               sms: int = cuda.H100_SMS) -> int:
-    """P, the affine scan's lanes per scenario for B scenarios of T stages
-    on a card of ``sms`` SMs: the trial's rule (``ops/newton_kernel.py``
-    trial_lanes) with the scan's resident warps.  P starts at 32 and
-    doubles while it is below 256 and below T (each lane keeps a stage)
-    and the doubled launch's warps, B * 2P / 32, still fit in one wave of
-    ``sms`` x SCAN_RESIDENT_WARPS[dtype][2P].  So a float32 batch of 1024
-    takes 64 lanes (B=1024, T=101: 2 stages a lane; float64 32 lanes of
-    4) and a single scenario spreads its horizon (T=1001: 256 lanes of 4
-    stages)."""
-    warps = SCAN_RESIDENT_WARPS[dtype]
+               sms: int = cuda.H100_SMS, value: bool = False) -> int:
+    """P, a scan's lanes per scenario for B scenarios of T stages on a card
+    of ``sms`` SMs: the trial's rule (``ops/newton_kernel.py``
+    trial_lanes) with the scan's resident warps (``value``: the value
+    scan's, VALUE_RESIDENT_WARPS; else SCAN_RESIDENT_WARPS).  P starts at
+    32 and doubles while it is below 256 and below T (each lane keeps a
+    stage) and the doubled launch's warps, B * 2P / 32, still fit in one
+    wave of ``sms`` x the resident warps at 2P.  So a float32 batch of
+    1024 takes 64 lanes of the affine scan (B=1024, T=101: 2 stages a
+    lane; float64 32 lanes of 4) and 32 of the value scan, and a single
+    scenario spreads its horizon (T=1001: 256 lanes of 4 stages)."""
+    warps = (VALUE_RESIDENT_WARPS if value else SCAN_RESIDENT_WARPS)[dtype]
     P = SCAN_LANES[0]
     while P < SCAN_LANES[-1] and P < T and B * 2 * P <= sms * warps[2 * P] * 32:
         P *= 2
     return P
 
 
-def scan_occupancy(dtype: torch.dtype, n: int, lanes: int) -> dict:
-    """The card's view of the affine scan's suffix kernel at ``n`` and
-    ``lanes``: resident blocks per SM, threads, shared bytes and scenarios
-    per block, registers and local (spill) bytes per thread."""
+def scan_occupancy(dtype: torch.dtype, n: int, lanes: int,
+                   value: bool = False) -> dict:
+    """The card's view of the affine scan's suffix kernel (``value``: the
+    value scan's) at ``n`` and ``lanes``: resident blocks per SM, threads,
+    shared bytes and scenarios per block, registers and local (spill)
+    bytes per thread."""
     out = (ctypes.c_int * 6)()
-    cuda.check(cuda.library(cuda.PAR_NEWTON).ipoc_affine_scan_occupancy(
-        cuda.dtype_code(dtype), n, lanes, out), "affine_scan_occupancy")
+    name = "value_scan" if value else "affine_scan"
+    cuda.check(getattr(cuda.library(cuda.PAR_NEWTON), f"ipoc_{name}_occupancy")(
+        cuda.dtype_code(dtype), n, lanes, out), f"{name}_occupancy")
     return dict(zip(cuda.OCCUPANCY_KEYS, out))
 
 
@@ -141,11 +149,12 @@ def value_scan(A, b, C, eta, J):
     if B == 0 or T == 0:
         return outs
     lib = cuda.library(cuda.PAR_NEWTON)
-    with cuda.device_guard(A.device):
+    dev = A.device
+    with cuda.device_guard(dev):
         status = lib.ipoc_value_scan(
-            code, n, *(a.data_ptr() for a in args),
-            *(o.data_ptr() for o in outs), B, T,
-            torch.cuda.current_stream(A.device).cuda_stream)
+            code, n, scan_lanes(B, T, A.dtype, cuda.sm_count(dev), value=True),
+            *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs), B,
+            T, torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(status, "value_scan")
     cuda.launches["value_scan"] += 1
     return outs

@@ -40,7 +40,11 @@ decisions (it, stage_it, done) on all but 1% of lanes against both; in
 DDP mode the lanes that the plain version ends as bad (its Cholesky
 fails on an indefinite Quu, where the kernels reject the step) held to
 the two-launch kernels only; the last lane inactive and untouched.  The rollout kernel: within 1e-12 (float64) and 1e-4 (float32) of its
-plain version's scale, the first stage equal to x0.  ``solve_batch`` with
+plain version's scale, the first stage equal to x0.  The rollout kernel
+and the rollout-cost kernel: bit for bit the one-thread loops they
+replaced (the rollout cost at cartpole; at pendulum within FUSED_TOL).
+The scans: within 1e-10 (float64) and 1e-4 (float32) of their plain
+versions' scale at every lane count, up to T=1001.  ``solve_batch`` with
 the fused and DDP evaluators on the card against the CPU: at most one lane
 with other iterations, converged raw costs to rtol 1e-8.
 """
@@ -668,6 +672,41 @@ def test_rollout_kernel_matches_parent(card, model, T, dtype):
             assert torch.equal(g, v), (B, T)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("T", [1, 7, 100])
+@pytest.mark.parametrize("model", [cartpole, pendulum],
+                         ids=["cartpole", "pendulum"])
+def test_rollout_cost_kernel_matches_parent(card, model, T, dtype):
+    """The rollout cost's group schedule (csrc/rollout_cost.h) at B in
+    {37, 256, 965 (the streams' median lane opening), 4096}, the model at
+    dt = 1/100: at cartpole equal to the one-thread loop it replaced
+    (``rollout_cost_reference``) bit for bit (at pendulum ``nvcc`` may
+    contract the two programs apart: within FUSED_TOL of it), within
+    FUSED_TOL of its plain version, and on inputs one scalar past a
+    16-byte boundary equal to the aligned ones."""
+    tol = FUSED_TOL[dtype]
+    for B in (37, 256, 965, 4096):
+        ocp, u, _, x0 = _lanes(model, B, T, B + T, dtype, card,
+                               ocp=_model_at_step(model, 1.0 / 100))
+        bp = torch.full((B,), 0.1, dtype=dtype, device=card)
+        cuda.reset_launches()
+        got = tf.rollout_cost_packed(ocp, u, x0, bp)
+        torch.cuda.synchronize()
+        assert cuda.launches == dict(dict.fromkeys(cuda.launches, 0),
+                                     rollout_cost=1)
+        for g, r in zip(got, tf.rollout_cost_reference(ocp, u, x0, bp)):
+            if model is cartpole:
+                assert torch.equal(g, r), (B, T)
+            else:
+                _close(g, r, tol)
+        for g, r in zip(got, tf.rollout_cost_plain(ocp, u, x0, bp)):
+            _close(g, r, tol)
+        views = tf.rollout_cost_packed(ocp, *(_offset_view(a)
+                                              for a in (u, x0, bp)))
+        for g, v in zip(got, views):
+            assert torch.equal(g, v), (B, T)
+
+
 def test_rollout_kernel_raises_on_what_it_does_not_take(card):
     ocp, u, _, x0 = _lanes(pendulum, 8, 5, 6, torch.float64, card)
     with pytest.raises(NotImplementedError):
@@ -799,7 +838,7 @@ def _random_lqt(B, T, nx, nu, seed, dtype, device):
 def test_scan_kernels_match_plain(card, n, dtype):
     """Both affine-scan directions and the value scan against their plain
     versions (the associative scan) on the same card, at horizons below,
-    at and above a multiple of the block's 128 threads."""
+    at and above a multiple of 128 lanes, up to T=1001."""
     from ipoc_tpu_torch.ops import scan_kernels as sk
     from ipoc_tpu_torch.parallel.lqt import _elements
 
@@ -817,8 +856,6 @@ def test_scan_kernels_match_plain(card, n, dtype):
             ref = sk.affine_scan_plain(F, c, reverse)
             for g, r in zip(got, ref):
                 assert _rel_err(g, r) <= tol, (T, reverse)
-        if T > 300:
-            continue
         elems = [e.contiguous() for e in _elements(
             _random_lqt(3, T, n, 2, T, dtype, card))]
         cuda.reset_launches()
@@ -862,6 +899,42 @@ def test_affine_scan_every_lane_count(card, n, dtype):
                 torch.cuda.synchronize()
                 for g, r in zip((Fo, co), ref):
                     assert _rel_err(g, r) <= tol, (T, reverse, P)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_value_scan_every_lane_count(card, n, dtype):
+    """The value scan's C entry at every lane count P in {32, 64, 128,
+    256}, three scenarios at the host tests' horizons and T=1001, against
+    the plain version; and at B=1024, T=100 and B=1, T=1001 through the
+    wrapper, at the lanes ``scan_lanes(..., value=True)`` picks."""
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+    from ipoc_tpu_torch.parallel.lqt import _elements
+
+    tol = SCAN_TOL[dtype]
+    lib = cuda.library(cuda.PAR_NEWTON)
+    code = cuda.dtype_code(dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, T in ([(3, T) for T in (1, 7, 33, 129, 1000, 1001)]
+                 + [(1024, 100), (1, 1001)]):
+        elems = [e.contiguous() for e in _elements(
+            _random_lqt(B, T, n, 2, T + n, dtype, card))]
+        ref = sk.value_scan_plain(*elems)
+        if B != 3:
+            cuda.reset_launches()
+            got = sk.value_scan(*elems)
+            assert cuda.launches["value_scan"] == 1
+            for g, r in zip(got, ref):
+                assert _rel_err(g, r) <= tol, (B, T)
+            continue
+        for P in sk.SCAN_LANES:
+            outs = [torch.full_like(e, float("nan")) for e in elems]
+            cuda.check(lib.ipoc_value_scan(
+                code, n, P, *(a.data_ptr() for a in (*elems, *outs)), B, T,
+                stream), "value_scan")
+            torch.cuda.synchronize()
+            for g, r in zip(outs, ref):
+                assert _rel_err(g, r) <= tol, (T, P)
 
 
 # The trial's launch geometries: every lane count the launch rule picks
