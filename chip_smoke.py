@@ -123,14 +123,46 @@ line:
      T=250) on the same pool, with launch counts; in float64 on 256
      scenarios the mega executor against the two-launch arm, Newton and
      DDP, with the scenarios that run to the iteration cap.
+  P. bench.py's nmpc mode (``bench.py:193-311``): cartpole H=100, float32,
+     4096 controllers from the pool's first states, zero initial plans, 25
+     closed-loop steps of ``nmpc_loop_batched_warm`` on
+     ``solve_batch_packed`` (the first resolve cold under BATCH_CONFIG,
+     the others warm at ``bp_entry=0.02`` capped at 12 iterations a
+     stage, k-blocks of 8): resolves/s and ms per step (median of 3)
+     against the 10 ms replan budget, max |u|, the cold and warm resolves'
+     iterations, the fallback lanes per step, host reads, the busy share
+     and the launches held to their exact counts (the mega kernel once
+     per k-block, the rollout-cost kernel once for the cold resolve and
+     twice for each warm one); then the r4 protocol (every resolve cold,
+     capped at 25, k-blocks of 32); then (P64) float64 on 64 controllers
+     x 5 steps, the card against the CPU; and ``lqt_mpc_loop`` par
+     against seq on the card (``examples/linear_mpc.py``'s LQT, T=5, 300
+     steps, within 1e-10) with the scans' launches and each loop's ms
+     per step (the example times 5000 steps);
+  Q. ``interior_point_ddp`` in float64 (plain tensor code, no kernel, as
+     in JAX): the goldens against tests/golden/*.npz and the CPU run;
+     ``solve_batch(method="ddp")`` on 16 pool scenarios under FAST_CONFIG
+     (wall, lockstep iterations, mean and max iterations, lanes at a
+     stage's cap, non-finite costs; against the CPU lane by lane; cut
+     from 256: the plain solve is host-bound, some 0.3 s per lockstep
+     iteration on the card whatever the lanes); one float32 cartpole
+     H=100 ``solve(method="ddp")`` timed;
+  R. warm transfer in the packed stream at H's width (4096 lanes, refill
+     32, a pool of 4 x 4096, float32): on pendulum H=100 against the cold
+     stream (raw costs within 1e-4 relative on every scenario, fewer mean
+     iterations after the first generation, the transferred and fallback
+     lanes), on cartpole the basin-switch fraction against H's solutions
+     (reported, no limit), with launch counts; then 256 cartpole
+     scenarios in float64, the card against the CPU.
 
-Phases B, E, J and the second halves of M and N run last: their CPU halves
-(and L's CPU golden solves) run meanwhile, in one child process each,
-started at the beginning.  A failed check fails its phase; the other phases still
-run, and any failure exits non-zero.  The line before the last holds the
-kernels' record; the last line is ``{"ok": true, "device": {...}}``.
-``--phases`` runs a subset of A-O (default: all; phase 0, the device and
-the build, always runs).  The line before the kernels' record gives the
+Phases B, E, J, the second halves of M and N, R's float64 check and P64
+run last: their CPU halves (and L's and Q's CPU golden solves) run
+meanwhile, in one child process each, started at the beginning (P's, Q's
+and R's when phase P starts).  A failed
+check fails its phase; the other phases still run, and any failure exits
+non-zero.  The line before the last holds the kernels' record; the last
+line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of
+A-R (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
 script's total seconds.  Without a card, or outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
@@ -913,11 +945,12 @@ CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
                "M": "solve_batch(method='par'), FAST_CONFIG",
                "Nflat": "solve_batch, BATCH_CONFIG.replace(barrier_mode="
                         "'flat')",
-               "Nddp": "solve_batch, BATCH_CONFIG.replace(newton_impl='ddp')"}
+               "Nddp": "solve_batch, BATCH_CONFIG.replace(newton_impl='ddp')",
+               "R": "solve_stream(warm_transfer=True), BATCH_CONFIG"}
 
 
 def card_vs_cpu_solve(phase, u, x0):
-    """The solve that phase B, E, J, M or N runs on both sides: 256
+    """The solve that phase B, E, J, M, N or R runs on both sides: 256
     scenarios through 64 lanes for the streams, 128 in one lockstep batch
     for M and N.  Returns ``(controls, iterations, steps, extra)``,
     ``extra`` the coarse level's iterations and steps for J."""
@@ -944,7 +977,8 @@ def card_vs_cpu_solve(phase, u, x0):
                  "steps_coarse": sol.steps_coarse})
     cfg = (BATCH_CONFIG.replace(newton_impl="seq") if phase == "B"
            else BATCH_CONFIG)
-    sol = solve_stream(ocp, u, x0, cfg, lanes=64, refill_every=REFILL)
+    sol = solve_stream(ocp, u, x0, cfg, lanes=64, refill_every=REFILL,
+                       warm_transfer=phase == "R")
     return sol.controls, sol.iterations.cpu(), sol.steps, {}
 
 
@@ -954,7 +988,9 @@ def cpu_reference_solve(phase):
     (``--cpu-reference B|E|J|M|N``) while the card works through the other
     phases; returns ``(controls, iterations, steps, extra, wall_s)``, for N
     a dict of those for Nflat and Nddp, which one process runs in turn.
-    For L, the goldens' parallel solves (:func:`golden_par_cpu`)."""
+    For L, the goldens' parallel solves (:func:`golden_par_cpu`); for P,
+    the nmpc loop (:func:`nmpc_cpu`); for Q, a dict of the goldens' IP-DDP
+    solves (Qgolden) and IP-DDP on the first 16 scenarios (Qddp)."""
     import torch
 
     from ipoc_tpu_torch.models import cartpole
@@ -965,7 +1001,19 @@ def cpu_reference_solve(phase):
     torch.set_num_threads(2 if phase == "M" else 1)
     if phase == "L":
         return golden_par_cpu()
+    if phase == "P":
+        return nmpc_cpu()
     pool = make_pool(cartpole, POOL, torch.float32)
+    if phase == "Q":
+        from ipoc_tpu_torch import FAST_CONFIG, solve_batch
+
+        u, x0 = (a[:DDP_SCENARIOS].double() for a in pool)
+        t0 = time.perf_counter()
+        sol = solve_batch(model_ocp("cartpole"), u, x0, FAST_CONFIG,
+                          method="ddp")
+        return {"Qgolden": ddp_golden_cpu(),
+                "Qddp": (sol.controls, sol.iterations, None, {},
+                         time.perf_counter() - t0)}
     out = {}
     for ph in ("Nflat", "Nddp") if phase == "N" else (phase,):
         n = CARD_VS_CPU_SCENARIOS.get(ph, 256)
@@ -3182,6 +3230,523 @@ def phase_long_horizon(dev):
     return record, launches
 
 
+# bench.py's nmpc protocol (phase P): 25 closed-loop steps of 4096
+# controllers, the first resolve cold (BATCH_CONFIG), the others warm at
+# NMPC_WARM_BP, capped at NMPC_WARM_CAP a stage; k-blocks of NMPC_K.  The
+# r4 protocol resolves every step cold, capped at NMPC_CAP, k-blocks of 32.
+NMPC_STEPS = 25
+NMPC_K = 8
+NMPC_WARM_BP = 0.02
+NMPC_WARM_CAP = 12
+NMPC_CAP = 25
+# Phase P's float64 card-against-CPU run: controllers, steps.
+NMPC_CARD_VS_CPU = (64, 5)
+# examples/linear_mpc.py's LQT loop, checked and timed (the example times
+# 5000 steps; a par step is host-bound at some 5 ms on the card).
+LQT_STEPS = 300
+# Phase Q's IP-DDP batch, held to the CPU lane by lane: cut from 256
+# scenarios, since the plain solve is host-bound at some 0.3 s per lockstep
+# iteration on the card whatever the lanes.
+DDP_SCENARIOS = 16
+
+
+def double_integrator_lqt(T_, dt, dtype, device):
+    """``examples/linear_mpc.py`` ``build_lqt`` as the port's one-lane LQT:
+    the double integrator x'' = u under one RK4 step of ``dt`` (exact for
+    it: A = I + dt Ac, B = dt Bc + dt^2/2 Ac Bc), Q = diag(100, 1), R =
+    0.1, no drift, no cross term, tracking the origin."""
+    import torch
+
+    from ipoc_tpu_torch.parallel.lqt import LQT
+
+    kw = dict(dtype=dtype, device=device)
+    A = torch.tensor([[1.0, dt], [0.0, 1.0]], **kw)
+    B = torch.tensor([[0.5 * dt * dt], [dt]], **kw)
+    Q = torch.diag(torch.tensor([1e2, 1e0], **kw))
+    R = 1e-1 * torch.eye(1, **kw)
+
+    def tile(M):
+        return M.expand((1, T_) + M.shape).contiguous()
+
+    z = lambda *s: torch.zeros(s, **kw)  # noqa: E731
+    return LQT(A=tile(A), B=tile(B), c=z(1, T_, 2), XT=Q[None],
+               HT=torch.eye(2, **kw)[None], rT=z(1, 2), X=tile(Q),
+               H=tile(torch.eye(2, **kw)), r=z(1, T_, 2), U=tile(R),
+               Z=tile(torch.eye(1, **kw)), s=z(1, T_, 1), M=z(1, T_, 2, 1))
+
+
+def nmpc_warm_loop(ocp, x0s, steps, iters=None):
+    """bench.py's nmpc loop (``nmpc_loop_batched_warm`` on
+    ``solve_batch_packed``) from zero plans; each resolve's iterations
+    (device tensors) appended to ``iters["cold"]`` / ``iters["warm"]``."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.mpc import nmpc_loop_batched_warm
+    from ipoc_tpu_torch.solvers.packed_stream import solve_batch_packed
+
+    iters = {"cold": [], "warm": []} if iters is None else iters
+    wcfg = BATCH_CONFIG.replace(max_newton_iters=NMPC_WARM_CAP)
+
+    def cold(u, x):
+        u, it = solve_batch_packed(ocp, u, x, BATCH_CONFIG, k_block=NMPC_K)
+        iters["cold"].append(it)
+        return u
+
+    def warm(u, x):
+        u, it = solve_batch_packed(ocp, u, x, wcfg, k_block=NMPC_K,
+                                   bp_entry=NMPC_WARM_BP)
+        iters["warm"].append(it)
+        return u
+
+    u0 = torch.zeros((x0s.shape[0], T, 1), dtype=x0s.dtype,
+                     device=x0s.device)
+    return nmpc_loop_batched_warm(cold, warm, ocp.dynamics, x0s, u0, steps)
+
+
+def nmpc_cpu():
+    """The CPU half of phase P: the nmpc loop in float64 on the pool's
+    first controllers, ``(states, controls, iterations (steps, B))``."""
+    import torch
+
+    from ipoc_tpu_torch.models import cartpole
+
+    n, steps = NMPC_CARD_VS_CPU
+    x0s = make_pool(cartpole, n, torch.float32)[1].double()
+    iters = {"cold": [], "warm": []}
+    xs, us = nmpc_warm_loop(model_ocp("cartpole"), x0s, steps, iters)
+    return xs, us, torch.stack(iters["cold"] + iters["warm"])
+
+
+def iteration_stats(its):
+    """Mean and max of a list of per-lane iteration tensors."""
+    import torch
+
+    a = torch.stack(its).double().cpu()
+    return {"resolves": len(its), "mean": float(a.mean()),
+            "max": int(a.max())}
+
+
+def phase_nmpc(pool32, dev):
+    """Phase P: bench.py's nmpc mode (``bench.py:193-311``) at full width,
+    then its r4 protocol, then ``lqt_mpc_loop``.  Returns the launches of
+    the measured warm-protocol run and of the par LQT loop."""
+    import statistics
+
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.mpc import lqt_mpc_loop, nmpc_loop_batched
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+
+    ocp = model_ocp("cartpole")
+    x0s = pool32[1][:LANES].to(dev)
+    n = x0s.shape[0]
+    out = {"phase": "P", "model": "cartpole", "horizon": T,
+           "dtype": "float32", "controllers": n, "steps": NMPC_STEPS,
+           "protocol": f"nmpc_loop_batched_warm: the first resolve "
+                       f"BATCH_CONFIG (k_block {NMPC_K}), the others "
+                       f"max_newton_iters={NMPC_WARM_CAP}, bp_entry="
+                       f"{NMPC_WARM_BP}, k_block {NMPC_K}; zero initial "
+                       "plans, the pool's first states",
+           "replan_budget_ms": DT * 1e3}
+    nmpc_warm_loop(ocp, x0s[:256], 2)[1].cpu()  # warm-up
+    iters = {"cold": [], "warm": []}
+    with counting(mega, "mega_k_iterations") as blocks, \
+            counting(ps, "select_lanes",
+                     lambda ok, new, old: (~ok).sum()) as fallback, \
+            counting(torch.Tensor, "__bool__") as reads:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        xs, us = nmpc_warm_loop(ocp, x0s, NMPC_STEPS, iters)
+        us.cpu()
+        counted_s = time.perf_counter() - t0
+        launches = dict(cuda.launches)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nmpc_warm_loop(ocp, x0s, NMPC_STEPS)[1].cpu()
+        times.append(time.perf_counter() - t0)
+    wall = statistics.median(times)
+    busy, top = run_busy_share(
+        lambda: nmpc_warm_loop(ocp, x0s, NMPC_STEPS)[1].cpu(), wall)
+    umax = float(us.abs().max())
+    finite = bool(torch.isfinite(xs).all() and torch.isfinite(us).all())
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update(mega=len(blocks.calls), rollout_cost=1 + 2 * (NMPC_STEPS - 1))
+    out.update({
+        "wall_s_median_of_3": wall, "wall_s": times,
+        "counted_run_wall_s": counted_s,
+        "resolves_per_s": n * NMPC_STEPS / wall,
+        "ms_per_step": wall / NMPC_STEPS * 1e3,
+        "within_replan_budget": wall / NMPC_STEPS * 1e3 <= DT * 1e3,
+        "max_abs_u": umax, "finite": finite,
+        "iterations_cold": iteration_stats(iters["cold"]),
+        "iterations_warm": iteration_stats(iters["warm"]),
+        "fallback_lanes_per_warm_step": [int(f) for f in fallback.calls],
+        "k_blocks": len(blocks.calls), "host_reads": len(reads.calls),
+        "launches": {k: v for k, v in launches.items() if v},
+        "device_busy_share_whole_run": busy,
+        "whole_run_device_ms_top_kernels": top})
+    problems = []
+    if launches != want:
+        problems.append(f"launches {out['launches']}, expected "
+                        f"{ {k: v for k, v in want.items() if v} }")
+    if not finite or umax > 50.0 + 1e-4:
+        problems.append(f"max |u| {umax}, finite {finite}")
+
+    # The r4 protocol: every step a cold resolve capped at NMPC_CAP.
+    ncfg = BATCH_CONFIG.replace(max_newton_iters=NMPC_CAP)
+    r4_iters = []
+
+    def resolve(u, x):
+        u, it = ps.solve_batch_packed(ocp, u, x, ncfg)
+        r4_iters.append(it)
+        return u
+
+    with counting(mega, "mega_k_iterations") as r4_blocks:
+        t0 = time.perf_counter()
+        xs4, us4 = nmpc_loop_batched(
+            resolve, ocp.dynamics, x0s,
+            torch.zeros((n, T, 1), dtype=x0s.dtype, device=dev), NMPC_STEPS)
+        us4.cpu()
+        wall4 = time.perf_counter() - t0
+    out["r4_protocol"] = {
+        "config": f"BATCH_CONFIG.replace(max_newton_iters={NMPC_CAP}), "
+                  "k_block 32, every resolve cold",
+        "wall_s": wall4, "resolves_per_s": n * NMPC_STEPS / wall4,
+        "ms_per_step": wall4 / NMPC_STEPS * 1e3,
+        "iterations": iteration_stats(r4_iters),
+        "k_blocks": len(r4_blocks.calls),
+        "max_abs_u": float(us4.abs().max())}
+    if not bool(torch.isfinite(us4).all()) or float(us4.abs().max()) > 50.0:
+        problems.append("r4 protocol: non-finite or out-of-bound controls")
+
+    # examples/linear_mpc.py's loop, par against seq, each timed.
+    lqt = double_integrator_lqt(5, 1e-3, torch.float64, dev)
+    x0 = torch.tensor([[2.0, 1.0]], dtype=torch.float64, device=dev)
+    loops, ms = {}, {}
+    for mode in ("par", "seq"):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        loops[mode] = lqt_mpc_loop(lqt, x0, LQT_STEPS, mode)
+        loops[mode][0].cpu()
+        ms[mode] = (time.perf_counter() - t0) / LQT_STEPS * 1e3
+        if mode == "par":
+            lqt_launches = {k: v for k, v in cuda.launches.items() if v}
+    (xp, up), (xq, uq) = loops["par"], loops["seq"]
+    err = max(float((xp - xq).abs().max()), float((up - uq).abs().max()))
+    out["lqt_mpc"] = {
+        "problem": "examples/linear_mpc.py build_lqt: T=5, dt 1e-3, "
+                   "float64", "steps": LQT_STEPS,
+        "par_vs_seq_max_abs_err": err, "launches_par": lqt_launches,
+        "par_ms_per_step": ms["par"], "seq_ms_per_step": ms["seq"],
+        "final_state_norm": float(torch.linalg.vector_norm(xp[-1]))}
+    if err > 1e-10:
+        problems.append(f"lqt_mpc_loop par against seq: {err}")
+    if lqt_launches != {"value_scan": LQT_STEPS, "affine_scan": LQT_STEPS}:
+        problems.append(f"lqt_mpc_loop launches {lqt_launches}")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, "; ".join(problems))
+    return {"mega": launches["mega"],
+            "rollout_cost": launches["rollout_cost"], **lqt_launches}
+
+
+def phase_nmpc_card_vs_cpu(dev, cpu_ref):
+    """Phase P's float64 half: the nmpc loop on the first controllers, the
+    card against the CPU."""
+    import torch
+
+    from ipoc_tpu_torch.models import cartpole
+
+    n, steps = NMPC_CARD_VS_CPU
+    x0s = make_pool(cartpole, n, torch.float32)[1].double().to(dev)
+    iters = {"cold": [], "warm": []}
+    xs, us = nmpc_warm_loop(model_ocp("cartpole"), x0s, steps, iters)
+    it = torch.stack(iters["cold"] + iters["warm"]).cpu()
+    xs_c, us_c, it_c = cpu_ref
+    du = (us.cpu() - us_c).abs().amax(dim=(0, 2))
+    dx = (xs.cpu() - xs_c).abs().amax(dim=(0, 2))
+    same = (it == it_c).all(0)
+    agree = same & (du <= 1e-6)
+    emit({"phase": "P64", "dtype": "float64", "controllers": n,
+          "steps": steps, "controllers_with_different_iterations": int(
+              (~same).sum()),
+          "max_abs_du": float(du.max()), "max_abs_dx": float(dx.max()),
+          "controllers_agreeing": int(agree.sum())})
+    # A controller agrees when every resolve took the same iterations and
+    # every applied control is within 1e-6; one in 32 may part within
+    # rounding (phase E's float64 check parts 2 of 256 lanes along a flat
+    # valley), and then its applied controls must stay within 1e-4.
+    check(int((~agree).sum()) <= n // 32,
+          f"{int((~agree).sum())} of {n} controllers differ")
+    check(float(du.max()) <= 1e-4, f"applied controls differ by {du.max()}")
+
+
+def ddp_golden_cpu():
+    """The CPU half of phase Q's goldens: ``{model: (controls,
+    iterations)}`` of ``interior_point_ddp`` under PARITY_CFG."""
+    from ipoc_tpu_torch import DEFAULT_CONFIG, interior_point_ddp
+
+    out = {}
+    for name in ("pendulum", "cartpole"):
+        _, ocp, u0, x0 = golden_setup(name)
+        u, it = interior_point_ddp(ocp, u0, x0,
+                                   DEFAULT_CONFIG.replace(stall_exit=False))
+        out[name] = (u, int(it))
+    return out
+
+
+class stage_iterations:
+    """Inside the ``with`` block, keep each barrier stage's per-lane
+    iterations that ``ip_ddp._ddp_stage`` returns (device tensors)."""
+
+    def __enter__(self):
+        from ipoc_tpu_torch.solvers import ip_ddp
+
+        self.module, self.real, self.stages = ip_ddp, ip_ddp._ddp_stage, []
+
+        def wrapped(*a, **k):
+            x, u, it = self.real(*a, **k)
+            self.stages.append(it)
+            return x, u, it
+
+        ip_ddp._ddp_stage = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module._ddp_stage = self.real
+
+
+def phase_ddp(pool64, dev, cpu_ref):
+    """Phase Q: ``interior_point_ddp`` in float64, the reference's
+    precision, plain tensor code (no kernel, as in JAX): the goldens
+    against tests/golden/*.npz and the CPU, ``solve_batch(method="ddp")``
+    on DDP_SCENARIOS pool scenarios under FAST_CONFIG (against the CPU,
+    lane by lane), and one float32 cartpole H=100 ``solve(method="ddp")``
+    timed as ``examples/runtime_benchmark.py`` times it.  ``cpu_ref(key)``
+    gives the CPU child's Qgolden and Qddp, read after the card's solves
+    (the child runs beside them)."""
+    import numpy as np
+    import torch
+
+    from ipoc_tpu_torch import (
+        DEFAULT_CONFIG,
+        FAST_CONFIG,
+        interior_point_ddp,
+        solve,
+        solve_batch,
+    )
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import ip_ddp
+    from ipoc_tpu_torch.utils.integrators import rollout
+
+    out = {"phase": "Q", "golden_config": PARITY}
+    problems, goldens = [], {}
+    cuda.reset_launches()
+    for name in ("pendulum", "cartpole"):
+        data, ocp, u0, x0 = golden_setup(name)
+        with counting(ip_ddp, "compute_derivatives") as outer, \
+                counting(ip_ddp, "ddp_bwd_pass") as trials:
+            t0 = time.perf_counter()
+            u, it = interior_point_ddp(ocp, u0.to(dev), x0.to(dev),
+                                       DEFAULT_CONFIG.replace(
+                                           stall_exit=False))
+            u, it = u.cpu(), int(it)
+            wall = time.perf_counter() - t0
+        bp = torch.tensor(float(data["final_bp"]), dtype=torch.float64)
+        cost = float(ocp.total_cost(rollout(ocp.dynamics, u, x0), u, bp))
+        rel = abs(cost - float(data["cost_ddp"])) / abs(
+            float(data["cost_ddp"]))
+        du = float(np.abs(u.numpy() - data["u_ddp"]).max())
+        goldens[name] = u, it
+        out[f"golden_{name}"] = {
+            "iterations": it, "iterations_golden": int(data["iters_ddp"]),
+            "outer_iterations": len(outer.calls), "trials": len(trials.calls),
+            "wall_s": wall, "cost_rel_err_vs_golden": rel,
+            "max_abs_du_vs_golden": du}
+        if rel > 1e-8 or du > 5e-2:
+            problems.append(f"{name}: cost rel {rel}, |du| {du}")
+
+    ocp = model_ocp("cartpole")
+    u, x0 = (a[:DDP_SCENARIOS].to(dev) for a in pool64)
+    with counting(ip_ddp, "compute_derivatives") as outer, \
+            stage_iterations() as stages:
+        t0 = time.perf_counter()
+        sol = solve_batch(ocp, u, x0, FAST_CONFIG, method="ddp")
+        it = sol.iterations.cpu()
+        wall = time.perf_counter() - t0
+    capped = (torch.stack(stages.stages).cpu()
+              > FAST_CONFIG.max_ddp_iters).any(0)
+    costs = raw_costs(ocp, sol.controls, x0).cpu()
+    nonfinite = int((~torch.isfinite(costs)).sum())
+    out["batch"] = {
+        "config": "FAST_CONFIG", "scenarios": DDP_SCENARIOS, "wall_s": wall,
+        "solves_per_s": DDP_SCENARIOS / wall,
+        "lockstep_iterations": len(outer.calls),
+        "mean_iterations": float(it.double().mean()),
+        "max_iterations": int(it.max()),
+        "lanes_at_a_stage_cap": int(capped.sum()),
+        "nonfinite_raw_costs": nonfinite,
+        "max_abs_u": float(sol.controls.abs().max())}
+    if nonfinite or not bool(torch.isfinite(sol.controls).all()):
+        problems.append(f"batch: {nonfinite} non-finite raw costs")
+    launched = {k: v for k, v in cuda.launches.items() if v}
+    out["launches"] = launched
+    if launched:
+        problems.append(f"IP-DDP launched kernels: {launched}")
+
+    # examples/runtime_benchmark.py's float32 protocol: FAST_CONFIG from
+    # the goldens' warm start (after the float64 solves above).  solve()'s
+    # metrics take the stationarity from one costate scan.
+    _, ocp32, u0, x32 = golden_setup("cartpole")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    s = solve(ocp32, u0.to(dev, torch.float32), x32.to(dev, torch.float32),
+              FAST_CONFIG, method="ddp")
+    its = int(s.iterations)
+    wall = time.perf_counter() - t0
+    out["single_float32"] = {
+        "config": "FAST_CONFIG", "wall_s": wall, "iterations": its,
+        "cost": float(s.cost), "feasible": bool(s.feasible),
+        "converged": bool(s.converged), "grad_norm": float(s.grad_norm),
+        "launches": {k: v for k, v in cuda.launches.items() if v}}
+    if not bool(torch.isfinite(s.controls).all()) or not bool(s.feasible):
+        problems.append("float32 solve: non-finite or infeasible")
+
+    # The CPU's goldens, and its batch of the same scenarios lane by lane.
+    for name, (u_card, it_card) in goldens.items():
+        u_cpu, it_cpu = cpu_ref("Qgolden")[name]
+        out[f"golden_{name}"].update({
+            "iterations_cpu": it_cpu,
+            "max_abs_du_vs_cpu": float((u_card - u_cpu).abs().max())})
+        if it_card != it_cpu:
+            problems.append(f"{name}: iterations {it_card} (CPU {it_cpu})")
+    u_cpu, it_cpu, _, _, wall_cpu = cpu_ref("Qddp")
+    n = it_cpu.shape[0]
+    same = it == it_cpu
+    du = (sol.controls.cpu() - u_cpu).abs().flatten(1).amax(1)
+    c_card = raw_costs(ocp, sol.controls.cpu(), x0.cpu())
+    c_cpu = raw_costs(ocp, u_cpu, x0.cpu())
+    rel = float(((c_card - c_cpu).abs() / c_cpu.abs()).max())
+    agree = same & (du <= 1e-6)
+    out["card_vs_cpu"] = {
+        "scenarios": n, "lanes_with_different_iterations": int(
+            (~same).sum()),
+        "lanes_agreeing": int(agree.sum()), "max_abs_du": float(du.max()),
+        "max_raw_cost_rel_diff": rel, "wall_s_cpu_child": wall_cpu}
+    # As phase N's DDP check: one lane may take another accept path within
+    # rounding; every converged raw cost agrees to the goldens' rtol.
+    if int((~agree).sum()) > 1 or rel > 1e-8:
+        problems.append(f"card against CPU: {out['card_vs_cpu']}")
+    out["problems"] = problems
+    emit(out)
+    check(not problems, "; ".join(problems))
+
+
+def phase_warm_transfer(pool32, dev, single_grid=None):
+    """Phase R: warm transfer in the packed stream at phase H's width, on
+    pendulum H=100 against the cold stream (raw costs within 1e-4 relative
+    on every scenario, fewer mean iterations after the first generation),
+    then on cartpole, with the basin-switch fraction against the
+    single-grid solutions (phase H's, or a cold stream here) reported with
+    no limit.  Returns the launches of the pendulum warm run."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_stream
+    from ipoc_tpu_torch.models import pendulum
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+
+    cfg = BATCH_CONFIG
+    out = {"phase": "R", "config": "BATCH_CONFIG", "dtype": "float32",
+           "lanes": LANES, "refill_every": REFILL, "transfer_bp": 0.02}
+    problems = []
+
+    def stream(ocp, u, x0, lanes=LANES, **kw):
+        return solve_stream(ocp, u, x0, cfg, lanes=lanes,
+                            refill_every=REFILL, **kw)
+
+    def measured(ocp, u, x0):
+        """The warm-transfer stream with its launches, refill rounds, lane
+        openings and transfers counted."""
+        with counting(ps, "packed_lane_init", opened_lanes) as opened, \
+                counting(mega, "mega_k_iterations") as rounds, \
+                counting(ps, "select_lanes",
+                         lambda ok, new, old: ok.sum()) as kept:
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            sol = stream(ocp, u, x0, warm_transfer=True)
+            sol.iterations.cpu()
+            wall = time.perf_counter() - t0
+            counts = dict(cuda.launches)
+        transferred = int(sum(int(k) for k in kept.calls))
+        refilled = sum(opened.calls[1:]) // 2  # each refill opens twice
+        rec = {"wall_s": wall, "solves_per_s": u.shape[0] / wall,
+               "steps": sol.steps, "launches": counts,
+               "refill_rounds": len(rounds.calls),
+               "lane_openings": len(opened.calls),
+               "transferred_lanes": transferred,
+               "fallback_lanes": refilled - transferred}
+        return sol, rec
+
+    for name in ("pendulum", "cartpole"):
+        ocp = model_ocp(name)
+        pool = (make_pool(pendulum, POOL, torch.float32) if name == "pendulum"
+                else pool32)
+        u, x0 = (a.to(dev) for a in pool)
+        stream(ocp, u[:256], x0[:256], lanes=256,
+               warm_transfer=True).iterations.cpu()  # warm-up
+        if name == "cartpole" and single_grid is not None:
+            cold = single_grid
+            cold_from = "phase H"
+        else:
+            cold = stream(ocp, u, x0)
+            cold_from = "this phase"
+        warm, rec = measured(ocp, u, x0)
+        c_c = raw_costs(ocp, cold.controls, x0).double().cpu()
+        c_w = raw_costs(ocp, warm.controls, x0).double().cpu()
+        rel = (c_w - c_c).abs() / c_c.abs().clamp(min=1e-12)
+        it_c, it_w = (s.iterations.cpu().double() for s in (cold, warm))
+        later = slice(LANES, None)
+        umax = float(warm.controls.abs().max())
+        rec.update({
+            "scenarios": u.shape[0], "cold_from": cold_from,
+            "mean_iterations_cold": float(it_c.mean()),
+            "mean_iterations_warm": float(it_w.mean()),
+            "mean_iterations_after_first_generation": {
+                "cold": float(it_c[later].mean()),
+                "warm": float(it_w[later].mean())},
+            "max_raw_cost_rel_diff": float(rel.max()),
+            "basin_switch_frac": float((rel > 1e-3).double().mean()),
+            "frac_nonfinite_cost": float((~torch.isfinite(c_w)).double()
+                                         .mean()),
+            "max_abs_u": umax})
+        out[name] = rec
+        try:
+            check_mega_path(rec["launches"], rec["refill_rounds"],
+                            rec["lane_openings"])
+        except RuntimeError as exc:
+            problems.append(f"{name}: {exc}")
+        if not bool(torch.isfinite(warm.controls).all()) or umax > 50 + 1e-4:
+            problems.append(f"{name}: max |u| {umax}")
+        if name == "pendulum":
+            if float(rel.max()) > 1e-4:
+                problems.append(f"pendulum: raw costs part by {rel.max()}")
+            if not it_w[later].mean() < it_c[later].mean():
+                problems.append("pendulum: no fewer iterations after the "
+                                "first generation")
+            counts = rec["launches"]
+    out["problems"] = problems
+    emit(out)
+    check(not problems, "; ".join(problems))
+    return {"mega": counts["mega"], "rollout_cost": counts["rollout_cost"]}
+
+
 def make_pool(model, n, dtype, seed=SEED, horizon=T):
     """The bench's pool recipe (bench.py make_batch call), on the CPU."""
     import torch
@@ -3194,16 +3759,19 @@ def make_pool(model, n, dtype, seed=SEED, horizon=T):
 
 
 # The child processes of the card-against-CPU phases (N's one runs both of
-# its configurations) and of L's goldens.
-CPU_CHILDREN = ["B", "E", "J", "M", "N", "L"]
+# its configurations, Q's its goldens and its batch) and of L's goldens.
+# P's, Q's and R's start when phase P does: they run beside Q's
+# host-bound solves instead of slowing A-O's.
+CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "P", "Q", "R"]
+LATE_CHILDREN = ("P", "Q", "R")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJKLMNO",
-                        help="subset of phases A-O to run after phase 0, "
-                             "which always runs (default: ABCDEFGHIJKLMNO); "
-                             "I needs H")
+    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQR",
+                        help="subset of phases A-R to run after phase 0, "
+                             "which always runs (default: "
+                             "ABCDEFGHIJKLMNOPQR); I needs H")
     parser.add_argument("--cpu-reference", choices=CPU_CHILDREN,
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
@@ -3236,7 +3804,7 @@ def main(argv=None):
                   f"the CPU reference process of phase {child} failed")
             references[child] = pickle.loads(out)
         ref = references[child]
-        return ref[phase] if child == "N" else ref
+        return ref[phase] if child in ("N", "Q") else ref
 
     failures, record, counts = [], {}, {}
 
@@ -3258,12 +3826,15 @@ def main(argv=None):
         name, _ = phase_device()
         # The CPU halves of phases B, E, J, M, N and L run meanwhile, one
         # child process each (started after the build, which they would
-        # slow down).
-        children.update({
-            ph: subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--cpu-reference",
-                 ph], stdout=subprocess.PIPE)
-            for ph in CPU_CHILDREN if ph in args.phases})
+        # slow down); P's, Q's and R's before phase P.
+        def start(phases):
+            children.update({
+                ph: subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cpu-reference", ph], stdout=subprocess.PIPE)
+                for ph in phases if ph in args.phases})
+
+        start(ph for ph in CPU_CHILDREN if ph not in LATE_CHILDREN)
         # The bench's pool recipe (bench.py make_batch call), on the CPU;
         # the float64 runs take the float32 pool's exact values.
         pool32 = make_pool(cartpole, POOL, torch.float32)
@@ -3317,9 +3888,22 @@ def main(argv=None):
                                          dev) or ({}, None)
         record["mega_streamed"] = long_record
         counts["mega_streamed"] = long_launches
+        # bench.py's nmpc mode, the single-solve IP-DDP and warm transfer:
+        # their mega, rollout-cost and LQT scans' launches are added to the
+        # kernels' counts above.
+        start(LATE_CHILDREN)
+        counts_p = run("P", phase_nmpc, pool32, dev) or {}
+        run("Q", lambda: phase_ddp(pool64, dev, reference))
+        counts_r = run("R", phase_warm_transfer, pool32, dev,
+                       single_grid) or {}
+        for k in ("mega", "rollout_cost", "value_scan", "affine_scan"):
+            if k in counts_p or k in counts_r:
+                counts[k] = (counts.get(k) or 0) + counts_p.get(k, 0) \
+                    + counts_r.get(k, 0)
         for ph in CARD_VS_CPU:
             run(ph, lambda ph=ph: phase_card_vs_cpu(ph, pool64, dev,
                                                     reference(ph)))
+        run("P64", lambda: phase_nmpc_card_vs_cpu(dev, reference("P64")))
     finally:
         for child in children.values():
             if child.poll() is None:

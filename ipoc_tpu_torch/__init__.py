@@ -15,8 +15,12 @@ packed stream on the mega kernel, with per-stage code generated from the
 model, at any horizon), with ``newton_impl="ddp"``, ``"seq"`` and
 ``"par"``; the bench's batch mode, ``solve_batch`` under ``BATCH_CONFIG``
 (staged or flat, Newton or DDP) on the fused trial's, rollout and
-transition kernels; their models and derivatives.  ROADMAP.md lists what
-is still to port.
+transition kernels; bench.py's NMPC mode, ``solve_batch_packed`` (with a
+warm barrier entry) on the mega kernel and the receding-horizon loops of
+``ipoc_tpu_torch.mpc``; the single-solve IP-DDP baseline,
+``interior_point_ddp`` (``solve_batch``/``solve`` with ``method="ddp"``);
+warm transfer in the packed stream; their models and derivatives.
+ROADMAP.md lists what is still to port.
 """
 
 from ipoc_tpu_torch.config import (
@@ -35,6 +39,7 @@ from ipoc_tpu_torch.parallel.lqt import (
     seq_fwd_pass,
 )
 from ipoc_tpu_torch.solvers.batched import BatchSolution, solve_batch
+from ipoc_tpu_torch.solvers.ip_ddp import interior_point_ddp
 from ipoc_tpu_torch.solvers.ip_newton import (
     par_interior_point_optimal_control,
     seq_interior_point_optimal_control,
@@ -57,6 +62,7 @@ __all__ = [
     "MultigridSolution",
     "SolverConfig",
     "StreamSolution",
+    "interior_point_ddp",
     "newton_lqt",
     "par_bwd_pass",
     "par_costates",

@@ -16,6 +16,9 @@ def sym(a):
 def _cholesky_small(A):
     """Batched lower Cholesky, unrolled; NaN entries when not PD."""
     n = A.shape[-1]
+    if n == 1:
+        # The loop's one step in one call: its callers are host-bound.
+        return torch.sqrt(A)
     L = torch.zeros_like(A)
     for j in range(n):
         d = A[..., j, j]
@@ -34,6 +37,8 @@ def _cholesky_small(A):
 def _tri_solve_small(L, B, lower=True):
     """Batched triangular solve against a matrix RHS, unrolled."""
     n = L.shape[-1]
+    if n == 1:
+        return B / L  # the loop's one division, in one call
     X = B.clone()
     order = range(n) if lower else range(n - 1, -1, -1)
     for row in order:
@@ -59,10 +64,16 @@ def cholesky_solve(A, b):
     batch = torch.broadcast_shapes(A.shape[:-2], b.shape[:-2])
     A = A.expand(batch + A.shape[-2:])
     b = b.expand(batch + b.shape[-2:])
-    L = _cholesky_small(A)
-    y = _tri_solve_small(L, b, lower=True)
-    x = _tri_solve_small(L.transpose(-1, -2), y, lower=False)
+    x = cholesky_solve_factored(_cholesky_small(A), b)
     return x[..., 0] if vec else x
+
+
+def cholesky_solve_factored(L, b):
+    """Solve ``L L^T x = b`` for a lower Cholesky factor ``L (..., n, n)``
+    (from :func:`cholesky` of the symmetrized matrix) and a matrix RHS
+    ``b (..., n, k)`` of the same batch shape."""
+    y = _tri_solve_small(L, b, lower=True)
+    return _tri_solve_small(L.transpose(-1, -2), y, lower=False)
 
 
 def cholesky(A):

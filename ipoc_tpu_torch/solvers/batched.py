@@ -15,6 +15,7 @@ import torch
 
 from ipoc_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from ipoc_tpu_torch.problem import OCP
+from ipoc_tpu_torch.solvers.ip_ddp import ddp_solve_batched
 from ipoc_tpu_torch.solvers.ip_newton import (
     par_solve_batched,
     seq_solve_batched,
@@ -37,13 +38,11 @@ def solve_batch(
     ``controls``: ``method`` "par" (the Newton solve with ``cfg``'s step
     evaluator: "par", "seq", or, with ``globalization="single"``, the fused
     "fused" and "ddp" trials, bench.py's batch mode under
-    ``BATCH_CONFIG``) or "seq" (the sequential validation solve).  "ddp"
-    is not ported (ROADMAP.md, modules item 6: ``interior_point_ddp``)."""
-    solvers = {"par": par_solve_batched, "seq": seq_solve_batched}
-    if method == "ddp":
-        raise ValueError(
-            "solve_batch(method='ddp') is not ported (ROADMAP.md, modules "
-            "item 6: _ddp_stage and interior_point_ddp)")
+    ``BATCH_CONFIG``), "seq" (the sequential validation solve) or "ddp"
+    (``interior_point_ddp``, the reference's IP-DDP with its retry loop:
+    plain tensor code, no kernel)."""
+    solvers = {"par": par_solve_batched, "seq": seq_solve_batched,
+               "ddp": ddp_solve_batched}
     if method not in solvers:
         raise ValueError(f"unknown method {method!r}")
     u, iters = solvers[method](ocp, controls, initial_states, cfg)

@@ -25,14 +25,23 @@ kernels' layout across iterations, so no iteration relayouts it:
   ``refill_every`` iterations; opening and refilling lanes is one
   rollout-cost launch per round.
 
+:func:`solve_batch_packed` is the lockstep flat batch in the same layout
+(no pool, no refill): bench.py's NMPC resolver, with a warm barrier entry
+(``bp_entry``).  The stream's ``warm_transfer`` reopens a refilled lane
+from the finished lane's controls.  Both open a lane a second time at a
+warm barrier and keep the cold open where the warm one is infeasible.
+
 Per-lane semantics are those of ``flat_lane_iter`` with the fused or DDP
 evaluator; the one numerical difference is the summation order of
 ``||cu||_F``, which can flip an accept decision within rounding
 (converged solutions agree to solver tolerance).  On the CPU every kernel
 is its plain version.  The JAX package's TPU machinery is not ported: the
-sublane and VMEM gates, the streamed mega kernel's dispatch (the one mega
-kernel takes every horizon, ``ops/mega.py``) and the environment switches
-(``mega=False`` replaces ``IPOC_MEGA_KERNEL=0``).
+sublane and VMEM gates (``batch_packed_eligible`` among them: the port
+takes any B), the streamed mega kernel's dispatch (the one mega kernel
+takes every horizon, ``ops/mega.py``), the environment switches
+(``mega=False`` replaces ``IPOC_MEGA_KERNEL=0``; ``IPOC_PACKED_FORCE`` has
+nothing to force) and the ``interpret`` argument (the device of the
+inputs picks the kernels or their plain versions).
 """
 
 from __future__ import annotations
@@ -182,6 +191,26 @@ def packed_lane_iter(ocp: OCP, lane: PackedLane, cfg: SolverConfig,
         bp0=lane.bp0, done=lane.done | done_now)
 
 
+def select_lanes(ok, new: PackedLane, old: PackedLane) -> PackedLane:
+    """Per lane, ``new``'s fields where ``ok (B,)`` holds, else ``old``'s:
+    fresh tensors, so the selected lane owns its storage (the mega kernel
+    writes lanes in place)."""
+    return PackedLane(*(torch.where(ok, n, o) for n, o in zip(new, old)))
+
+
+def _check_packed(cfg: SolverConfig) -> None:
+    """What the packed executors run: the fused or DDP evaluator, one trial
+    per iteration, the exact terminal Hessian."""
+    if cfg.newton_impl not in ("fused", "ddp"):
+        raise ValueError("the packed stream runs newton_impl='fused' or "
+                         f"'ddp'; got {cfg.newton_impl!r}")
+    if cfg.globalization != "single":
+        raise ValueError("the packed stream requires globalization='single'")
+    if cfg.terminal_hessian != "exact":
+        raise ValueError("the fused evaluators compute the terminal Hessian "
+                         "in-kernel and require terminal_hessian='exact'")
+
+
 def _pack(controls, initial_states):
     """Scenario rows ``(n, T, nu)``, ``(n, nx)`` -> batch-last lanes."""
     return (controls.permute(1, 2, 0).contiguous(),
@@ -198,6 +227,7 @@ def solve_stream_packed(
     bp_init=None,    # optional (N,) per-scenario barrier start
     rp_init=None,    # optional (N,) per-scenario initial LM damping
     warm_transfer: bool = False,
+    transfer_bp: float = 0.02,
     mega: bool = True,
 ):
     """The packed stream: ``solve_stream``'s scheduling and per-scenario
@@ -212,22 +242,25 @@ def solve_stream_packed(
     predicate (JAX's ``IPOC_MEGA_KERNEL=0``).  Runs on the device of
     ``controls``: the kernels on a card, their plain versions on the CPU.
     Requires ``globalization="single"`` and ``terminal_hessian="exact"``.
+
+    ``warm_transfer``: the scenario that refills a finished lane opens from
+    that lane's own controls (read after the round's iterations, as the
+    capture reads them) with its own initial state, at barrier
+    ``transfer_bp`` and damping ``reg_init``: one more rollout-cost launch
+    per refill round.  Where that open is infeasible (a non-finite barrier
+    cost) the lane falls back to the scenario's cold open.  It changes
+    which basin a multi-modal scenario lands in, and it overrides the
+    refill's barrier and damping, so it refuses ``bp_init``/``rp_init``.
     """
     from ipoc_tpu_torch.ops.mega import mega_k_iterations, mega_workspace
     from ipoc_tpu_torch.solvers.stream import StreamSolution
 
-    if warm_transfer:
-        raise NotImplementedError(
-            "warm_transfer is not ported yet (ROADMAP.md, modules to port: "
-            "'Warm transfer in the packed stream')")
-    if cfg.newton_impl not in ("fused", "ddp"):
-        raise ValueError("the packed stream runs newton_impl='fused' or "
-                         f"'ddp'; got {cfg.newton_impl!r}")
-    if cfg.globalization != "single":
-        raise ValueError("the packed stream requires globalization='single'")
-    if cfg.terminal_hessian != "exact":
-        raise ValueError("the fused evaluators compute the terminal Hessian "
-                         "in-kernel and require terminal_hessian='exact'")
+    _check_packed(cfg)
+    if warm_transfer and (bp_init is not None or rp_init is not None):
+        raise ValueError(
+            "warm_transfer overrides the refill barrier/damping for "
+            "feasible transferred lanes, silently defeating per-scenario "
+            "bp_init/rp_init: use one or the other")
     N, T, nu = controls.shape
     B = min(lanes, N)
     dtype, device = controls.dtype, controls.device
@@ -292,6 +325,15 @@ def solve_stream_packed(
         if n_take:
             new = torch.arange(pool_next, pool_next + n_take, device=device)
             fresh = open_lanes(new)
+            if warm_transfer:
+                # The finished lanes' controls, the new scenarios' states.
+                bpw = torch.full((n_take,), transfer_bp, dtype=dtype,
+                                 device=device)
+                warm = packed_lane_init(
+                    ocp, lane.u[..., take].contiguous(),
+                    initial_states[new].T.contiguous(), bpw,
+                    torch.full_like(bpw, cfg.reg_init), cfg)
+                fresh = select_lanes(~warm.done, warm, fresh)
             lane = PackedLane(*(a.index_copy(-1, take, f)
                                 for a, f in zip(lane, fresh)))
             sid = sid.index_copy(0, take, new)
@@ -299,3 +341,64 @@ def solve_stream_packed(
         active = active.index_fill(0, fin[n_take:], False)
 
     return StreamSolution(out_u, out_it, steps)
+
+
+def solve_batch_packed(
+    ocp: OCP,
+    controls,        # (B, T, nu) warm starts
+    initial_states,  # (B, nx)
+    cfg: SolverConfig,
+    k_block: int = 32,
+    bp_entry: float | None = None,
+):
+    """Lockstep flat batch solve in the packed layout on the mega kernel
+    (JAX ``solve_batch_packed``): bench.py's NMPC resolver.
+
+    The lanes are opened once (one rollout-cost launch), then k-blocks of
+    :func:`ops.mega.mega_k_iterations` (``k_block`` iterations a launch,
+    every lane active; DDP mode with ``newton_impl="ddp"``) run on one
+    workspace until no lane is live or ``flat_total_cap(cfg) // k_block +
+    2`` blocks have run; one host read per block (is any lane live?) is
+    the only sync.  Returns ``(controls (B, T, nu), iterations (B,)
+    int32)``.  Per-lane semantics are ``flat_lane_iter``'s, up to the
+    packed ``||cu||`` summation order.  Runs on the device of
+    ``controls``: the kernels on a card, their plain versions on the CPU.
+
+    ``bp_entry``: a warm resolve from the caller's own previous plan opens
+    the lanes a second time, at barrier ``bp_entry`` from the same
+    controls (a second rollout-cost launch), and keeps that open on every
+    lane where it is not ``done`` (its barrier cost is finite); the other
+    lanes keep their cold open at ``cfg.bp_init``.  A fallback lane runs
+    the full cold schedule under the caller's config, so it inherits the
+    iteration cap the caller chose for warm resolves (as in JAX).  A start
+    that is not near-optimal takes more iterations at ``bp_entry`` than
+    cold: keep the first resolve cold.
+
+    Not ported, being TPU machinery: the sublane and VMEM gates
+    (``batch_packed_eligible``, ``mega_supported``), ``IPOC_PACKED_FORCE``
+    and ``interpret``; the port takes any B.
+    """
+    from ipoc_tpu_torch.ops.mega import mega_k_iterations, mega_workspace
+
+    _check_packed(cfg)
+    B = controls.shape[0]
+    dtype, device = controls.dtype, controls.device
+    if device.type == "cuda":
+        cuda.disable_tf32()
+    u, x0 = _pack(controls, initial_states)
+    bp0 = torch.full((B,), cfg.bp_init, dtype=dtype, device=device)
+    rp0 = torch.full((B,), cfg.reg_init, dtype=dtype, device=device)
+    lane = packed_lane_init(ocp, u, x0, bp0, rp0, cfg)
+    if bp_entry is not None:
+        warm = packed_lane_init(ocp, u, x0, torch.full_like(bp0, bp_entry),
+                                rp0, cfg)
+        lane = select_lanes(~warm.done, warm, lane)
+    active = torch.ones((B,), dtype=torch.bool, device=device)
+    workspace = mega_workspace(lane)
+    ddp = cfg.newton_impl == "ddp"
+    for _ in range(flat_total_cap(cfg) // k_block + 2):
+        if not bool((~lane.done).any()):
+            break
+        lane, _ = mega_k_iterations(ocp, lane, active, cfg, k_block, ddp,
+                                    workspace)
+    return lane.u.permute(2, 0, 1).contiguous(), lane.it

@@ -50,8 +50,8 @@ def solve(
     cfg: SolverConfig = DEFAULT_CONFIG,
     method: str = "par",
 ) -> IPSolution:
-    """Full interior-point solve of one scenario (``method`` "par" or
-    "seq") with structured metrics, on the device of ``controls``."""
+    """Full interior-point solve of one scenario (``method`` "par", "seq"
+    or "ddp") with structured metrics, on the device of ``controls``."""
     u, iters = solve_batch(ocp, controls[None], initial_state[None], cfg,
                            method)
     x = rollout(ocp.dynamics, u, initial_state[None])

@@ -57,13 +57,16 @@ def solve_stream(
     bp_init=None,    # optional (N,) per-scenario barrier start (else cfg's)
     rp_init=None,    # optional (N,) per-scenario initial LM damping
     warm_transfer: bool = False,
+    transfer_bp: float = 0.02,
 ) -> StreamSolution:
     """Solve N scenarios with B = min(lanes, N) resident lanes, refilling.
 
     Runs on the device of ``controls``.  Requires
     ``cfg.globalization == "single"``; ``newton_impl="fused"`` and
     ``"ddp"`` run the packed stream on its mega-kernel executor, ``"seq"``
-    and ``"par"`` the unpacked one.
+    and ``"par"`` the unpacked one.  ``warm_transfer`` and ``transfer_bp``
+    go to the packed stream (:func:`solve_stream_packed`), which alone
+    runs them.
     """
     if cfg.globalization != "single":
         raise ValueError(
@@ -75,7 +78,7 @@ def solve_stream(
         return solve_stream_packed(
             ocp, controls, initial_states, cfg, lanes=lanes,
             refill_every=refill_every, bp_init=bp_init, rp_init=rp_init,
-            warm_transfer=warm_transfer)
+            warm_transfer=warm_transfer, transfer_bp=transfer_bp)
     if warm_transfer:
         raise ValueError("warm_transfer requires the packed stream "
                          "(newton_impl='fused' or 'ddp')")

@@ -40,6 +40,7 @@ from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.solvers import packed_stream as ps
 from ipoc_tpu_torch.solvers.stream import solve_stream
+from ipoc_tpu_torch.utils.integrators import rollout
 
 torch.set_num_threads(1)
 
@@ -155,14 +156,20 @@ def test_fused_config_takes_the_packed_stream(monkeypatch):
 
 
 def test_ddp_and_warm_transfer_raise(monkeypatch):
-    """newton_impl='ddp' reaches the packed stream; warm_transfer still
-    raises, and the packed stream refuses 'seq'."""
+    """newton_impl='ddp' reaches the packed stream; warm_transfer refuses
+    per-scenario bp_init/rp_init (JAX's ValueError) and the unpacked
+    stream, and the packed stream refuses 'seq'."""
     tocp = t_pendulum.make_ocp(0.1)
     u = torch.zeros((2, 10, 1), dtype=torch.float64)
     x = torch.zeros((2, 2), dtype=torch.float64)
     cfg = config_from_jax(CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_stream(tocp, u, x, cfg, warm_transfer=True)
+    per = torch.full((2,), 0.05, dtype=torch.float64)
+    for kw in ({"bp_init": per}, {"rp_init": per}):
+        with pytest.raises(ValueError, match="bp_init/rp_init"):
+            solve_stream(tocp, u, x, cfg, warm_transfer=True, **kw)
+    with pytest.raises(ValueError, match="packed stream"):
+        solve_stream(tocp, u, x, cfg.replace(newton_impl="seq"),
+                     warm_transfer=True)
     with pytest.raises(ValueError, match="fused"):
         ps.solve_stream_packed(tocp, u, x, cfg.replace(newton_impl="seq"))
     calls = []
@@ -178,6 +185,64 @@ def test_ddp_and_warm_transfer_raise(monkeypatch):
                        cfg.replace(newton_impl="ddp", bp_min=0.05), lanes=2)
     assert calls == ["ddp"] and sol.iterations.shape == (2,)
     assert bool((sol.iterations > 0).all())
+
+
+@pytest.mark.parametrize("mega", [True, False])
+def test_warm_transfer_opens_from_the_finished_lane(monkeypatch, mega):
+    """Warm transfer, on both executors: each transferred lane opens as JAX
+    ``flat_lane_init(ocp, u_donor, x0_new, cfg, bp0=transfer_bp,
+    rp0=reg_init)`` from the controls of the scenario its lane finished;
+    and JAX ``test_warm_transfer_same_optima_fewer_iters``'s criteria on
+    pendulum: the same optima as the cold stream (raw cost rel 1e-4) in
+    fewer iterations after the first generation."""
+    T, lanes, transfer_bp = 12, 8, 0.02
+    jocp, tocp = j_pendulum.make_ocp(1.0 / T), t_pendulum.make_ocp(1.0 / T)
+    u0, x0b = _pool(j_pendulum, 3 * lanes, T, seed=6)
+    u, x0 = pool_from_numpy(u0, x0b)
+    cfg = config_from_jax(CFG)
+    opens, real = [], ps.packed_lane_init
+
+    def spy(ocp, uu, xx, bp0, rp0, c):
+        lane = real(ocp, uu, xx, bp0, rp0, c)
+        if bool((bp0 == transfer_bp).all()):
+            opens.append((uu.clone(), xx.clone(), rp0.clone(), lane))
+        return lane
+
+    monkeypatch.setattr(ps, "packed_lane_init", spy)
+    warm = ps.solve_stream_packed(tocp, u, x0, cfg, lanes=lanes,
+                                  warm_transfer=True,
+                                  transfer_bp=transfer_bp, mega=mega)
+    monkeypatch.undo()
+    cold = ps.solve_stream_packed(tocp, u, x0, cfg, lanes=lanes, mega=mega)
+    assert sum(o[0].shape[-1] for o in opens) == 2 * lanes
+    for uu, xx, rp0, lane in opens:
+        assert bool((rp0 == cfg.reg_init).all())
+        for k in range(uu.shape[-1]):
+            donor = uu[..., k]
+            # The donor is a finished scenario's solution, bit for bit.
+            assert any(torch.equal(donor, c) for c in warm.controls)
+            new = int(torch.nonzero((x0 == xx[:, k]).all(1))[0, 0])
+            ref = j_flat_lane_init(jocp, jnp.asarray(donor.numpy()),
+                                   jnp.asarray(x0b[new]), CFG,
+                                   bp0=jnp.asarray(transfer_bp),
+                                   rp0=jnp.asarray(CFG.reg_init))
+            x = torch.cat([lane.xs[..., k], lane.xT[None, :, k]])
+            np.testing.assert_allclose(x.numpy(), np.asarray(ref.x),
+                                       rtol=0, atol=1e-12)
+            assert bool(lane.done[k]) == bool(ref.done)
+            assert float(lane.bp[k]) == transfer_bp
+    ocp = t_pendulum.make_ocp(1.0 / T)
+
+    def raw(sol):
+        xs = rollout(ocp.dynamics, sol.controls, x0)
+        return ocp.total_cost(xs, sol.controls,
+                              torch.zeros((), dtype=x0.dtype)).numpy()
+
+    rel = np.abs(raw(warm) - raw(cold)) / (np.abs(raw(cold)) + 1e-9)
+    assert float(rel.max()) < 1e-4, "transferred optima drifted"
+    later = slice(lanes, None)
+    assert float(warm.iterations[later].double().mean()) < float(
+        cold.iterations[later].double().mean())
 
 
 def test_packed_lane_fields_own_their_storage():

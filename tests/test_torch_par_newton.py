@@ -140,7 +140,7 @@ def test_solve_batch_lanes_equal_single_solves():
     """solve_batch(method="par") on three scenarios, one of them with an
     infeasible warm start: each lane equals its single solve (equal
     iterations, controls to 1e-12), the bad lane does not disturb the
-    others."""
+    others; so does method="ddp"."""
     T = 20
     _, tocp, _, x0 = _problem("pendulum", T)
     rng = np.random.default_rng(3)
@@ -156,11 +156,18 @@ def test_solve_batch_lanes_equal_single_solves():
         assert int(it_i) == int(sol.iterations[i])
         np.testing.assert_allclose(sol.controls[i].numpy(), u_i.numpy(),
                                    rtol=0, atol=1e-12)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ipoc_tpu_torch.solve_batch(tocp, U, X, method="ddp")
+    # method="ddp" solves too: the bad lane takes no iteration, the others
+    # equal their single IP-DDP solves.
+    sol = ipoc_tpu_torch.solve_batch(tocp, U, X, method="ddp")
+    assert int(sol.iterations[1]) == 0 and torch.equal(sol.controls[1], U[1])
+    for i in (0, 2):
+        u_i, it_i = ipoc_tpu_torch.interior_point_ddp(tocp, U[i], X[i])
+        assert int(it_i) == int(sol.iterations[i]) > 0
+        np.testing.assert_allclose(sol.controls[i].numpy(), u_i.numpy(),
+                                   rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("method", ["par", "seq"])
+@pytest.mark.parametrize("method", ["par", "seq", "ddp"])
 def test_solve_matches_jax(method):
     """solve() equals JAX's on every IPSolution field."""
     jocp, tocp, u0, x0 = _problem("pendulum", 20, seed=4)
