@@ -140,12 +140,14 @@ line:
      steps, within 1e-10) with the scans' launches and each loop's ms
      per step (the example times 5000 steps);
   Q. ``interior_point_ddp`` in float64 (plain tensor code, no kernel, as
-     in JAX): the goldens against tests/golden/*.npz and the CPU run;
-     ``solve_batch(method="ddp")`` on 16 pool scenarios under FAST_CONFIG
-     (wall, lockstep iterations, mean and max iterations, lanes at a
-     stage's cap, non-finite costs; against the CPU lane by lane; cut
-     from 256: the plain solve is host-bound, some 0.3 s per lockstep
-     iteration on the card whatever the lanes); one float32 cartpole
+     in JAX): the pendulum golden on the card against
+     tests/golden/pendulum_h100.npz and the CPU run, the cartpole golden
+     on the CPU child against its file; ``solve_batch(method="ddp")`` on
+     16 pool scenarios under FAST_CONFIG (wall, lockstep iterations, mean
+     and max iterations, lanes at a stage's cap, non-finite costs; against
+     the CPU lane by lane; cut from 256: the plain solve is host-bound,
+     some 0.3 s per lockstep iteration on the card whatever the lanes,
+     and more lanes take more lockstep iterations); one float32 pendulum
      H=100 ``solve(method="ddp")`` timed;
   R. warm transfer in the packed stream at H's width (4096 lanes, refill
      32, a pool of 4 x 4096, float32): on pendulum H=100 against the cold
@@ -3523,13 +3525,15 @@ class stage_iterations:
 
 def phase_ddp(pool64, dev, cpu_ref):
     """Phase Q: ``interior_point_ddp`` in float64, the reference's
-    precision, plain tensor code (no kernel, as in JAX): the goldens
-    against tests/golden/*.npz and the CPU, ``solve_batch(method="ddp")``
-    on DDP_SCENARIOS pool scenarios under FAST_CONFIG (against the CPU,
-    lane by lane), and one float32 cartpole H=100 ``solve(method="ddp")``
-    timed as ``examples/runtime_benchmark.py`` times it.  ``cpu_ref(key)``
-    gives the CPU child's Qgolden and Qddp, read after the card's solves
-    (the child runs beside them)."""
+    precision, plain tensor code (no kernel, as in JAX): the pendulum
+    golden on the card against tests/golden/pendulum_h100.npz and the CPU,
+    the cartpole golden held on the CPU child alone (the card's host-bound
+    solve would take 30 s), ``solve_batch(method="ddp")`` on DDP_SCENARIOS
+    pool scenarios under FAST_CONFIG (against the CPU, lane by lane), and
+    one float32 pendulum H=100 ``solve(method="ddp")`` timed as
+    ``examples/runtime_benchmark.py`` times it.  ``cpu_ref(key)`` gives the
+    CPU child's Qgolden and Qddp, read after the card's solves (the child
+    runs beside them)."""
     import numpy as np
     import torch
 
@@ -3545,31 +3549,35 @@ def phase_ddp(pool64, dev, cpu_ref):
     from ipoc_tpu_torch.utils.integrators import rollout
 
     out = {"phase": "Q", "golden_config": PARITY}
-    problems, goldens = [], {}
-    cuda.reset_launches()
-    for name in ("pendulum", "cartpole"):
-        data, ocp, u0, x0 = golden_setup(name)
-        with counting(ip_ddp, "compute_derivatives") as outer, \
-                counting(ip_ddp, "ddp_bwd_pass") as trials:
-            t0 = time.perf_counter()
-            u, it = interior_point_ddp(ocp, u0.to(dev), x0.to(dev),
-                                       DEFAULT_CONFIG.replace(
-                                           stall_exit=False))
-            u, it = u.cpu(), int(it)
-            wall = time.perf_counter() - t0
+    problems = []
+
+    def against_golden(name, u):
+        """``u``'s barrier cost and controls against the golden file."""
+        data, ocp, _, x0 = golden_setup(name)
         bp = torch.tensor(float(data["final_bp"]), dtype=torch.float64)
         cost = float(ocp.total_cost(rollout(ocp.dynamics, u, x0), u, bp))
         rel = abs(cost - float(data["cost_ddp"])) / abs(
             float(data["cost_ddp"]))
         du = float(np.abs(u.numpy() - data["u_ddp"]).max())
-        goldens[name] = u, it
-        out[f"golden_{name}"] = {
-            "iterations": it, "iterations_golden": int(data["iters_ddp"]),
-            "outer_iterations": len(outer.calls), "trials": len(trials.calls),
-            "wall_s": wall, "cost_rel_err_vs_golden": rel,
-            "max_abs_du_vs_golden": du}
         if rel > 1e-8 or du > 5e-2:
             problems.append(f"{name}: cost rel {rel}, |du| {du}")
+        return {"iterations_golden": int(data["iters_ddp"]),
+                "cost_rel_err_vs_golden": rel, "max_abs_du_vs_golden": du}
+
+    cuda.reset_launches()
+    _, ocp, u0, x0 = golden_setup("pendulum")
+    with counting(ip_ddp, "compute_derivatives") as outer, \
+            counting(ip_ddp, "ddp_bwd_pass") as trials:
+        t0 = time.perf_counter()
+        u_pend, it_pend = interior_point_ddp(
+            ocp, u0.to(dev), x0.to(dev),
+            DEFAULT_CONFIG.replace(stall_exit=False))
+        u_pend, it_pend = u_pend.cpu(), int(it_pend)
+        wall = time.perf_counter() - t0
+    out["golden_pendulum"] = {
+        "iterations": it_pend, "outer_iterations": len(outer.calls),
+        "trials": len(trials.calls), "wall_s": wall,
+        **against_golden("pendulum", u_pend)}
 
     ocp = model_ocp("cartpole")
     u, x0 = (a[:DDP_SCENARIOS].to(dev) for a in pool64)
@@ -3602,7 +3610,7 @@ def phase_ddp(pool64, dev, cpu_ref):
     # examples/runtime_benchmark.py's float32 protocol: FAST_CONFIG from
     # the goldens' warm start (after the float64 solves above).  solve()'s
     # metrics take the stationarity from one costate scan.
-    _, ocp32, u0, x32 = golden_setup("cartpole")
+    _, ocp32, u0, x32 = golden_setup("pendulum")
     cuda.reset_launches()
     t0 = time.perf_counter()
     s = solve(ocp32, u0.to(dev, torch.float32), x32.to(dev, torch.float32),
@@ -3617,14 +3625,17 @@ def phase_ddp(pool64, dev, cpu_ref):
     if not bool(torch.isfinite(s.controls).all()) or not bool(s.feasible):
         problems.append("float32 solve: non-finite or infeasible")
 
-    # The CPU's goldens, and its batch of the same scenarios lane by lane.
-    for name, (u_card, it_card) in goldens.items():
-        u_cpu, it_cpu = cpu_ref("Qgolden")[name]
-        out[f"golden_{name}"].update({
-            "iterations_cpu": it_cpu,
-            "max_abs_du_vs_cpu": float((u_card - u_cpu).abs().max())})
-        if it_card != it_cpu:
-            problems.append(f"{name}: iterations {it_card} (CPU {it_cpu})")
+    # The CPU's goldens (the card's pendulum against it, its cartpole
+    # against the file), and its batch of the same scenarios lane by lane.
+    u_cpu, it_cpu = cpu_ref("Qgolden")["pendulum"]
+    out["golden_pendulum"].update({
+        "iterations_cpu": it_cpu,
+        "max_abs_du_vs_cpu": float((u_pend - u_cpu).abs().max())})
+    if it_pend != it_cpu:
+        problems.append(f"pendulum: iterations {it_pend} (CPU {it_cpu})")
+    u_cpu, it_cpu = cpu_ref("Qgolden")["cartpole"]
+    out["golden_cartpole_cpu"] = {"iterations": it_cpu,
+                                  **against_golden("cartpole", u_cpu)}
     u_cpu, it_cpu, _, _, wall_cpu = cpu_ref("Qddp")
     n = it_cpu.shape[0]
     same = it == it_cpu

@@ -16,9 +16,6 @@ def sym(a):
 def _cholesky_small(A):
     """Batched lower Cholesky, unrolled; NaN entries when not PD."""
     n = A.shape[-1]
-    if n == 1:
-        # The loop's one step in one call: its callers are host-bound.
-        return torch.sqrt(A)
     L = torch.zeros_like(A)
     for j in range(n):
         d = A[..., j, j]
@@ -37,8 +34,6 @@ def _cholesky_small(A):
 def _tri_solve_small(L, B, lower=True):
     """Batched triangular solve against a matrix RHS, unrolled."""
     n = L.shape[-1]
-    if n == 1:
-        return B / L  # the loop's one division, in one call
     X = B.clone()
     order = range(n) if lower else range(n - 1, -1, -1)
     for row in order:

@@ -56,15 +56,13 @@ def ddp_bwd_pass(final_cost, final_state, d: Derivatives, reg_param,
 
 def ddp_bwd_core(final_cost, final_state, d: Derivatives, rp):
     """:func:`ddp_bwd_pass` with ``rp (B,)`` already scaled."""
-    return _ddp_bwd(final_cost, final_state, d, rp, pivots=False)[:5]
+    return _ddp_bwd(final_cost, final_state, d, rp)[:5]
 
 
-def _ddp_bwd(final_cost, final_state, d: Derivatives, rp,
-             pivots: bool = True):
-    """The backward recursion; returns :func:`ddp_bwd_core`'s outputs and,
-    with ``pivots``, the minimum pivot of an unpivoted elimination of every
-    stage's regularized ``Quu`` (what the merged kernel reports; else
-    None)."""
+def _ddp_bwd(final_cost, final_state, d: Derivatives, rp):
+    """The backward recursion; returns :func:`ddp_bwd_core`'s outputs and
+    the minimum pivot of an unpivoted elimination of every stage's
+    regularized ``Quu`` (what the merged kernel reports)."""
     lead = final_state.shape[:-1]
     Vx = over_leading(grad(final_cost), lead, final_state)
     Vxx = over_leading(jacrev(grad(final_cost)), lead, final_state)
@@ -74,41 +72,34 @@ def _ddp_bwd(final_cost, final_state, d: Derivatives, rp,
     reg = rp[..., None, None] * eye
     dv = torch.zeros_like(Vx[..., 0])
     feasible = torch.ones_like(dv, dtype=torch.bool)
-    piv = torch.full_like(dv, float("inf")) if pivots else None
+    piv = torch.full_like(dv, float("inf"))
     k_all, K_all, Qu_all = [None] * T, [None] * T, [None] * T
-    # The loop is host-bound: every field's stages are taken as views once,
-    # and one lane axis multiplies by bmm directly (what matmul and einsum
-    # call for these shapes, with less host work per call).
-    stages = list(zip(*(f.unbind(len(lead)) for f in (
-        d.cx, d.cu, d.cxx, d.cuu, d.cxu, d.fx, d.fu, d.fxx, d.fuu, d.fxu))))
-    mm = torch.bmm if len(lead) == 1 else torch.matmul
 
-    def contract(v, f):
-        """tensordot(v, f, axes=1) per lane: the curvature contracted with
-        the value gradient (einsum "...i,...ijk->...jk")."""
-        return mm(v.unsqueeze(-2), f.flatten(-2)).view(f.shape[:-3]
-                                                       + f.shape[-2:])
+    def at(a, t):
+        return a.select(len(lead), t)  # stage t of a (*lead, T, ...) field
 
     for t in range(T - 1, -1, -1):
-        cx, cu, cxx, cuu, cxu, fx, fu, fxx, fuu, fxu = stages[t]
+        fx, fu = at(d.fx, t), at(d.fu, t)
         fxT, fuT = fx.transpose(-1, -2), fu.transpose(-1, -2)
-        vx = Vx.unsqueeze(-1)
-        Qx = cx + mm(fxT, vx).squeeze(-1)
-        Qu = cu + mm(fuT, vx).squeeze(-1)
-        Qxx = cxx + mm(mm(fxT, Vxx), fx) + contract(Vx, fxx)
-        Qxu = cxu + mm(mm(fxT, Vxx), fu) + contract(Vx, fxu)
-        Quu = cuu + mm(mm(fuT, Vxx), fu) + contract(Vx, fuu) + reg
+        Qx = at(d.cx, t) + (fxT @ Vx.unsqueeze(-1)).squeeze(-1)
+        Qu = at(d.cu, t) + (fuT @ Vx.unsqueeze(-1)).squeeze(-1)
+        # tensordot(Vx, f.., axes=1): the curvature contracted with Vx.
+        Qxx = (at(d.cxx, t) + fxT @ Vxx @ fx
+               + torch.einsum("...i,...ijk->...jk", Vx, at(d.fxx, t)))
+        Qxu = (at(d.cxu, t) + fxT @ Vxx @ fu
+               + torch.einsum("...i,...ijk->...jk", Vx, at(d.fxu, t)))
+        Quu = (at(d.cuu, t) + fuT @ Vxx @ fu
+               + torch.einsum("...i,...ijk->...jk", Vx, at(d.fuu, t))) + reg
         # One factor for the PD test and the solve (cholesky_solve's).
         L = _cholesky_small(sym(Quu))
         feasible = feasible & torch.isfinite(L).flatten(-2).all(-1)
-        if pivots:
-            piv = torch.minimum(piv, _pivots_only(Quu))
+        piv = torch.minimum(piv, _pivots_only(Quu))
         sol = cholesky_solve_factored(
             L, torch.cat([Qu.unsqueeze(-1), Qxu.transpose(-1, -2)], -1))
         k, K = -sol[..., 0], -sol[..., 1:]
         dv = dv + 0.5 * (Qu * k).sum(-1)
-        Vx = Qx + mm(Qxu, k.unsqueeze(-1)).squeeze(-1)
-        Vxx = sym(Qxx + mm(Qxu, K))
+        Vx = Qx + (Qxu @ k.unsqueeze(-1)).squeeze(-1)
+        Vxx = sym(Qxx + Qxu @ K)
         k_all[t], K_all[t], Qu_all[t] = k, K, Qu
     return (torch.stack(k_all, -2), torch.stack(K_all, -3), dv, feasible,
             torch.stack(Qu_all, -2), piv)

@@ -50,12 +50,10 @@ def closed_loop_rollout(dynamics: Callable, gain, ffgain, nominal_states,
     the nominal initial state."""
     x_hat = nominal_states[..., 0, :]
     states, controls = [x_hat], []
-    # Each stage's views taken once (zip stops at the T controls).
-    for x_nom, u_nom, k, K in zip(nominal_states.unbind(-2),
-                                  nominal_controls.unbind(-2),
-                                  ffgain.unbind(-2), gain.unbind(-3)):
-        dx = x_hat - x_nom
-        u_hat = u_nom + k + (K @ dx.unsqueeze(-1)).squeeze(-1)
+    for t in range(nominal_controls.shape[-2]):
+        dx = x_hat - nominal_states[..., t, :]
+        u_hat = (nominal_controls[..., t, :] + ffgain[..., t, :]
+                 + (gain[..., t, :, :] @ dx.unsqueeze(-1)).squeeze(-1))
         x_hat = dynamics(x_hat, u_hat)
         states.append(x_hat)
         controls.append(u_hat)

@@ -5,7 +5,7 @@ their parents and variants, in turns, on one CUDA card.
 Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit:
 
-    python3 scripts/torch_kernel_turns.py [--parent DIR] [--parts rc,scan,barrier]
+    python3 scripts/torch_kernel_turns.py [--parent DIR] [--parts rc,scan,barrier,ring]
 
 Each part prints JSON lines (and appends them to
 ``build/kernel_turns.jsonl``):
@@ -25,7 +25,18 @@ Each part prints JSON lines (and appends them to
   ``value_scan_plain``;
 * ``barrier``: the value scan rebuilt with ``__syncwarp`` as its scenario
   barrier at P = 32 (where ``affine_scan.h`` ScanExec uses a named barrier
-  over the warp), in float64 at n = 4 against ``value_scan_plain``.
+  over the warp), in float64 at n = 4 against ``value_scan_plain``;
+* ``ring`` (not in the default parts): the group schedules of the seq
+  trial, the costate recursion, the fused sweeps, the merged trial, the
+  transition and the rollout cost (``csrc/riccati_rows.h`` ``WarpExec``,
+  whose steps end with ``__syncwarp()``, after ``RingCopy::wait`` where a
+  step awaits its ``cp.async`` copies) rebuilt with ``bar.sync 1, 32`` in a
+  copy of the checkout under ``build/ring_barrier/``; both builds run every
+  kernel through its wrapper on phases A, D and G's inputs (cartpole T=100
+  at B=4096, random nx=3, nu=2 stage data, pendulum, the merged trial and
+  the mega kernel's k=4 and k=32 launches at Newton T=100 and DDP T=25, bp
+  0.1 and 0.004), both dtypes, one child process each, and the outputs are
+  compared bit for bit; it exits 1 if any differs.
 
 CUDA events around 50 back-to-back launches after a warm one, at the SM
 clock that ``nvidia-smi`` reports (``chip_smoke.py`` SmClock); no number
@@ -243,17 +254,31 @@ def part_scan(parent):
                   "ms": ms[1:3], "parent_ms": [ms[0], ms[3]]})
 
 
+def patched_copy(items, dst, rel, old, new):
+    """Copies of ``items`` (paths in the checkout) under ``dst``, made anew,
+    with the one ``old`` in ``dst / rel`` replaced by ``new``."""
+    if dst.exists():
+        shutil.rmtree(dst)
+    for item in items:
+        to = dst / item.relative_to(ROOT)
+        to.parent.mkdir(parents=True, exist_ok=True)
+        if item.is_dir():
+            shutil.copytree(item, to, ignore=shutil.ignore_patterns("__pycache__"))
+        else:
+            shutil.copy(item, to)
+    f = dst / rel
+    text = f.read_text()
+    cs.check(text.count(old) == 1, f"{rel}: the barrier to replace not found")
+    f.write_text(text.replace(old, new))
+    return dst
+
+
 def part_barrier():
     """The value scan with __syncwarp as the scenario barrier at P = 32."""
-    src = BUILD / "syncwarp_csrc"
-    if src.exists():
-        shutil.rmtree(src)
-    shutil.copytree(cuda.CSRC, src)
-    header = src / "affine_scan.h"
-    text = header.read_text()
-    old = '      asm volatile("bar.sync 1, 32;" ::: "memory");'
-    cs.check(old in text, "affine_scan.h: ScanExec's barrier not found")
-    header.write_text(text.replace(old, "      __syncwarp();"))
+    csrc = Path(cuda.CSRC).relative_to(ROOT)
+    src = patched_copy([ROOT / csrc], BUILD / "syncwarp", csrc / "affine_scan.h",
+                       '      asm volatile("bar.sync 1, 32;" ::: "memory");',
+                       "      __syncwarp();") / csrc
     lib, _ = nvcc_lib("syncwarp_par", PAR_STUB, src)
     lib.ipoc_value_scan.argtypes = [I_] * 3 + [P_] * 10 + [I_, I_, P_]
     dev = torch.device("cuda")
@@ -270,16 +295,135 @@ def part_barrier():
                              for g, r in zip(outs, ref))})
 
 
+RING_OLD = "    f(lane);\n    __syncwarp();\n"
+RING_NEW = '    f(lane);\n    asm volatile("bar.sync 1, 32;" ::: "memory");\n'
+
+
+def ring_dump(path):
+    """Every ring kernel's outputs on phases A, D and G's inputs, through
+    the wrappers of this checkout's package (a child of :func:`part_ring`)."""
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.models import pendulum
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.ops.cuda.seq_newton import (
+        seq_costates_batched,
+        seq_newton_trial_batched,
+    )
+
+    cs.check(Path(cuda.CSRC).is_relative_to(ROOT), f"imported {cuda.CSRC}")
+    dev = torch.device("cuda")
+    # Every library at once (one nvcc per source), then the runs.
+    cuda.build_all([cuda.SEQ_NEWTON] + [
+        tf.model_spec(cs.model_ocp(m, c), nx, 1)
+        for m, c, nx in (("cartpole", 1, 4), ("cartpole", cs.COARSEN, 4),
+                         ("pendulum", 1, 2))])
+    pool32 = cs.make_pool(cartpole, 2 * cs.LANES, torch.float32)
+    ppool = cs.make_pool(pendulum, 512, torch.float32, seed=cs.SEED + 1)
+    out = {}
+
+    def keep(key, tensors):
+        for i, t in enumerate(tensors):
+            out[f"{key}[{i}]"] = t.detach().cpu().clone()
+
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        # Phase A: the seq trial and the costate recursion.
+        trial, costate = cs.slice_stage_data(
+            tuple(a[:cs.LANES] for a in pool32), dtype, dev)
+        gen = torch.Generator().manual_seed(cs.SEED)
+        rtrial, rcostate = cs.random_stage_data(gen, cs.LANES, cs.T, 3, 2, dtype, dev)
+        for name, args in (("cartpole", (trial, costate)),
+                           ("random_nx3_nu2", (rtrial, rcostate))):
+            keep(f"A {name} {tag} seq_trial", seq_newton_trial_batched(*args[0]))
+            keep(f"A {name} {tag} costates", (seq_costates_batched(*args[1]),))
+        # Phase D: rollout cost, backward and forward sweeps, transition.
+        for model, pool, bps in (("cartpole", pool32, (0.1, 0.004)),
+                                 ("pendulum", ppool, (0.1,))):
+            ocp = cs.model_ocp(model)
+            for bp in bps:
+                u, u_other, x0, bpt, rp = cs.fused_inputs(pool, dtype, dev, bp)
+                up = (u + 0.2 * (u - u_other)).contiguous()
+                key = f"D {model} {tag} bp={bp}"
+                roll = tf.rollout_cost_packed(ocp, u, x0, bpt)
+                keep(f"{key} rollout_cost", roll)
+                reg = rp * torch.clamp(torch.sqrt(roll[3]), min=1e-6)
+                keep(f"{key} fused_trial",
+                     tf.fused_newton_iter_packed(ocp, roll[0], roll[1], u, bpt, reg))
+                keep(f"{key} transition", tf.transition_packed(ocp, u, up, x0, bpt))
+        # Phase G: the merged trial and the mega kernel.
+        for level, (_, ddp) in cs.LEVELS.items():
+            ocp, u, x0 = cs.level_inputs(pool32, level, dtype, dev)
+            impl = "ddp" if ddp else "fused"
+            for bp in (0.1, 0.004):
+                key = f"G {level} {tag} bp={bp}"
+                lane = cs.open_packed(ocp, u, x0, BATCH_CONFIG, bp)
+                reg = 100.0 * torch.clamp(lane.cun, min=1e-6)
+                keep(f"{key} merged_trial", tf.merged_trial_launch(
+                    ocp, lane.xs, lane.xT, lane.u, lane.bp, reg, ddp=ddp))
+                for k, cap in ((4, 2), (32, BATCH_CONFIG.max_newton_iters)):
+                    cfg = BATCH_CONFIG.replace(newton_impl=impl, max_newton_iters=cap)
+                    lane0 = cs.open_packed(ocp, u, x0, cfg, bp)
+                    got, steps = mega.mega_k_iterations(
+                        ocp, mega.clone_lane(lane0), torch.ones_like(lane0.done),
+                        cfg, k, ddp)
+                    keep(f"{key} mega k={k}", (*got, steps))
+    torch.cuda.synchronize()
+    torch.save(out, path)
+
+
+def bits(t):
+    """``t``'s bit pattern (NaNs compare by their bits)."""
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    return t if t.dtype == torch.bool else t.contiguous().view(ints[t.element_size()])
+
+
+def part_ring():
+    """WarpExec's barrier as bar.sync 1, 32 against __syncwarp, bit for
+    bit; returns the number of outputs that differ."""
+    work = ROOT / "build" / "ring_barrier"
+    me = Path(__file__).resolve()
+    patched = patched_copy([ROOT / "ipoc_tpu_torch", ROOT / "chip_smoke.py", me],
+                           work / "patched", "ipoc_tpu_torch/csrc/riccati_rows.h",
+                           RING_OLD, RING_NEW)
+    roots = {"syncwarp": ROOT, "bar_sync": patched}
+    t0 = time.perf_counter()
+    # Both builds at once, each in a child that imports its own copy.
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(root / me.relative_to(ROOT)), "--ring-dump",
+         str(work / f"{name}.pt")]) for name, root in roots.items()}
+    for name, proc in procs.items():
+        cs.check(proc.wait() == 0, f"the {name} build's run failed")
+    wall = time.perf_counter() - t0
+    a, b = (torch.load(work / f"{name}.pt") for name in roots)
+    cs.check(a.keys() == b.keys(), "the two runs dumped different outputs")
+    differ = [key for key in a if not torch.equal(bits(a[key]), bits(b[key]))]
+    for key in differ:
+        emit({"part": "ring", "differs": key,
+              "max_abs_diff": float((a[key].double() - b[key].double()).abs()
+                                    .nan_to_num(float("inf")).max()),
+              "elements": a[key].numel(),
+              "elements_differing": int((bits(a[key]) != bits(b[key])).sum())})
+    emit({"part": "ring", "ring_barrier": "bar.sync 1, 32 against __syncwarp",
+          "outputs_compared": len(a),
+          "elements_compared": sum(t.numel() for t in a.values()),
+          "outputs_differing": len(differ), "bit_equal": not differ, "wall_s": wall})
+    return len(differ)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=str(ROOT / "build" / "parent"),
                     help="a git archive of the parent commit (for --parts scan)")
     ap.add_argument("--parts", default="rc,scan,barrier")
+    ap.add_argument("--ring-dump", help=argparse.SUPPRESS)  # a child of ring
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_turns: no CUDA device", file=sys.stderr)
         return 2
     cuda.disable_tf32()
+    if args.ring_dump:
+        ring_dump(args.ring_dump)
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     emit({"device": smi.stdout.strip(), "time": time.strftime("%Y-%m-%d %H:%M:%S")})
@@ -290,6 +434,8 @@ def main():
         part_scan(args.parent)
     if "barrier" in parts:
         part_barrier()
+    if "ring" in parts and part_ring():
+        return 1
     return 0
 
 

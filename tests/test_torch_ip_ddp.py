@@ -12,11 +12,9 @@ goldens, float64 on the CPU (no kernel is on this path, as in JAX).
 * ``solve_batch(method="ddp")`` on four pendulum T=20 scenarios, one with
   a NaN warm start: each lane equals its single solve, and the NaN lane
   runs no iteration.
-* The backward pass equals, bit for bit, the straightforward loop below
-  (per-stage selects, ``matmul``, ``einsum``, ``cholesky_solve``), which
-  it replaces with fewer host calls on the same arithmetic; so do the
-  one-by-one Cholesky factor and triangular solves (the nu=1 models'),
-  against the unrolled loops written out here.
+* The backward pass factors each stage's ``Quu`` once, for its PD test
+  and its solve: ``cholesky_solve_factored`` on that factor equals
+  ``cholesky_solve`` bit for bit, NaNs where the matrix is not PD.
 """
 
 import os
@@ -33,9 +31,12 @@ from ipoc_tpu.models import cartpole as j_cartpole
 from ipoc_tpu.models import pendulum as j_pendulum
 from ipoc_tpu_torch.models import cartpole, pendulum
 from ipoc_tpu_torch.ops import cuda
-from ipoc_tpu_torch.ops.derivatives import compute_derivatives
-from ipoc_tpu_torch.ops.linalg import _cholesky_small, cholesky_solve, sym
-from ipoc_tpu_torch.solvers.ip_ddp import _ddp_bwd
+from ipoc_tpu_torch.ops.linalg import (
+    cholesky,
+    cholesky_solve,
+    cholesky_solve_factored,
+    sym,
+)
 from ipoc_tpu_torch.utils.integrators import rollout
 
 torch.set_num_threads(1)
@@ -115,103 +116,16 @@ def test_solve_batch_ddp_lanes_equal_single_solves():
                                    rtol=0, atol=1e-12)
 
 
-def _ddp_bwd_loop(final_cost, xT, d, rp):
-    """The DDP backward pass as a plain per-stage loop (the reference for
-    ``_ddp_bwd``'s arithmetic)."""
-    Vx = torch.func.vmap(torch.func.grad(final_cost))(xT)
-    Vxx = torch.func.vmap(torch.func.jacrev(torch.func.grad(final_cost)))(xT)
-    T, nu = d.cu.shape[-2:]
-    reg = rp[:, None, None] * torch.eye(nu, dtype=rp.dtype)
-    dv = torch.zeros_like(Vx[:, 0])
-    feasible = torch.ones_like(dv, dtype=torch.bool)
-    ks, Ks, Qus = [None] * T, [None] * T, [None] * T
-    for t in range(T - 1, -1, -1):
-        fx, fu = d.fx[:, t], d.fu[:, t]
-        fxT, fuT = fx.transpose(-1, -2), fu.transpose(-1, -2)
-        Qx = d.cx[:, t] + (fxT @ Vx.unsqueeze(-1)).squeeze(-1)
-        Qu = d.cu[:, t] + (fuT @ Vx.unsqueeze(-1)).squeeze(-1)
-        Qxx = (d.cxx[:, t] + fxT @ Vxx @ fx
-               + torch.einsum("...i,...ijk->...jk", Vx, d.fxx[:, t]))
-        Qxu = (d.cxu[:, t] + fxT @ Vxx @ fu
-               + torch.einsum("...i,...ijk->...jk", Vx, d.fxu[:, t]))
-        Quu = (d.cuu[:, t] + fuT @ Vxx @ fu
-               + torch.einsum("...i,...ijk->...jk", Vx, d.fuu[:, t])) + reg
-        feasible = feasible & torch.isfinite(
-            _cholesky_small(sym(Quu))).flatten(-2).all(-1)
-        sol = cholesky_solve(Quu, torch.cat([Qu.unsqueeze(-1),
-                                             Qxu.transpose(-1, -2)], -1))
-        k, K = -sol[..., 0], -sol[..., 1:]
-        dv = dv + 0.5 * (Qu * k).sum(-1)
-        Vx = Qx + (Qxu @ k.unsqueeze(-1)).squeeze(-1)
-        Vxx = sym(Qxx + Qxu @ K)
-        ks[t], Ks[t], Qus[t] = k, K, Qu
-    return (torch.stack(ks, -2), torch.stack(Ks, -3), dv, feasible,
-            torch.stack(Qus, -2))
-
-
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", list(MODELS))
-def test_ddp_bwd_equals_the_plain_loop(name, dtype):
-    _, tm = MODELS[name]
-    ocp = tm.make_ocp(1.0 / 30)
-    rng = np.random.default_rng(2)
-    B, nx = 5, tm.initial_state(torch.float64).shape[0]
-    u = torch.tensor(2.0 * rng.normal(size=(B, 30, 1)), dtype=dtype)
-    x0 = (tm.initial_state(torch.float64)
-          + 0.1 * torch.tensor(rng.normal(size=(B, nx)))).to(dtype)
-    x = rollout(ocp.dynamics, u, x0)
-    d = compute_derivatives(ocp, x, u, torch.tensor(0.1, dtype=dtype))
-    rp = torch.tensor(rng.uniform(0.01, 10.0, size=B), dtype=dtype)
-    got = _ddp_bwd(ocp.final_cost, x[:, -1], d, rp)
-    want = _ddp_bwd_loop(ocp.final_cost, x[:, -1], d, rp)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
-def _cholesky_loop(A):
-    """The unrolled Cholesky loop (``ops/linalg.py``), at any n."""
-    n = A.shape[-1]
-    L = torch.zeros_like(A)
-    for j in range(n):
-        d = A[..., j, j]
-        for k in range(j):
-            d = d - L[..., j, k] * L[..., j, k]
-        L[..., j, j] = torch.sqrt(d)
-        for i in range(j + 1, n):
-            off = A[..., i, j]
-            for k in range(j):
-                off = off - L[..., i, k] * L[..., j, k]
-            L[..., i, j] = off / L[..., j, j]
-    return L
-
-
-def _tri_solve_loop(L, B, lower):
-    n = L.shape[-1]
-    X = B.clone()
-    for row in (range(n) if lower else range(n - 1, -1, -1)):
-        rhs = X[..., row, :]
-        for j in (range(row) if lower else range(row + 1, n)):
-            rhs = rhs - L[..., row, j, None] * X[..., j, :]
-        X[..., row, :] = rhs / L[..., row, row, None]
-    return X
-
-
 @pytest.mark.parametrize("n", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_small_cholesky_equals_the_loops(n, dtype):
-    from ipoc_tpu_torch.ops import linalg
-
+def test_factored_solve_equals_cholesky_solve(n, dtype):
     rng = np.random.default_rng(n)
     M = rng.normal(size=(7, n, n))
     A = torch.tensor(M @ M.transpose(0, 2, 1) + n * np.eye(n), dtype=dtype)
     A[0] = -A[0]  # not PD: NaN entries
     b = torch.tensor(rng.normal(size=(7, n, 3)), dtype=dtype)
-    L = linalg._cholesky_small(A)
-    assert torch.equal(L.isnan(), _cholesky_loop(A).isnan())
-    assert torch.equal(L.nan_to_num(), _cholesky_loop(A).nan_to_num())
-    for lower in (True, False):
-        Lt = L if lower else L.transpose(-1, -2)
-        got = linalg._tri_solve_small(Lt, b, lower=lower)
-        want = _tri_solve_loop(Lt, b, lower)
-        assert torch.equal(got.isnan(), want.isnan())
-        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    got = cholesky_solve_factored(cholesky(sym(A)), b)
+    want = cholesky_solve(A, b)
+    assert bool(got[0].isnan().all()) and not bool(got[1:].isnan().any())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert torch.equal(got.isnan(), want.isnan())
