@@ -146,9 +146,9 @@ line:
      16 pool scenarios under FAST_CONFIG (wall, lockstep iterations, mean
      and max iterations, lanes at a stage's cap, non-finite costs; against
      the CPU lane by lane; cut from 256: the plain solve is host-bound,
-     some 0.3 s per lockstep iteration on the card whatever the lanes,
-     and more lanes take more lockstep iterations); one float32 pendulum
-     H=100 ``solve(method="ddp")`` timed;
+     some 0.3-0.5 s per lockstep iteration on the card whatever the
+     lanes, and more lanes take more lockstep iterations); no float32
+     solve is timed (P, Q and R together are held near 120 s);
   R. warm transfer in the packed stream at H's width (4096 lanes, refill
      32, a pool of 4 x 4096, float32): on pendulum H=100 against the cold
      stream (raw costs within 1e-4 relative on every scenario, fewer mean
@@ -3529,11 +3529,9 @@ def phase_ddp(pool64, dev, cpu_ref):
     golden on the card against tests/golden/pendulum_h100.npz and the CPU,
     the cartpole golden held on the CPU child alone (the card's host-bound
     solve would take 30 s), ``solve_batch(method="ddp")`` on DDP_SCENARIOS
-    pool scenarios under FAST_CONFIG (against the CPU, lane by lane), and
-    one float32 pendulum H=100 ``solve(method="ddp")`` timed as
-    ``examples/runtime_benchmark.py`` times it.  ``cpu_ref(key)`` gives the
-    CPU child's Qgolden and Qddp, read after the card's solves (the child
-    runs beside them)."""
+    pool scenarios under FAST_CONFIG (against the CPU, lane by lane).
+    ``cpu_ref(key)`` gives the CPU child's Qgolden and Qddp, read after
+    the card's solves (the child runs beside them)."""
     import numpy as np
     import torch
 
@@ -3541,7 +3539,6 @@ def phase_ddp(pool64, dev, cpu_ref):
         DEFAULT_CONFIG,
         FAST_CONFIG,
         interior_point_ddp,
-        solve,
         solve_batch,
     )
     from ipoc_tpu_torch.ops import cuda
@@ -3606,24 +3603,6 @@ def phase_ddp(pool64, dev, cpu_ref):
     out["launches"] = launched
     if launched:
         problems.append(f"IP-DDP launched kernels: {launched}")
-
-    # examples/runtime_benchmark.py's float32 protocol: FAST_CONFIG from
-    # the goldens' warm start (after the float64 solves above).  solve()'s
-    # metrics take the stationarity from one costate scan.
-    _, ocp32, u0, x32 = golden_setup("pendulum")
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    s = solve(ocp32, u0.to(dev, torch.float32), x32.to(dev, torch.float32),
-              FAST_CONFIG, method="ddp")
-    its = int(s.iterations)
-    wall = time.perf_counter() - t0
-    out["single_float32"] = {
-        "config": "FAST_CONFIG", "wall_s": wall, "iterations": its,
-        "cost": float(s.cost), "feasible": bool(s.feasible),
-        "converged": bool(s.converged), "grad_norm": float(s.grad_norm),
-        "launches": {k: v for k, v in cuda.launches.items() if v}}
-    if not bool(torch.isfinite(s.controls).all()) or not bool(s.feasible):
-        problems.append("float32 solve: non-finite or infeasible")
 
     # The CPU's goldens (the card's pendulum against it, its cartpole
     # against the file), and its batch of the same scenarios lane by lane.

@@ -1,4 +1,4 @@
-"""Receding-horizon MPC drivers (counterpart of ``ipoc_tpu/mpc.py``).
+"""Receding-horizon MPC loops (counterpart of ``ipoc_tpu/mpc.py``).
 
 At every simulation step the horizon subproblem is re-solved and its first
 control applied (the reference's ``examples/linear_mpc_parallel.py``

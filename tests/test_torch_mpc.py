@@ -1,4 +1,4 @@
-"""The port's receding-horizon drivers (``ipoc_tpu_torch/mpc.py``) against
+"""The port's receding-horizon loops (``ipoc_tpu_torch/mpc.py``) against
 the JAX package's (``ipoc_tpu/mpc.py``), float64 on the CPU.
 
 * ``lqt_mpc_loop``, par and seq, against JAX's on
