@@ -93,8 +93,9 @@ line:
   L. ``par_interior_point_optimal_control``: the goldens (pendulum and
      cartpole H=100, float64) against tests/golden/*.npz and the CPU run,
      the seq solve beside them; cartpole H=1000 under FAST_CONFIG in
-     float32 and float64 with iterations, trials, wall time (median of 3,
-     cut from 5 when phases N and O came), host reads and launches per
+     float32 and float64 with iterations, trials, wall time (one solve;
+     cut from the median of 5 to 3 when phases N and O came, to 1 when S
+     came), host reads and launches per
      solve, and the busy share over the first barrier stage with the
      trial's share of its device time and wall;
   M. ``solve_batch(method="par")`` on the pool's first 1024 scenarios in
@@ -156,6 +157,24 @@ line:
      lanes), on cartpole the basin-switch fraction against H's solutions
      (reported, no limit), with launch counts; then 256 cartpole
      scenarios in float64, the card against the CPU.
+  S. the distribution layer (``__graft_entry__.py``'s ``dryrun_multichip``
+     on one card): two ranks share cuda:0 in a gloo group (NCCL refuses
+     two ranks on one device) and run, each on its half, the time-sharded
+     cartpole T=1024 solve in float64 (``ip_newton_time_sharded``,
+     FAST_CONFIG single-trial; against the unsharded solve on the card:
+     equal iterations, controls within rtol 1e-7, atol 1e-8), the sharded
+     multigrid at the bench's width (4096 lanes a rank, refill 32, a DDP
+     coarse level, a pool of 2 x 4 x 4096, float32; against one process's
+     run on the same pool: equal iterations, bit-equal controls) and
+     ``solve_batch_sharded`` on 2 x 8 pendulum scenarios (float32,
+     FAST_CONFIG single-trial; against one ``solve_batch`` of all 16:
+     equal iterations, bit-equal controls); a one-rank NCCL group runs the
+     time-sharded LQT solve at H=1000.  The references run
+     first, in the parent: a third process busy on the card slows the
+     ranks' host-bound loops severalfold.  Each rank counts its launches from
+     zero; S fails unless the rollout-cost, mega, both scan and the
+     parallel trial kernels were launched, if a rank raises or outlives
+     its 120 s join, or if the card's compute mode forbids two processes.
 
 Phases B, E, J, the second halves of M and N, R's float64 check and P64
 run last: their CPU halves (and L's and Q's CPU golden solves) run
@@ -164,7 +183,7 @@ and R's when phase P starts).  A failed
 check fails its phase; the other phases still run, and any failure exits
 non-zero.  The line before the last holds the kernels' record; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of
-A-R (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
+A-S (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
 script's total seconds.  Without a card, or outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
@@ -1209,7 +1228,11 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
     u, x0 = (a.to(dev) for a in pool32)
     n = u.shape[0]
     # Warm-up: a small stream (library load, allocator, torch.func caches).
-    solve(ocp, u[:256], x0[:256], cfg, 256).iterations.cpu()
+    # Warm-up (libraries loaded, every kernel of the path launched once):
+    # one iteration a barrier stage, a few steps even where a step is
+    # host-bound (C).
+    solve(ocp, u[:256], x0[:256], cfg.replace(max_newton_iters=1),
+          256).iterations.cpu()
 
     counters = counters or {}
     cuda.reset_launches()
@@ -2718,7 +2741,7 @@ def phase_single_solve(dev, cpu_ref):
     goldens (pendulum and cartpole H=100, float64, PARITY_CFG) against
     tests/golden/*.npz and against the CPU run's iterations, with the seq
     solve beside them; then cartpole at H=1000 under FAST_CONFIG in float32
-    and float64: iterations, trials, wall time (median of 3), host reads
+    and float64: iterations, trials, wall time (one solve), host reads
     and each kernel's launches per solve, and the busy share over the first
     barrier stage."""
     import numpy as np
@@ -2768,7 +2791,6 @@ def phase_single_solve(dev, cpu_ref):
     gen = torch.Generator().manual_seed(SEED)
     u0 = 0.1 * torch.randn((T_, 1), generator=gen, dtype=torch.float64)
     x0 = cartpole.initial_state(torch.float64)
-    walls = {}
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype).split(".")[-1]
         uu, xx = u0.to(dev, dtype), x0.to(dev, dtype)
@@ -2777,17 +2799,11 @@ def phase_single_solve(dev, cpu_ref):
             u, it = par(ocp, uu, xx, FAST_CONFIG)
             return u.cpu(), int(it)
 
-        # Three timed solves, the first also counted (the counters cost a
-        # Python call per counted event, well inside the spread).
-        times = []
-        for i in range(3):
-            t0 = time.perf_counter()
-            if i == 0:
-                (u, it), launches, trials, scans, reads = counted_solve(solve)
-            else:
-                solve()
-            times.append(time.perf_counter() - t0)
-        wall = sorted(times)[1]
+        # One timed solve, also counted (the counters cost a Python call
+        # per counted event); cut from the median of 3 when phase S came.
+        t0 = time.perf_counter()
+        (u, it), launches, trials, scans, reads = counted_solve(solve)
+        wall = time.perf_counter() - t0
         first = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99)
         busy, wall_first, per_kernel, n_window = window_trials(
             lambda: par(ocp, uu, xx, first)[0].cpu())
@@ -2795,12 +2811,10 @@ def phase_single_solve(dev, cpu_ref):
         feasible = bool(check_feasibility(ocp, x, u.double()))
         raw = float(ocp.total_cost(x, u.double(),
                                    torch.tensor(1e-9, dtype=torch.float64)))
-        walls[tag] = wall
         out[f"H{T_}_{tag}"] = {
             "config": "FAST_CONFIG", "iterations": it, "trials": trials,
             "costate_scans": scans, "launches_per_solve": launches,
-            "wall_s_median_of_3": wall, "wall_s": times,
-            "host_reads_per_solve": reads,
+            "wall_s": wall, "host_reads_per_solve": reads,
             "device_busy_share_first_stage": busy,
             "first_stage_wall_s": wall_first,
             "first_stage_device_ms_top_kernels": top_kernels(per_kernel),
@@ -3737,6 +3751,370 @@ def phase_warm_transfer(pool32, dev, single_grid=None):
     return {"mega": counts["mega"], "rollout_cost": counts["rollout_cost"]}
 
 
+# Phase S: the distribution layer on the one card.  Two gloo ranks share
+# cuda:0 (NCCL refuses two ranks on one device); one more process runs a
+# one-rank NCCL group.
+SHARD_RANKS = 2
+# The time-sharded solve's horizon: tests/test_time_sharded_solve.py's long
+# cartpole (T=1024, FAST_CONFIG single-trial), float64.
+SHARD_T = 1024
+SHARD_POOL = SHARD_RANKS * POOL  # the multigrid's pool: 2 x 4 x 4096
+# Pendulum scenarios a rank of solve_batch_sharded (method "par"): its
+# lockstep iterations, not its lanes, set its time.
+SHARD_BATCH = 8
+SHARD_TIMEOUT_S = 120  # the groups' collectives, and the join
+
+
+def shard_dir():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase_s")
+
+
+def shard_inputs():
+    """What every rank and the parent make alike from the seed: the
+    time-sharded solve's controls and initial state (float64, CPU), the
+    multigrid's cartpole pool (float32) and solve_batch_sharded's pendulum
+    scenarios (float32)."""
+    import torch
+
+    from ipoc_tpu_torch.models import cartpole, pendulum
+
+    gen = torch.Generator().manual_seed(SEED)
+    u = 0.1 * torch.randn((SHARD_T, 1), generator=gen, dtype=torch.float64)
+    pool = make_pool(cartpole, SHARD_POOL, torch.float32)
+    batch = make_pool(pendulum, SHARD_RANKS * SHARD_BATCH, torch.float32)
+    return u, cartpole.initial_state(torch.float64), pool, batch
+
+
+def shard_config():
+    """FAST_CONFIG with the single-trial globalization (the time-sharded
+    solve's, and solve_batch_sharded's: the retry loop's lockstep trials
+    would set the batch's time)."""
+    from ipoc_tpu_torch import FAST_CONFIG
+
+    return FAST_CONFIG.replace(globalization="single")
+
+
+def shard_save(name, fn):
+    """Run ``fn()`` and save its result (or its traceback) as
+    build/phase_s/``name``.pt for the parent."""
+    import torch
+
+    try:
+        out = fn()
+    except Exception:  # the parent fails phase S with it
+        out = {"error": traceback.format_exc()}
+    torch.save(out, os.path.join(shard_dir(), f"{name}.pt"))
+
+
+def shard_rank(rank, init_file, programs):
+    """Rank ``rank`` of phase S's two gloo ranks on cuda:0: the
+    time-sharded solve, the sharded multigrid and solve_batch_sharded, the
+    launch counts from zero before them; the outputs go to the parent."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    t_start = time.perf_counter()
+
+    def progress(what):
+        print(f"# phase S rank {rank}: {what} at "
+              f"{time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+              flush=True)
+
+    def run():
+        import datetime
+
+        import torch
+
+        from ipoc_tpu_torch import BATCH_CONFIG
+        from ipoc_tpu_torch.ops import cuda, fused_iter
+        from ipoc_tpu_torch.parallel.distributed import initialize
+        from ipoc_tpu_torch.parallel.sharding import make_mesh
+        from ipoc_tpu_torch.solvers import (
+            ip_newton_time_sharded,
+            solve_batch_sharded,
+            solve_stream_multigrid_sharded,
+        )
+
+        initialize(f"file://{init_file}", SHARD_RANKS, rank, backend="gloo",
+                   timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        time_mesh = make_mesh(1, SHARD_RANKS)
+        batch_mesh = make_mesh(SHARD_RANKS, 1)
+        # The parent's traced stage programs (the libraries are built).
+        for (name, coarsen, horizon, nx), progs in programs:
+            fused_iter.scalar_programs(model_ocp(name, coarsen, horizon), nx,
+                                       1, traced=progs)
+        u_long, x_long, pool, batch = shard_inputs()
+        # The rank's card (DeviceMesh selected it): the inputs go there, so
+        # that the gloo group carries CUDA tensors.
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = shard_config()
+        out = {"device": str(dev)}
+        progress("set up")
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        u, it = ip_newton_time_sharded(horizon_ocp(SHARD_T), u_long.to(dev),
+                                       x_long.to(dev), time_mesh, cfg)
+        out.update(u_long=u.cpu(), it_long=int(it),
+                   time_sharded_s=time.perf_counter() - t0)
+        progress("time-sharded solve")
+        t0 = time.perf_counter()
+        mg = solve_stream_multigrid_sharded(
+            model_ocp("cartpole"), model_ocp("cartpole", COARSEN), COARSEN,
+            *(a.to(dev) for a in pool), batch_mesh, BATCH_CONFIG,
+            lanes=LANES, refill_every=REFILL, coarse_impl="ddp")
+        out.update(mg_u=mg.controls.cpu(), mg_it=mg.iterations.cpu(),
+                   mg_it_coarse=mg.iterations_coarse.cpu(),
+                   mg_steps=mg.steps, mg_steps_coarse=mg.steps_coarse,
+                   multigrid_s=time.perf_counter() - t0)
+        progress("multigrid")
+        t0 = time.perf_counter()
+        bt = solve_batch_sharded(model_ocp("pendulum"),
+                                 *(a.to(dev) for a in batch), batch_mesh,
+                                 cfg)
+        out.update(batch_u=bt.controls.cpu(), batch_it=bt.iterations.cpu(),
+                   batch_s=time.perf_counter() - t0)
+        progress("batch")
+        out["launches"] = dict(cuda.launches)
+        torch.distributed.destroy_process_group()
+        return out
+
+    shard_save(f"rank{rank}", run)
+
+
+def shard_nccl_rank(init_file):
+    """Phase S's one-rank NCCL group: the time-sharded LQT solve at time=1
+    on the parallel trial's cartpole H=1000 data, launches counted, then
+    against the unsharded parallel passes."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+    def run():
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        from ipoc_tpu_torch import par_bwd_pass, par_fwd_pass
+        from ipoc_tpu_torch.ops import cuda
+        from ipoc_tpu_torch.parallel.lqt import newton_lqt
+        from ipoc_tpu_torch.parallel.sharding import make_mesh
+        from ipoc_tpu_torch.parallel.time_sharded import (
+            solve_lqt_time_sharded)
+        from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP
+
+        dist.init_process_group(
+            "nccl", init_method=f"file://{init_file}", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        mesh = make_mesh(1, 1)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        trial, _ = par_inputs(LONG_T, 1, torch.float64, dev)
+        r, Q, R, M, fx, fu, XT = trial
+        lqt = newton_lqt(LinearizedOCP(r, Q, R, M),
+                         Derivatives(None, None, None, None, None, fx, fu,
+                                     None, None, None), XT)
+        x0 = torch.full((1, 4), 0.01, dtype=torch.float64, device=dev)
+        cuda.reset_launches()
+        u, x = solve_lqt_time_sharded(lqt, x0, mesh)
+        torch.cuda.synchronize()
+        launches = dict(cuda.launches)
+        K, d, *_ = par_bwd_pass(lqt)
+        u_ref, x_ref = par_fwd_pass(lqt, x0, K, d)
+        out = {"backend": dist.get_backend(), "launches": launches,
+               "u_rel_err": float((u - u_ref).abs().max()
+                                  / u_ref.abs().max()),
+               "x_rel_err": float((x - x_ref[:, :-1]).abs().max()
+                                  / x_ref.abs().max())}
+        dist.destroy_process_group()
+        return out
+
+    shard_save("nccl", run)
+
+
+def phase_sharded(dev, power):
+    """Phase S: the distribution layer on the one card (the port's
+    counterpart of ``__graft_entry__.py``'s ``dryrun_multichip``).  Two
+    gloo ranks on cuda:0 run, each on its half: the time-sharded cartpole
+    T=1024 solve (float64, FAST_CONFIG single-trial; held to the unsharded
+    ``par_interior_point_optimal_control`` on the card: equal iterations,
+    controls within rtol 1e-7, atol 1e-8), the sharded multigrid at the
+    bench's width (4096 lanes a rank, refill 32, a DDP coarse level, a pool
+    of 2 x 4 x 4096 float32; held scenario by scenario to one process's run
+    on the same pool: equal iterations, bit-equal controls) and
+    ``solve_batch_sharded`` on 2 x 8 pendulum scenarios (float32,
+    FAST_CONFIG single-trial; against one ``solve_batch`` of all 16: equal
+    iterations, bit-equal controls).  A one-rank NCCL group
+    runs the time-sharded LQT solve.  The references run in this process
+    before the two ranks start.  Returns the children's launches,
+    summed."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from ipoc_tpu_torch import (
+        BATCH_CONFIG,
+        par_interior_point_optimal_control,
+        solve_batch,
+        solve_stream_multigrid,
+    )
+    from ipoc_tpu_torch.ops import fused_iter
+
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    mode = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
+        f"unknown: {smi.stderr.strip()}")
+    rec = {"phase": "S", "nvidia_smi": power, "compute_mode": mode,
+           "ranks": SHARD_RANKS, "backend": "gloo", "horizon": SHARD_T,
+           "pool": SHARD_POOL, "lanes_a_rank": LANES}
+    if mode != "Default":
+        emit(rec)
+        check(False, f"compute mode {mode}: two processes cannot share the "
+                     "card, so phase S cannot run its two ranks")
+    d = shard_dir()
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    programs = [(spec, fused_iter.scalar_programs(model_ocp(*spec[:3]),
+                                                  spec[3], 1))
+                for spec in FUSED_MODELS[:2]]
+    ctx = mp.get_context("spawn")
+    nccl_proc = ctx.Process(target=shard_nccl_rank,
+                            args=(os.path.join(d, "nccl"),))
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, os.path.join(d, "gloo"), programs))
+             for r in range(SHARD_RANKS)]
+
+    def join(ps):
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        for p in ps:
+            p.join(max(0.0, deadline - time.monotonic()))
+
+    try:
+        # The references first, in this process (with the NCCL rank): a
+        # third process busy on the card slows the two ranks' host-bound
+        # loops severalfold, each waiting its turn on the card.
+        nccl_proc.start()
+        t0 = time.perf_counter()
+        u_long, x_long, pool, batch = shard_inputs()
+        cfg = shard_config()
+        u_ref, it_ref = par_interior_point_optimal_control(
+            horizon_ocp(SHARD_T), u_long.to(dev), x_long.to(dev), cfg)
+        u_ref, it_ref = u_ref.cpu(), int(it_ref)
+        rec["unsharded_s"] = time.perf_counter() - t0
+        mg_ref = solve_stream_multigrid(
+            model_ocp("cartpole"), model_ocp("cartpole", COARSEN), COARSEN,
+            *(a.to(dev) for a in pool), BATCH_CONFIG, lanes=LANES,
+            refill_every=REFILL, coarse_impl="ddp")
+        # One solve_batch of the whole batch: a lane's arithmetic is its
+        # own (the costs' stage sums in a fixed order), so the ranks'
+        # halves match it bit for bit.
+        bt_ref = solve_batch(model_ocp("pendulum"),
+                             *(a.to(dev) for a in batch), cfg)
+        rec["references_s"] = time.perf_counter() - t0
+        print(f"# phase S references: {rec['references_s']:.1f} s",
+              file=sys.stderr, flush=True)
+        join([nccl_proc])
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        join(procs)
+        rec["ranks_s"] = time.perf_counter() - t0
+        procs.append(nccl_proc)
+        late = [i for i, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs + [nccl_proc]:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    names = [f"rank{r}" for r in range(SHARD_RANKS)] + ["nccl"]
+    check(not late, f"phase S: {[names[i] for i in late]} did not finish "
+                    f"within {SHARD_TIMEOUT_S} s of the join")
+    outs = {}
+    for name, p in zip(names, procs):
+        path = os.path.join(d, f"{name}.pt")
+        check(os.path.exists(path),
+              f"phase S: {name} left no result (exit code {p.exitcode})")
+        outs[name] = torch.load(path, weights_only=False)
+        check("error" not in outs[name],
+              f"phase S: {name} failed:\n{outs[name].get('error')}")
+    r0, nccl = outs["rank0"], outs["nccl"]
+    for r in range(1, SHARD_RANKS):
+        other = outs[f"rank{r}"]
+        for key in ("u_long", "mg_u", "mg_it", "mg_it_coarse", "batch_u",
+                    "batch_it"):
+            check(torch.equal(other[key], r0[key]),
+                  f"rank {r}'s {key} differs from rank 0's")
+    launches = {}
+    for out in outs.values():
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    du_long = (r0["u_long"] - u_ref).abs()
+    mg_u_ref = mg_ref.controls.cpu()
+    mg_equal = (r0["mg_u"] == mg_u_ref).flatten(1).all(1)
+    mg_it_equal = ((r0["mg_it"] == mg_ref.iterations.cpu())
+                   & (r0["mg_it_coarse"] == mg_ref.iterations_coarse.cpu()))
+    bt_equal = (r0["batch_u"] == bt_ref.controls.cpu()).flatten(1).all(1)
+    rec.update({
+        "wall_s": time.perf_counter() - t_start,
+        "time_sharded": {
+            "config": "FAST_CONFIG.replace(globalization='single')",
+            "dtype": "float64", "iterations": r0["it_long"],
+            "iterations_unsharded": it_ref, "s": r0["time_sharded_s"],
+            "unsharded_s": rec.pop("unsharded_s"),
+            "max_abs_du": float(du_long.max()),
+            "within_rtol_1e-7_atol_1e-8": bool(torch.allclose(
+                r0["u_long"], u_ref, rtol=1e-7, atol=1e-8))},
+        "multigrid": {
+            "config": "BATCH_CONFIG", "dtype": "float32", "coarsen": COARSEN,
+            "coarse_impl": "ddp", "refill_every": REFILL,
+            "s": r0["multigrid_s"], "steps_max_rank": r0["mg_steps"],
+            "steps_coarse_max_rank": r0["mg_steps_coarse"],
+            "steps_single_process": mg_ref.steps,
+            "steps_coarse_single_process": mg_ref.steps_coarse,
+            "scenarios_bit_equal": int(mg_equal.sum()),
+            "scenarios_equal_iterations": int(mg_it_equal.sum()),
+            "max_abs_du": float((r0["mg_u"] - mg_u_ref).abs().max()),
+            "finite_controls": bool(torch.isfinite(r0["mg_u"]).all())},
+        "batch": {
+            "config": "FAST_CONFIG.replace(globalization='single')",
+            "dtype": "float32", "model": "pendulum",
+            "scenarios": SHARD_RANKS * SHARD_BATCH, "s": r0["batch_s"],
+            "scenarios_bit_equal": int(bt_equal.sum()),
+            "scenarios_equal_iterations": int(
+                (r0["batch_it"] == bt_ref.iterations.cpu()).sum()),
+            "max_abs_du": float(
+                (r0["batch_u"] - bt_ref.controls.cpu()).abs().max())},
+        "nccl": {"backend": nccl["backend"], "horizon": LONG_T,
+                 "u_rel_err": nccl["u_rel_err"],
+                 "x_rel_err": nccl["x_rel_err"],
+                 "launches": nccl["launches"]},
+        "launches": launches, "rank_devices": [outs[n]["device"]
+                                               for n in names[:-1]]})
+    emit(rec)
+    ts, mg, bt = rec["time_sharded"], rec["multigrid"], rec["batch"]
+    check(ts["iterations"] == it_ref,
+          f"time-sharded iterations {ts['iterations']}, unsharded {it_ref}")
+    check(ts["within_rtol_1e-7_atol_1e-8"],
+          f"time-sharded controls part by {ts['max_abs_du']}")
+    check(mg["scenarios_bit_equal"] == SHARD_POOL
+          and mg["scenarios_equal_iterations"] == SHARD_POOL,
+          f"sharded multigrid: {mg['scenarios_bit_equal']} of {SHARD_POOL} "
+          f"scenarios bit-equal, {mg['scenarios_equal_iterations']} with "
+          "equal iterations, against one process")
+    check(bt["scenarios_bit_equal"] == bt["scenarios"]
+          and bt["scenarios_equal_iterations"] == bt["scenarios"],
+          f"solve_batch_sharded: {bt['scenarios_bit_equal']} of "
+          f"{bt['scenarios']} scenarios bit-equal, "
+          f"{bt['scenarios_equal_iterations']} with equal iterations, "
+          "against one solve_batch")
+    check(nccl["backend"] == "nccl" and nccl["u_rel_err"] <= 1e-12
+          and nccl["x_rel_err"] <= 1e-12,
+          f"the NCCL rank's LQT solve: {rec['nccl']}")
+    for k in ("rollout_cost", "mega", "affine_scan", "value_scan",
+              "par_newton_trial"):
+        check(launches.get(k, 0) > 0, f"phase S launched no {k}")
+    return launches
+
+
 def make_pool(model, n, dtype, seed=SEED, horizon=T):
     """The bench's pool recipe (bench.py make_batch call), on the CPU."""
     import torch
@@ -3758,10 +4136,10 @@ LATE_CHILDREN = ("P", "Q", "R")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQR",
-                        help="subset of phases A-R to run after phase 0, "
+    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRS",
+                        help="subset of phases A-S to run after phase 0, "
                              "which always runs (default: "
-                             "ABCDEFGHIJKLMNOPQR); I needs H")
+                             "ABCDEFGHIJKLMNOPQRS); I needs H")
     parser.add_argument("--cpu-reference", choices=CPU_CHILDREN,
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
@@ -3813,7 +4191,7 @@ def main(argv=None):
                   file=sys.stderr)
 
     try:
-        name, _ = phase_device()
+        name, power = phase_device()
         # The CPU halves of phases B, E, J, M, N and L run meanwhile, one
         # child process each (started after the build, which they would
         # slow down); P's, Q's and R's before phase P.
@@ -3886,10 +4264,12 @@ def main(argv=None):
         run("Q", lambda: phase_ddp(pool64, dev, reference))
         counts_r = run("R", phase_warm_transfer, pool32, dev,
                        single_grid) or {}
-        for k in ("mega", "rollout_cost", "value_scan", "affine_scan"):
-            if k in counts_p or k in counts_r:
+        counts_s = run("S", phase_sharded, dev, power) or {}
+        for k in ("mega", "rollout_cost", "value_scan", "affine_scan",
+                  "par_newton_trial"):
+            if k in counts_p or k in counts_r or k in counts_s:
                 counts[k] = (counts.get(k) or 0) + counts_p.get(k, 0) \
-                    + counts_r.get(k, 0)
+                    + counts_r.get(k, 0) + counts_s.get(k, 0)
         for ph in CARD_VS_CPU:
             run(ph, lambda ph=ph: phase_card_vs_cpu(ph, pool64, dev,
                                                     reference(ph)))

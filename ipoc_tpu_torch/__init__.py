@@ -19,8 +19,13 @@ transition kernels; bench.py's NMPC mode, ``solve_batch_packed`` (with a
 warm barrier entry) on the mega kernel and the receding-horizon loops of
 ``ipoc_tpu_torch.mpc``; the single-solve IP-DDP baseline,
 ``interior_point_ddp`` (``solve_batch``/``solve`` with ``method="ddp"``);
-warm transfer in the packed stream; their models and derivatives.
-ROADMAP.md lists what is still to port.
+warm transfer in the packed stream; the distribution layer on
+``torch.distributed`` (``ipoc_tpu_torch.parallel.sharding``,
+``parallel.distributed``, ``parallel.time_sharded``: the horizon-sharded
+solve ``ip_newton_time_sharded`` and its batch x time form, and the
+batch-sharded solves and streams, exported from
+``ipoc_tpu_torch.solvers``); their models and derivatives.  ROADMAP.md
+lists what is still to port.
 """
 
 from ipoc_tpu_torch.config import (

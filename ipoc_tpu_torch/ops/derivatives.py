@@ -79,12 +79,10 @@ def compute_lqr_params(costates, d: Derivatives) -> LinearizedOCP:
     return LinearizedOCP(ru, Q, R, M)
 
 
-def compute_first_order(ocp: OCP, states, controls, bp) -> Derivatives:
-    """First-order stage derivatives (cx, cu, fx, fu) along the trajectory.
-
-    ``states`` is ``(..., T+1, nx)``, ``controls`` ``(..., T, nu)``; the
-    second-order fields are ``None``.
-    """
+def first_order_stages(ocp: OCP, stage_states, controls, bp) -> Derivatives:
+    """:func:`compute_first_order` on explicit stage states ``(..., T, nx)``
+    (``x_0..x_{T-1}``, no terminal row): the form the time-sharded solver
+    takes, where each rank holds only its slice of the stages."""
     lead = controls.shape[:-1]
 
     def stage(x, u, b):
@@ -92,10 +90,18 @@ def compute_first_order(ocp: OCP, states, controls, bp) -> Derivatives:
         fx, fu = jacrev(ocp.dynamics, argnums=(0, 1))(x, u)
         return cx, cu, fx, fu
 
-    cx, cu, fx, fu = over_leading(
-        stage, lead, states[..., :-1, :], controls,
-        stage_barrier(bp, lead, controls))
+    cx, cu, fx, fu = over_leading(stage, lead, stage_states, controls,
+                                  stage_barrier(bp, lead, controls))
     return Derivatives(cx, cu, None, None, None, fx, fu, None, None, None)
+
+
+def compute_first_order(ocp: OCP, states, controls, bp) -> Derivatives:
+    """First-order stage derivatives (cx, cu, fx, fu) along the trajectory.
+
+    ``states`` is ``(..., T+1, nx)``, ``controls`` ``(..., T, nu)``; the
+    second-order fields are ``None``.
+    """
+    return first_order_stages(ocp, states[..., :-1, :], controls, bp)
 
 
 def compute_hamiltonian_lqr(ocp: OCP, states, controls, costates, bp
@@ -106,6 +112,16 @@ def compute_hamiltonian_lqr(ocp: OCP, states, controls, costates, bp
 
     One reverse-over-reverse pass per stage gives all four blocks.
     """
+    return hamiltonian_lqr_stages(ocp, states[..., :-1, :], controls,
+                                  costates[..., 1:, :], bp)
+
+
+def hamiltonian_lqr_stages(ocp: OCP, stage_states, controls, next_costates,
+                           bp) -> LinearizedOCP:
+    """:func:`compute_hamiltonian_lqr` on explicit per-stage inputs: states
+    ``x_k``, controls ``u_k`` and costates ``lam_{k+1}``, all ``(..., T,
+    .)`` with no terminal row, for callers that hold a slice of the
+    stages."""
     lead = controls.shape[:-1]
 
     def stage(x, u, lam_next, b):
@@ -121,9 +137,9 @@ def compute_hamiltonian_lqr(ocp: OCP, states, controls, costates, bp
                                       has_aux=True)(x, u)
         return ru, Q, R, M
 
-    ru, Q, R, M = over_leading(
-        stage, lead, states[..., :-1, :], controls, costates[..., 1:, :],
-        stage_barrier(bp, lead, controls))
+    ru, Q, R, M = over_leading(stage, lead, stage_states, controls,
+                               next_costates,
+                               stage_barrier(bp, lead, controls))
     return LinearizedOCP(ru, Q, R, M)
 
 

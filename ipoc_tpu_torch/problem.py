@@ -82,6 +82,28 @@ def log_barrier(constraints: Callable) -> Callable:
     return barrier
 
 
+def stage_sum(c: torch.Tensor) -> torch.Tensor:
+    """``c.sum(-1)`` added in a fixed pairwise order: halves added
+    elementwise until one stage is left (an odd stage out is carried).
+    A lane's rounding then depends on its horizon alone.  ``torch.sum`` on
+    a CUDA tensor splits the reduction by the whole tensor's shape, so a
+    lane's total there rounds with the batch's size
+    (``scripts/batch_size_witness.py``)."""
+    while c.shape[-1] > 1:
+        h = c.shape[-1] // 2
+        pair = c[..., :h] + c[..., h:2 * h]
+        c = torch.cat([pair, c[..., 2 * h:]], -1) if c.shape[-1] % 2 else pair
+    return c[..., 0]
+
+
+def stage_norm(c: torch.Tensor) -> torch.Tensor:
+    """A lane's Frobenius norm over its stages, ``vector_norm(c, dim=(-2,
+    -1))`` for ``c (..., T, n)``, its squares added by :func:`stage_sum`
+    (``torch.linalg.vector_norm`` on a CUDA tensor rounds with the batch's
+    size, as ``torch.sum`` does)."""
+    return torch.sqrt(stage_sum((c * c).flatten(-2)))
+
+
 def barrier_ocp(
     dynamics: Callable,
     constraints: Callable,
@@ -103,6 +125,6 @@ def barrier_ocp(
         if isinstance(bp, torch.Tensor):
             bp = bp.unsqueeze(-1)  # one barrier parameter per trajectory
         ct = stage_cost_bp(states[..., :-1, :], controls, bp)
-        return ct.sum(-1) + final_cost(states[..., -1, :])
+        return stage_sum(ct) + final_cost(states[..., -1, :])
 
     return OCP(dynamics, constraints, stage_cost_bp, final_cost, total_cost)

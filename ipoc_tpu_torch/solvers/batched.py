@@ -1,5 +1,6 @@
 """Batched interior-point solves (counterpart of
-``ipoc_tpu/solvers/batched.py``): ``solve_batch`` and ``make_batch``.
+``ipoc_tpu/solvers/batched.py``): ``solve_batch``, its batch-sharded form
+``solve_batch_sharded`` and ``make_batch``.
 
 JAX ``vmap``s the single solve over the scenarios; the port runs the
 solvers on a leading lane axis B, its loops in lockstep until every lane's
@@ -47,6 +48,40 @@ def solve_batch(
         raise ValueError(f"unknown method {method!r}")
     u, iters = solvers[method](ocp, controls, initial_states, cfg)
     return BatchSolution(u, iters)
+
+
+def solve_batch_sharded(
+    ocp: OCP,
+    controls,        # (N, T, nu), N divisible by the mesh dimension
+    initial_states,  # (N, nx)
+    mesh,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    method: str = "par",
+    axis_name: str = "batch",
+) -> BatchSolution:
+    """The scenarios split over the mesh's ``axis_name`` dimension, each
+    rank running :func:`solve_batch` on its slice (so on a card "par"
+    trials are the one-launch parallel trial kernel).  Every rank passes
+    the whole batch and gets every scenario's solution back, on its device
+    (``parallel.sharding.rank_device``); the solves share nothing but the
+    final gather."""
+    from ipoc_tpu_torch.parallel.sharding import (
+        axis_size,
+        gather_shards,
+        rank_device,
+        shard,
+    )
+
+    n = axis_size(mesh, axis_name)
+    if controls.shape[0] % n != 0:
+        raise ValueError(
+            f"batch {controls.shape[0]} not divisible by {n} shards")
+    idx, group = mesh.get_local_rank(axis_name), mesh.get_group(axis_name)
+    dev = rank_device(controls)
+    sol = solve_batch(ocp, shard(controls.to(dev), idx, n, 0),
+                      shard(initial_states.to(dev), idx, n, 0), cfg, method)
+    return BatchSolution(gather_shards(sol.controls, group, 0),
+                         gather_shards(sol.iterations, group, 0))
 
 
 def make_batch(generator: torch.Generator, base_state, n: int, horizon: int,

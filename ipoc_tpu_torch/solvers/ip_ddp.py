@@ -37,7 +37,7 @@ from ipoc_tpu_torch.ops.linalg import (
     cholesky_solve_factored,
     sym,
 )
-from ipoc_tpu_torch.problem import OCP, Derivatives
+from ipoc_tpu_torch.problem import OCP, Derivatives, stage_norm
 from ipoc_tpu_torch.solvers.barrier import barrier_loop
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
 from ipoc_tpu_torch.utils.integrators import closed_loop_rollout
@@ -49,8 +49,7 @@ def ddp_bwd_pass(final_cost, final_state, d: Derivatives, reg_param,
     ``max(||cu||_F, scale_floor)``: ``reg_param (B,)``, ``final_state
     (B, nx)``, ``d`` fields ``(B, T, ...)``.  Returns ``(ffgain (B, T, nu),
     gain (B, T, nu, nx), pred (B,), feasible (B,), Qu (B, T, nu))``."""
-    rp = reg_param * torch.clamp(
-        torch.linalg.vector_norm(d.cu, dim=(-2, -1)), min=scale_floor)
+    rp = reg_param * torch.clamp(stage_norm(d.cu), min=scale_floor)
     return ddp_bwd_core(final_cost, final_state, d, rp)
 
 

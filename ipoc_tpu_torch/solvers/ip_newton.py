@@ -55,7 +55,12 @@ from ipoc_tpu_torch.ops.fused_iter import (
 )
 from ipoc_tpu_torch.ops.newton_kernel import fused_newton_step
 from ipoc_tpu_torch.parallel.costates import par_costates, seq_costates
-from ipoc_tpu_torch.problem import OCP, Derivatives, LinearizedOCP
+from ipoc_tpu_torch.problem import (
+    OCP,
+    Derivatives,
+    LinearizedOCP,
+    stage_norm,
+)
 from ipoc_tpu_torch.solvers.barrier import barrier_loop, n_barrier_stages
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
 from ipoc_tpu_torch.utils.integrators import rollout
@@ -81,8 +86,7 @@ def _regularized(lin: LinearizedOCP, d: Derivatives, rp, scale_by_grad: bool,
     ``R += rp * max(||cu||_F, floor) * I`` per lane (the Frobenius norm over
     the lane's whole horizon), or ``R += rp * I`` unscaled."""
     if scale_by_grad:
-        rp = rp * torch.clamp(torch.linalg.vector_norm(d.cu, dim=(-2, -1)),
-                              min=scale_floor)
+        rp = rp * torch.clamp(stage_norm(d.cu), min=scale_floor)
     nu = lin.R.shape[-1]
     eye = torch.eye(nu, dtype=lin.R.dtype, device=lin.R.device)
     R = lin.R + rp[:, None, None, None] * eye
@@ -161,8 +165,7 @@ def _fused_trial_eval(ocp: OCP, x, u, bp, rp, cfg: SolverConfig):
     reg = rp
     # DDP scales the Levenberg parameter by ||cu|| unconditionally.
     if ddp or cfg.scale_reg_by_grad:
-        cu_norm = torch.linalg.vector_norm(stage_cu(ocp, x, u, bp),
-                                           dim=(-2, -1))
+        cu_norm = stage_norm(stage_cu(ocp, x, u, bp))
         reg = rp * torch.clamp(cu_norm, min=cfg.reg_scale_floor)
     xs, xT = lanes_last(x)
     tu, tx, txT, cost, nc, mc, pred, piv, hu, _ = fused_newton_iter_packed(

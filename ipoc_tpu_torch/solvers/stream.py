@@ -1,6 +1,7 @@
 """Streaming batched interior-point solves: refill converged lanes
 (counterpart of ``solve_stream`` and ``solve_stream_multigrid`` in
-``ipoc_tpu/solvers/stream.py``).
+``ipoc_tpu/solvers/stream.py``, and of their forms with the pool sharded
+over ranks).
 
 ``newton_impl="fused"`` (``BATCH_CONFIG``, what the bench runs) and
 ``"ddp"`` go to the packed stream, ``solvers/packed_stream.py``, as in the
@@ -231,4 +232,101 @@ def solve_stream_multigrid(
         iterations_coarse=sol_c.iterations,
         steps=sol_f.steps,
         steps_coarse=sol_c.steps,
+    )
+
+
+def _shard_pool(controls, initial_states, mesh, axis_name):
+    """This rank's slice of a pool and what gathers it back."""
+    from ipoc_tpu_torch.parallel.sharding import (
+        axis_size,
+        gather_shards,
+        pmax,
+        rank_device,
+        shard,
+    )
+
+    n = axis_size(mesh, axis_name)
+    if controls.shape[0] % n != 0:
+        raise ValueError(
+            f"pool {controls.shape[0]} not divisible by {n} shards")
+    idx, group = mesh.get_local_rank(axis_name), mesh.get_group(axis_name)
+    dev = rank_device(controls)
+    u = shard(controls.to(dev), idx, n, 0)
+    x0 = shard(initial_states.to(dev), idx, n, 0)
+
+    def gather(a):
+        return gather_shards(a, group, 0)
+
+    def most(steps: int) -> int:
+        return int(pmax(torch.tensor(steps, device=dev), group))
+
+    return u, x0, gather, most
+
+
+def solve_stream_sharded(
+    ocp: OCP,
+    controls,        # (N, T, nu) pool, N divisible by the mesh dimension
+    initial_states,  # (N, nx)
+    mesh,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    lanes: int = 2048,
+    refill_every: int = 16,
+    axis_name: str = "batch",
+    **stream_kwargs,
+) -> StreamSolution:
+    """The pool split over the mesh's ``axis_name`` dimension, one
+    :func:`solve_stream` per rank with ``lanes`` resident lanes (on a card
+    the packed stream's mega kernel and lane-open kernel under
+    ``BATCH_CONFIG``).  Every rank passes the whole pool and gets every
+    scenario's solution back; ``steps`` is the most any rank took (the
+    slowest rank bounds the wall clock).  Other keyword arguments
+    (``warm_transfer``, ``transfer_bp``) go to each rank's stream; the
+    per-scenario ``bp_init``/``rp_init`` are refused, as in JAX: fold them
+    into ``cfg`` or use :func:`solve_stream`.
+    """
+    bad = {"bp_init", "rp_init"} & set(stream_kwargs)
+    if bad:
+        raise ValueError(
+            f"solve_stream_sharded: {sorted(bad)} cannot be forwarded: the "
+            "entry shards only the pool's controls and initial states; "
+            "pre-fold the override into cfg or use solve_stream")
+    u, x0, gather, most = _shard_pool(controls, initial_states, mesh,
+                                      axis_name)
+    sol = solve_stream(ocp, u, x0, cfg, lanes=lanes,
+                       refill_every=refill_every, **stream_kwargs)
+    return StreamSolution(gather(sol.controls), gather(sol.iterations),
+                          most(sol.steps))
+
+
+def solve_stream_multigrid_sharded(
+    ocp: OCP,
+    ocp_coarse: OCP,
+    coarsen: int,
+    controls,        # (N, T, nu) pool, N divisible by the mesh dimension
+    initial_states,  # (N, nx)
+    mesh,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    lanes: int = 2048,
+    refill_every: int = 16,
+    axis_name: str = "batch",
+    **mg_kwargs,
+) -> MultigridSolution:
+    """The pool split over the mesh's ``axis_name`` dimension, one
+    :func:`solve_stream_multigrid` per rank (coarse solve, interpolation,
+    fine re-entry and the per-scenario fallback all stay on the rank).
+    Other keyword arguments (``coarse_impl="ddp"``, bench.py's default;
+    ``fine_impl``, ``fine_bp_init``, ``fine_reg_init``, ``coarse_solver``)
+    go to each rank's solve; both levels' ``steps`` are the most any rank
+    took."""
+    u, x0, gather, most = _shard_pool(controls, initial_states, mesh,
+                                      axis_name)
+    sol = solve_stream_multigrid(ocp, ocp_coarse, coarsen, u, x0, cfg,
+                                 lanes=lanes, refill_every=refill_every,
+                                 **mg_kwargs)
+    return MultigridSolution(
+        controls=gather(sol.controls),
+        iterations=gather(sol.iterations),
+        iterations_coarse=gather(sol.iterations_coarse),
+        steps=most(sol.steps),
+        steps_coarse=most(sol.steps_coarse),
     )

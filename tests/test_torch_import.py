@@ -22,8 +22,11 @@ MODULES = [
     "ipoc_tpu_torch.ops.scan_kernels",
     "ipoc_tpu_torch.ops.newton_kernel",
     "ipoc_tpu_torch.parallel.costates",
+    "ipoc_tpu_torch.parallel.distributed",
     "ipoc_tpu_torch.parallel.lqt",
     "ipoc_tpu_torch.parallel.scan",
+    "ipoc_tpu_torch.parallel.sharding",
+    "ipoc_tpu_torch.parallel.time_sharded",
     "ipoc_tpu_torch.solvers.barrier",
     "ipoc_tpu_torch.solvers.batched",
     "ipoc_tpu_torch.solvers.globalization",
@@ -32,6 +35,7 @@ MODULES = [
     "ipoc_tpu_torch.solvers.packed_stream",
     "ipoc_tpu_torch.solvers.solution",
     "ipoc_tpu_torch.solvers.stream",
+    "ipoc_tpu_torch.solvers.time_sharded",
 ]
 
 

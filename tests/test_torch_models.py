@@ -92,3 +92,39 @@ def test_rollout_matches_jax(name):
     assert X_t.shape == (u.shape[0], u.shape[1] + 1, nx)
     np.testing.assert_allclose(X_t.numpy(), np.asarray(X_j), rtol=0,
                                atol=ATOL)
+
+
+def _pairwise_sum(c):
+    """``stage_sum``'s order on one lane, in numpy: halves added until one
+    stage is left, an odd last stage carried."""
+    while c.shape[-1] > 1:
+        h = c.shape[-1] // 2
+        c = np.concatenate([c[:h] + c[h:2 * h], c[2 * h:]])
+    return c[0]
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 100, 101, 1024])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stage_sum_order_and_lanes(T, dtype):
+    """``problem.stage_sum`` adds a lane's stages in a fixed pairwise order
+    (the same bits alone and beside other lanes) and agrees with the sum;
+    ``stage_norm`` is the square root of the squares' ``stage_sum``."""
+    from ipoc_tpu_torch.problem import stage_norm, stage_sum
+
+    c = np.random.default_rng(T).standard_normal((16, T)).astype(dtype)
+    out = stage_sum(torch.tensor(c)).numpy()
+    for b in range(16):
+        assert out[b] == _pairwise_sum(c[b])
+        assert stage_sum(torch.tensor(c[b:b + 1])).numpy()[0] == out[b]
+    np.testing.assert_allclose(out, c.astype(np.float64).sum(-1),
+                               rtol=1e-5 if dtype == np.float32 else 1e-12,
+                               atol=1e-4 if dtype == np.float32 else 1e-12)
+    c2 = np.random.default_rng(T + 1).standard_normal((16, T, 2)).astype(
+        dtype)
+    norm = stage_norm(torch.tensor(c2))
+    squares = np.stack([_pairwise_sum((c2[b] * c2[b]).ravel())
+                        for b in range(16)])
+    assert torch.equal(norm, torch.sqrt(torch.tensor(squares)))
+    np.testing.assert_allclose(
+        norm.numpy(), np.linalg.norm(c2.astype(np.float64), axis=(1, 2)),
+        rtol=1e-5 if dtype == np.float32 else 1e-12)
