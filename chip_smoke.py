@@ -8,9 +8,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``ipoc_tpu_torch/csrc`` (the seq
 and parallel-in-time libraries and one fused library per model and time
 step, generated from the model: cartpole at dt 0.01, 0.04, 0.001 and 0.004,
-pendulum at 0.01, each model traced in a worker process of its own;
-parallel ``nvcc`` calls) and then runs its phases, each printing one JSON
-line:
+pendulum at 0.01, the planar quadrotor at 0.025 and 0.1, each model traced
+in a worker process of its own; parallel ``nvcc`` calls, one per source)
+and then runs its phases, each printing one JSON line:
 
   0. the device: its name, power limit, the kernels' build time, the
      registers and spills ``ptxas`` reports for the mega kernel, the
@@ -175,15 +175,35 @@ line:
      zero; S fails unless the rollout-cost, mega, both scan and the
      parallel trial kernels were launched, if a rank raises or outlives
      its 120 s join, or if the card's compute mode forbids two processes.
+  T. the planar quadrotor (nx=6, nu=2) through every path: (T1) every
+     kernel at (6, 2) against its plain version, float64 then float32, at
+     B in {33, 4096} (the merged trial and one k=8 mega launch per mode:
+     Newton at T=40, DDP at T=10), with phases A, D, G and K's tolerances
+     (the value scan and the parallel trial against the float64 result
+     where the data amplify rounding: ``par_f64_conditioned``,
+     ``par_f32_vs_f64``), then each kernel's time at B=4096, T=40 in
+     float32 beside its plain version and bound; (T2) bench.py's
+     quadrotor configuration (H=40, dt 1/40, BATCH_CONFIG, float32, 4096
+     lanes, refill 32, the warm start about hover thrust) on 4 x 4096
+     scenarios: the single-grid stream on the mega executor and on the
+     two-launch arm, the multigrid (a DDP coarse level at T=10) and its
+     coarse level on the two-launch arm: solves/s, the busy share, steps
+     and iterations per level, lanes at the cap, the non-finite raw-cost
+     share (0), the controls' range (strictly inside the thrust box) and
+     the basin-switch fraction; (T3, last) the multigrid on 128 of those
+     scenarios in float64, the card against the CPU, as J; (T4) the single
+     solves of tests/test_quadrotor.py (par, seq, and par with the seq
+     trial) and a double-integrator par solve, float64, against the CPU
+     child's: equal iterations, controls within 1e-8.
 
-Phases B, E, J, the second halves of M and N, R's float64 check and P64
+Phases B, E, J, the second halves of M and N, R's float64 check, T3 and P64
 run last: their CPU halves (and L's and Q's CPU golden solves) run
-meanwhile, in one child process each, started at the beginning (P's, Q's
-and R's when phase P starts).  A failed
+meanwhile, in one child process each, started at the beginning (P's, Q's,
+R's and T's when phase P starts).  A failed
 check fails its phase; the other phases still run, and any failure exits
 non-zero.  The line before the last holds the kernels' record; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of
-A-S (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
+A-T (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
 script's total seconds.  Without a card, or outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
@@ -233,7 +253,15 @@ LONG_T = 1000
 PAR_HORIZONS = (T, LONG_T)
 PAR_BATCH = 1024
 # Scenarios of the card-against-CPU phases (256 unless listed).
-CARD_VS_CPU_SCENARIOS = {"M": 128, "Nflat": 128, "Nddp": 128}
+CARD_VS_CPU_SCENARIOS = {"M": 128, "Nflat": 128, "Nddp": 128, "T3": 128}
+# Phase T: bench.py's quadrotor configuration (IPOC_BENCH_MODEL=quadrotor
+# IPOC_BENCH_HORIZON=40: H=40, dt=1/40; the multigrid's coarse level T=10),
+# the batches of its kernel checks, and tests/test_quadrotor.py's single
+# solve (dt 0.05, H=40) and a double-integrator solve (dt 0.01, H=100).
+QUAD_T = 40
+QUAD_CHECK_B = (33, LANES)
+QUAD_SOLVE = (2, QUAD_T)   # (coarsen, horizon): dt = 2 / 40 = 0.05
+DI_SOLVE = (1, 100)        # dt = 0.01
 
 def model_ocp(name, coarsen=1, horizon=T):
     """One OCP object per model, horizon and coarsening (the time step is
@@ -242,12 +270,23 @@ def model_ocp(name, coarsen=1, horizon=T):
     return _model_ocp(name, coarsen, horizon)
 
 
+def model_module(name):
+    """The port's model module ``name``."""
+    from ipoc_tpu_torch.models import (
+        cartpole,
+        double_integrator,
+        pendulum,
+        quadrotor,
+    )
+
+    return {"cartpole": cartpole, "pendulum": pendulum,
+            "quadrotor": quadrotor,
+            "double_integrator": double_integrator}[name]
+
+
 @functools.lru_cache(maxsize=None)
 def _model_ocp(name, coarsen, horizon):
-    from ipoc_tpu_torch.models import cartpole, pendulum
-
-    model = {"cartpole": cartpole, "pendulum": pendulum}[name]
-    return model.make_ocp(coarsen * (1.0 / horizon))
+    return model_module(name).make_ocp(coarsen * (1.0 / horizon))
 
 
 def check(cond, msg):
@@ -411,9 +450,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def slice_stage_data(pool, dtype, device, bp=0.1, rp=100.0):
+def slice_stage_data(pool, dtype, device, bp=0.1, rp=100.0, model="cartpole",
+                     horizon=T):
     """The trial's and the costate recursion's inputs at the pool's cold
-    start, as the stream's first iteration computes them."""
+    start, as the stream's first iteration computes them (``model`` at
+    ``horizon``, H * dt = 1 s)."""
     import torch
 
     from ipoc_tpu_torch import BATCH_CONFIG
@@ -427,7 +468,7 @@ def slice_stage_data(pool, dtype, device, bp=0.1, rp=100.0):
     from ipoc_tpu_torch.solvers.ip_newton import _regularized
     from ipoc_tpu_torch.utils.integrators import rollout
 
-    ocp = model_ocp("cartpole")
+    ocp = model_ocp(model, 1, horizon)
     u, x0 = (a.to(device, dtype) for a in pool)
     B = u.shape[0]
     x = rollout(ocp.dynamics, u, x0)
@@ -511,20 +552,24 @@ def compare_costates(args, tol, label):
     return {"max_abs_err": err, "scale": scale}
 
 
-# The fused libraries phase 0 builds: (model, coarsen, horizon, nx).
-FUSED_MODELS = (("cartpole", 1, T, 4), ("cartpole", COARSEN, T, 4),
-                ("pendulum", 1, T, 2), ("cartpole", 1, LONG_T, 4),
-                ("cartpole", COARSEN, LONG_T, 4))
+# The fused libraries phase 0 builds: (model, coarsen, horizon, nx, nu);
+# the last two are phase T's planar quadrotor, fine (T=40) and coarse
+# (T=10).
+FUSED_MODELS = (("cartpole", 1, T, 4, 1), ("cartpole", COARSEN, T, 4, 1),
+                ("pendulum", 1, T, 2, 1), ("cartpole", 1, LONG_T, 4, 1),
+                ("cartpole", COARSEN, LONG_T, 4, 1),
+                ("quadrotor", 1, QUAD_T, 6, 2),
+                ("quadrotor", COARSEN, QUAD_T, 6, 2))
 
 
-def traced_programs(name, coarsen, horizon, nx):
+def traced_programs(name, coarsen, horizon, nx, nu):
     """One model's scalarized stage programs, traced in a worker process
     (``phase_device`` runs one per model, all at once)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ipoc_tpu_torch.ops import fused_iter
 
     return fused_iter.scalar_programs(model_ocp(name, coarsen, horizon), nx,
-                                      1)
+                                      nu)
 
 
 def phase_device():
@@ -550,10 +595,11 @@ def phase_device():
             "spawn")) as pool:
         traced = list(pool.map(traced_programs, *zip(*FUSED_MODELS)))
     specs = [cuda.SEQ_NEWTON, cuda.PAR_NEWTON]
-    for (model, coarsen, horizon, nx), progs in zip(FUSED_MODELS, traced):
+    for (model, coarsen, horizon, nx, nu), progs in zip(FUSED_MODELS,
+                                                        traced):
         ocp = model_ocp(model, coarsen, horizon)
-        fused_iter.scalar_programs(ocp, nx, 1, traced=progs)
-        specs.append(fused_iter.model_spec(ocp, nx, 1))
+        fused_iter.scalar_programs(ocp, nx, nu, traced=progs)
+        specs.append(fused_iter.model_spec(ocp, nx, nu))
     codegen_s = time.perf_counter() - t0
     paths = cuda.build_all(specs)
     build_s = time.perf_counter() - t0
@@ -562,15 +608,21 @@ def phase_device():
     cuda.disable_tf32()
     emit({"phase": "0", "device": name, "nvidia_smi": power,
           "count": torch.cuda.device_count(), "codegen_s": codegen_s,
-          "kernel_build_s": build_s,
+          "kernel_build_s": build_s, "compile_s": cuda.compile_seconds,
           "libraries": [str(p.relative_to(p.parents[3])) for p in paths],
           "ptxas_cartpole": ptxas_report(
-              paths[2], model_ocp(*FUSED_MODELS[0][:3]), 4),
+              paths[2], model_ocp(*FUSED_MODELS[0][:3]), 4, 1),
+          "ptxas_quadrotor": {
+              level: ptxas_report(paths[i], model_ocp(*FUSED_MODELS[i - 2][:3]),
+                                  6, 2)
+              for level, i in (("fine_T40", 7), ("coarse_T10", 8))},
           "sass_cartpole": sass_mix(paths[2]),
           "ptxas_par_newton": par_ptxas_report(paths[1]),
           "rows_kernels": rows_report(paths[0], {
-              "cartpole": (model_ocp(*FUSED_MODELS[0][:3]), 4, paths[2]),
-              "pendulum": (model_ocp(*FUSED_MODELS[2][:3]), 2, paths[4])}),
+              "cartpole": (model_ocp(*FUSED_MODELS[0][:3]), 4, 1, paths[2]),
+              "pendulum": (model_ocp(*FUSED_MODELS[2][:3]), 2, 1, paths[4]),
+              "quadrotor": (model_ocp(*FUSED_MODELS[5][:3]), 6, 2,
+                            paths[7])}),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return name, power
 
@@ -597,7 +649,7 @@ def ptxas_entries(text, pattern):
     return found
 
 
-def ptxas_report(lib, ocp, nx):
+def ptxas_report(lib, ocp, nx, nu):
     """Registers, stack frame, spill and static shared-memory bytes that
     ``ptxas -v`` reported for the mega kernel and the merged trial of one
     library (``ocp``'s; the build keeps the report beside it), per dtype
@@ -618,7 +670,7 @@ def ptxas_report(lib, ocp, nx):
         key = f"{kernel}_{dt}_{'ddp' if ddp == '1' else 'newton'}"
         out[key] = rec
         if kernel == "mega_kernel":
-            out[key]["ring"] = mega.ring_layout(ocp, nx, 1, getattr(torch, dt))
+            out[key]["ring"] = mega.ring_layout(ocp, nx, nu, getattr(torch, dt))
     check(len(out) == 8, f"ptxas report incomplete: {sorted(out)}")
     return out
 
@@ -701,8 +753,9 @@ def rows_report(seq_lib, fused):
     (merged_trial, both sweeps) and the costate recursion (costates):
     registers and spill bytes as ``ptxas -v`` reported them, the card's
     view (resident blocks per SM, threads, shared bytes and scenarios per
-    block), per dtype and shape (``fused``: model name -> (ocp, nx, library
-    path)), checked to hold a B=4096 launch in one wave of resident blocks;
+    block), per dtype and shape (``fused``: model name -> (ocp, nx, nu,
+    library path)), checked to hold a B=4096 launch in one wave of resident
+    blocks (the quadrotor's (6, 2) and nx=6 kernels: the waves recorded);
     and the SASS of their loops (the float32 and float64 cartpole-shaped
     ones; the merged trial's and the costate recursion's also pendulum's
     and nx=2's)."""
@@ -713,11 +766,12 @@ def rows_report(seq_lib, fused):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def one_wave(key, rec, occ):
+    def one_wave(key, rec, occ, held=True):
         blocks = -(-LANES // occ["scenarios_per_block"])
-        waves = -(-blocks // (occ["blocks_per_sm"] * sms))
-        check(waves == 1, f"{key}: {blocks} blocks at B={LANES} take {waves} "
-              f"waves of {occ['blocks_per_sm']} x {sms} resident blocks")
+        waves = -(-blocks // max(occ["blocks_per_sm"] * sms, 1))
+        check(waves == 1 or not held, f"{key}: {blocks} blocks at B={LANES} "
+              f"take {waves} waves of {occ['blocks_per_sm']} x {sms} "
+              "resident blocks")
         out[key] = {**rec, **occ, f"blocks_b{LANES}": blocks,
                     f"waves_b{LANES}": waves}
 
@@ -728,34 +782,37 @@ def rows_report(seq_lib, fused):
     for (dt, nx, nu), rec in sorted(seq.items()):
         nx, nu = int(nx), int(nu)
         one_wave(f"seq_trial_{str(dtypes[dt])[6:]}_nx{nx}_nu{nu}", rec,
-                 sn.trial_occupancy(dtypes[dt], nx, nu))
+                 sn.trial_occupancy(dtypes[dt], nx, nu), nx < 6)
     costates = ptxas_entries(seq_lib.with_suffix(".ptxas.txt").read_text(),
                              r"costate_kernelI([fd])Li(\d)E")
     for (dt, nx), rec in sorted(costates.items()):
         one_wave(f"costates_{str(dtypes[dt])[6:]}_nx{nx}", rec,
-                 sn.costate_occupancy(dtypes[dt], int(nx)))
-    for name, (ocp, nx, lib) in fused.items():
+                 sn.costate_occupancy(dtypes[dt], int(nx)), int(nx) < 6)
+    for name, (ocp, nx, nu, lib) in fused.items():
         report = lib.with_suffix(".ptxas.txt").read_text()
         for kernel in tf.GROUP_KERNELS:
             for (dt,), rec in sorted(ptxas_entries(
                     report, rf"{kernel}_kernelI5Model([fd])E").items()):
                 one_wave(f"{kernel}_{name}_{str(dtypes[dt])[6:]}", rec,
-                         tf.group_occupancy(ocp, nx, 1, dtypes[dt], kernel))
+                         tf.group_occupancy(ocp, nx, nu, dtypes[dt], kernel),
+                         nx < 6)
         for (dt, ddp), rec in sorted(ptxas_entries(
                 report, r"merged_trial_kernelI5Model([fd])Lb([01])E").items()):
             one_wave(f"merged_trial_{name}_{str(dtypes[dt])[6:]}_"
                      f"{'ddp' if ddp == '1' else 'newton'}", rec,
-                     tf.merged_occupancy(ocp, nx, 1, dtypes[dt], ddp == "1"))
-    check(len(out) == 6 + 6 + 4 * len(tf.GROUP_KERNELS) + 8,
+                     tf.merged_occupancy(ocp, nx, nu, dtypes[dt], ddp == "1"),
+                     nx < 6)
+    check(len(out) == 2 * len(sn.TRIAL_SHAPES) + 2 * len(sn.COSTATE_NX)
+          + len(fused) * (2 * len(tf.GROUP_KERNELS) + 4),
           f"rows report incomplete: {sorted(out)}")
     out["sass_seq_trial"] = sass_stage_loops(seq_lib, "seq_trial_kernel")
     out["sass_costates"] = sass_stage_loops(seq_lib, "costate_kernel")
     for kernel in tf.GROUP_KERNELS:
         out[f"sass_{kernel}_cartpole"] = sass_stage_loops(
-            fused["cartpole"][2], f"{kernel}_kernel")
+            fused["cartpole"][3], f"{kernel}_kernel")
     for name in ("cartpole", "pendulum"):
         out[f"sass_merged_trial_{name}"] = sass_stage_loops(
-            fused[name][2], "merged_trial_kernel")
+            fused[name][3], "merged_trial_kernel")
     return out
 
 
@@ -772,6 +829,7 @@ def par_ptxas_report(lib):
     for the scans at n = 4)."""
     import torch
 
+    from ipoc_tpu_torch.ops import cuda
     from ipoc_tpu_torch.ops import newton_kernel as nk
     from ipoc_tpu_torch.ops import scan_kernels as sk
 
@@ -805,7 +863,13 @@ def par_ptxas_report(lib):
             check(n != 4 or warps == assumed,
                   f"{key}: {warps} resident warps per SM, the launch rule "
                   f"assumes {assumed}")
-    expect = 2 * 3 * (3 * len(sk.SCAN_LANES) + len(nk.TRIAL_LANES))
+    # Every instantiation whose block fits in shared memory.
+    expect = sum(
+        sum(sk.scan_shared_bytes(n, P, dtype, v) <= cuda.MAX_SMEM
+            for n in sk.SCAN_N for P in sk.SCAN_LANES for v in (0, 0, 1))
+        + sum(nk.trial_shared_bytes(nx, P, dtype) <= cuda.MAX_SMEM
+              for nx, _ in nk.TRIAL_SHAPES for P in nk.TRIAL_LANES)
+        for dtype in (torch.float32, torch.float64))
     check(len(out) == expect,
           f"par_newton ptxas report incomplete: {sorted(out)}")
     return out
@@ -967,7 +1031,12 @@ CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
                "Nflat": "solve_batch, BATCH_CONFIG.replace(barrier_mode="
                         "'flat')",
                "Nddp": "solve_batch, BATCH_CONFIG.replace(newton_impl='ddp')",
-               "R": "solve_stream(warm_transfer=True), BATCH_CONFIG"}
+               "R": "solve_stream(warm_transfer=True), BATCH_CONFIG",
+               "T3": "quadrotor H=40, solve_stream_multigrid(coarsen=4, "
+                     "coarse_impl='ddp'), BATCH_CONFIG"}
+# The model of a card-against-CPU phase other than cartpole H=100:
+# model_ocp's arguments.
+CARD_VS_CPU_MODEL = {"T3": ("quadrotor", 1, QUAD_T)}
 
 
 def card_vs_cpu_solve(phase, u, x0):
@@ -983,7 +1052,14 @@ def card_vs_cpu_solve(phase, u, x0):
         solve_stream_multigrid,
     )
 
-    ocp = model_ocp("cartpole")
+    ocp = model_ocp(*CARD_VS_CPU_MODEL.get(phase, ("cartpole", 1, T)))
+    if phase == "T3":
+        sol = solve_stream_multigrid(
+            ocp, model_ocp("quadrotor", COARSEN, QUAD_T), COARSEN, u, x0,
+            BATCH_CONFIG, lanes=64, refill_every=REFILL, coarse_impl="ddp")
+        return (sol.controls, sol.iterations.cpu(), sol.steps,
+                {"iterations_coarse": sol.iterations_coarse.cpu(),
+                 "steps_coarse": sol.steps_coarse})
     if phase in ("M", "Nflat", "Nddp"):
         cfg = (FAST_CONFIG if phase == "M" else
                batch_cfg("flat" if phase == "Nflat" else "ddp"))
@@ -1022,6 +1098,8 @@ def cpu_reference_solve(phase):
     torch.set_num_threads(2 if phase == "M" else 1)
     if phase == "L":
         return golden_par_cpu()
+    if phase == "T":
+        return quad_cpu()
     if phase == "P":
         return nmpc_cpu()
     pool = make_pool(cartpole, POOL, torch.float32)
@@ -1048,8 +1126,9 @@ def phase_card_vs_cpu(phase, pool64, dev, cpu_ref):
     """Phases B (seq stream), E (packed stream), J (multigrid) and the
     second halves of M and N (solve_batch): 256 float64 scenarios, 128 for
     M and N, the card (kernels) against the CPU (plain versions,
-    ``cpu_ref``)."""
-    ocp = model_ocp("cartpole")
+    ``cpu_ref``); T3 the quadrotor's multigrid on 128 of phase T's
+    scenarios."""
+    ocp = model_ocp(*CARD_VS_CPU_MODEL.get(phase, ("cartpole", 1, T)))
     n = CARD_VS_CPU_SCENARIOS.get(phase, 256)
     u, x0 = (a[:n] for a in pool64)
     t0 = time.perf_counter()
@@ -1642,18 +1721,19 @@ def fused_times(ocp, xs, xT, u, up, x0, bpt, reg):
     from ipoc_tpu_torch.ops import fused_iter as tf
 
     T_, nx, B = xs.shape
+    nu = u.shape[1]
     kw = dict(dtype=xs.dtype, device=xs.device)
-    lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(xs.dtype)
+    lib, code = tf.library(ocp, nx, nu), cuda.dtype_code(xs.dtype)
     Kk = tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg)[0]
     plain_iter = cuda_ms(lambda: tf.fused_newton_iter_plain(
         ocp, xs, xT, u, bpt, reg), 3)
     kernels = {
         "fused_bwd": ((xs, u, xT, bpt, reg),
-                      [(T_, 1 + nx, B)] + [(B,)] * 4,
+                      [(T_, (1 + nx) * nu, B)] + [(B,)] * 4,
                       lambda: tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg),
                       lambda: plain_iter),
         "fused_fwd": ((xs, u, xT, bpt, Kk),
-                      [(T_, 1, B), (T_, nx, B), (nx, B)] + [(B,)] * 3,
+                      [(T_, nu, B), (T_, nx, B), (nx, B)] + [(B,)] * 3,
                       lambda: tf.fused_fwd_launch(ocp, xs, xT, u, bpt, Kk),
                       lambda: plain_iter),
         "rollout": ((u, x0), [(T_, nx, B), (nx, B)],
@@ -2085,12 +2165,13 @@ def merged_entry(ocp, xs, xT, u, bp, reg, ddp):
     from ipoc_tpu_torch.ops import fused_iter as tf
 
     T_, nx, B = xs.shape
+    nu = u.shape[1]
     kw = dict(dtype=xs.dtype, device=xs.device)
     outs = [torch.empty(sh, **kw) for sh in
-            [(T_, 1, B), (T_, nx, B), (nx, B)] + [(B,)] * 7
-            + [(T_, (1 + nx), B)]]
+            [(T_, nu, B), (T_, nx, B), (nx, B)] + [(B,)] * 7
+            + [(T_, (1 + nx) * nu, B)]]
     ip, op = tf.pointers((xs, u, xT, bp, reg)), tf.pointers(outs)
-    lib, code = tf.library(ocp, nx, 1), cuda.dtype_code(xs.dtype)
+    lib, code = tf.library(ocp, nx, nu), cuda.dtype_code(xs.dtype)
 
     def call():
         status = lib.ipoc_merged_trial(code, int(ddp), ip, op, B, T_,
@@ -2136,10 +2217,12 @@ def phase_mega_stream(pool32, pool64, dev):
     return counts, sol
 
 
-def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
+def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T,
+                       model="cartpole"):
     """``solve_stream_multigrid`` at bench.py's default (coarsen 4, a DDP
-    coarse level, 4096 lanes, refill every 32) on ``pool32``, float32, at
-    ``horizon`` (H * dt = 1 s on both levels): its launch counts (the mega
+    coarse level, 4096 lanes, refill every 32) on ``pool32``, float32, on
+    ``model`` at ``horizon`` (H * dt = 1 s on both levels): its launch
+    counts (the mega
     executor's), the whole run's busy share and the quality against the
     single-grid solutions ``single_grid``.  Returns ``(record, solution,
     solve, raw costs)``; ``solve(u, x0, **kw)`` runs it again."""
@@ -2151,8 +2234,8 @@ def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
     from ipoc_tpu_torch.solvers import packed_stream as ps
 
     cfg = BATCH_CONFIG
-    ocp = model_ocp("cartpole", 1, horizon)
-    ocp_c = model_ocp("cartpole", COARSEN, horizon)
+    ocp = model_ocp(model, 1, horizon)
+    ocp_c = model_ocp(model, COARSEN, horizon)
     u, x0 = (a.to(dev) for a in pool32)
     n = u.shape[0]
 
@@ -2183,7 +2266,7 @@ def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T):
     it_f, it_c = (a.cpu().double() for a in (sol.iterations,
                                                sol.iterations_coarse))
     rec = {
-        "phase": phase, "model": "cartpole", "horizon": horizon,
+        "phase": phase, "model": model, "horizon": horizon,
         "coarsen": COARSEN, "coarse_impl": "ddp", "dtype": "float32",
         "config": "BATCH_CONFIG", "lanes": LANES, "refill_every": REFILL,
         "scenarios": n, "wall_s": wall, "solves_per_s": n / wall,
@@ -2318,9 +2401,10 @@ def horizon_ocp(T_):
     return model_ocp("cartpole", 1, T_)
 
 
-def par_inputs(T_, B, dtype, dev, seed=SEED):
-    """The parallel trial's inputs at a cold start of cartpole at horizon
-    ``T_``, as a solve's first iteration computes them (bp=0.1, the
+def par_inputs(T_, B, dtype, dev, seed=SEED, model="cartpole"):
+    """The parallel trial's inputs at a cold start of ``model`` at horizon
+    ``T_`` (cartpole: random controls; the quadrotor: random controls about
+    hover thrust), as a solve's first iteration computes them (bp=0.1, the
     Levenberg parameter 1 scaled by ||cu||), and the three scans' inputs
     on the same data: the costate elements (T+1 of them, suffix), the value
     elements of the Newton LQT (T), and the closed-loop elements from its
@@ -2329,7 +2413,6 @@ def par_inputs(T_, B, dtype, dev, seed=SEED):
     import torch
 
     from ipoc_tpu_torch import FAST_CONFIG
-    from ipoc_tpu_torch.models import cartpole
     from ipoc_tpu_torch.ops.derivatives import (
         compute_first_order,
         compute_hamiltonian_lqr,
@@ -2340,11 +2423,16 @@ def par_inputs(T_, B, dtype, dev, seed=SEED):
     from ipoc_tpu_torch.solvers.ip_newton import _regularized
     from ipoc_tpu_torch.utils.integrators import rollout
 
-    ocp = horizon_ocp(T_)
+    ocp = model_ocp(model, 1, T_)
+    mod = model_module(model)
+    hover = getattr(mod, "HOVER", 0.0)
+    x_base = mod.initial_state(torch.float64)
+    nx, nu = x_base.shape[0], 2 if model == "quadrotor" else 1
     gen = torch.Generator().manual_seed(seed)
-    u = 0.1 * torch.randn((B, T_, 1), generator=gen, dtype=torch.float64)
-    x0 = (cartpole.initial_state(torch.float64)
-          + 0.01 * torch.randn((B, 4), generator=gen, dtype=torch.float64))
+    u = hover + 0.1 * torch.randn((B, T_, nu), generator=gen,
+                                  dtype=torch.float64)
+    x0 = x_base + 0.01 * torch.randn((B, nx), generator=gen,
+                                     dtype=torch.float64)
     u, x0 = u.to(dev, dtype), x0.to(dev, dtype)
     x = rollout(ocp.dynamics, u, x0)
     bp = torch.tensor(0.1, dtype=dtype, device=dev)
@@ -2538,14 +2626,14 @@ def phase_par_kernels(dev):
                         rec[name]["entry_ms"], ins[1].shape[1], clock.mhz)
                     rec[name]["lanes"] = sk.scan_lanes(
                         B, ins[1].shape[1], dtype, sms,
-                        value=name == "value_scan")
+                        value=name == "value_scan", n=nx)
             # Through its wrapper (ms) the trial is paced by the wrapper's
             # host work at these shapes: its C entry on preallocated
             # outputs (entry_ms) gives the kernel's time.
             trial_rec = rec["par_newton_trial"]
             trial_rec["entry_ms"] = cuda_ms(trial_entry(
                 cuda.library(cuda.PAR_NEWTON), trial, sms), 50)
-            lanes = nk.trial_lanes(B, T_, sms)
+            lanes = nk.trial_lanes(B, T_, sms, nx, dtype)
             occ = nk.trial_occupancy(dtype, nx, nu, lanes)
             trial_rec["geometry"] = {
                 "lanes": lanes, "blocks": -(-B // occ["scenarios_per_block"]),
@@ -2596,11 +2684,12 @@ def scan_entry(name, args):
     sms = cuda.sm_count(args[0].device)
     if name == "value_scan":
         fn, head = lib.ipoc_value_scan, (
-            code, n, sk.scan_lanes(B, T_, args[0].dtype, sms, value=True))
+            code, n, sk.scan_lanes(B, T_, args[0].dtype, sms, value=True,
+                                   n=n))
     else:
         fn, head = lib.ipoc_affine_scan, (
             code, n, int(name == "affine_scan"),
-            sk.scan_lanes(B, T_, args[0].dtype, sms))
+            sk.scan_lanes(B, T_, args[0].dtype, sms, n=n))
 
     def call():
         status = fn(*head, *ptrs, B, T_,
@@ -2627,7 +2716,8 @@ def trial_entry(lib, trial, sms):
             torch.empty((B, T_, nu), **kw), torch.empty((B, T_ + 1, nx), **kw),
             torch.empty((B,), **kw),
             torch.empty((B,), dtype=torch.bool, device=kw["device"]))
-    head = (cuda.dtype_code(kw["dtype"]), nx, nu, nk.trial_lanes(B, T_, sms))
+    head = (cuda.dtype_code(kw["dtype"]), nx, nu,
+            nk.trial_lanes(B, T_, sms, nx, kw["dtype"]))
     ptrs = [a.data_ptr() for a in (*trial, *outs)]
 
     def call():
@@ -3839,9 +3929,9 @@ def shard_rank(rank, init_file, programs):
         time_mesh = make_mesh(1, SHARD_RANKS)
         batch_mesh = make_mesh(SHARD_RANKS, 1)
         # The parent's traced stage programs (the libraries are built).
-        for (name, coarsen, horizon, nx), progs in programs:
+        for (name, coarsen, horizon, nx, nu), progs in programs:
             fused_iter.scalar_programs(model_ocp(name, coarsen, horizon), nx,
-                                       1, traced=progs)
+                                       nu, traced=progs)
         u_long, x_long, pool, batch = shard_inputs()
         # The rank's card (DeviceMesh selected it): the inputs go there, so
         # that the gloo group carries CUDA tensors.
@@ -3974,7 +4064,7 @@ def phase_sharded(dev, power):
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
     programs = [(spec, fused_iter.scalar_programs(model_ocp(*spec[:3]),
-                                                  spec[3], 1))
+                                                  *spec[3:]))
                 for spec in FUSED_MODELS[:2]]
     ctx = mp.get_context("spawn")
     nccl_proc = ctx.Process(target=shard_nccl_rank,
@@ -4115,31 +4205,658 @@ def phase_sharded(dev, power):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase T: the planar quadrotor (nx=6, nu=2)
+# ---------------------------------------------------------------------------
+
+
+def quad_pool():
+    """Phase T's pool: bench.py's recipe for the quadrotor (H=40, 4 x 4096
+    scenarios, the warm start about hover thrust), float32 on the CPU."""
+    import torch
+
+    return make_pool(model_module("quadrotor"), POOL, torch.float32,
+                     horizon=QUAD_T)
+
+
+def quad_single_solve(name, dev):
+    """Phase T4's single solves, float64: ``par`` and ``seq`` are
+    tests/test_quadrotor.py's (dt 0.05, H=40, the hover start,
+    FAST_CONFIG; ``seq`` the sequential validation solve, whose Riccati
+    pass is plain tensor code beside the costate kernel), ``newton_seq``
+    the par solve's Newton iteration with the sequential trial
+    (``newton_impl="seq"``: the seq trial and costate kernels), and
+    ``double_integrator`` tests/test_solvers.py's par solve at dt 0.01,
+    H=100 from x0 = (2, 1) and zero controls.  Returns ``(controls on the
+    CPU, iterations)``."""
+    import torch
+
+    from ipoc_tpu_torch import (
+        FAST_CONFIG,
+        par_interior_point_optimal_control,
+        seq_interior_point_optimal_control,
+    )
+
+    f64 = torch.float64
+    if name == "double_integrator":
+        ocp = model_ocp(name, *DI_SOLVE)
+        u0 = torch.zeros((DI_SOLVE[1], 1), dtype=f64, device=dev)
+        x0 = torch.tensor([2.0, 1.0], dtype=f64, device=dev)
+        u, it = par_interior_point_optimal_control(ocp, u0, x0)
+    else:
+        quad = model_module("quadrotor")
+        solve = (seq_interior_point_optimal_control if name == "seq"
+                 else par_interior_point_optimal_control)
+        cfg = (FAST_CONFIG.replace(newton_impl="seq") if name == "newton_seq"
+               else FAST_CONFIG)
+        u, it = solve(model_ocp("quadrotor", *QUAD_SOLVE),
+                      quad.hover_controls(QUAD_T, f64, dev),
+                      quad.initial_state(f64, dev), cfg)
+    return u.cpu(), int(it)
+
+
+QUAD_SOLVES = ("par", "seq", "newton_seq", "double_integrator")
+
+
+def quad_cpu():
+    """Phase T's CPU child: T3's multigrid on the pool's first 128
+    scenarios in float64 and T4's single solves, with the plain versions."""
+    u, x0 = (a[:CARD_VS_CPU_SCENARIOS["T3"]].double() for a in quad_pool())
+    t0 = time.perf_counter()
+    t3 = (*card_vs_cpu_solve("T3", u, x0), time.perf_counter() - t0)
+    return {"T3": t3, "T4": {name: quad_single_solve(name, "cpu")
+                             for name in QUAD_SOLVES}}
+
+
+def quad_levels(pool, B, dtype, dev):
+    """The pool's first B scenarios on each multigrid level: Newton on the
+    fine grid (T=40), DDP on the coarse grid (T=10, every 4th control as
+    the multigrid takes them), each with its model: level -> (ocp, u, x0,
+    ddp)."""
+    u, x0 = (a[:B].to(dev, dtype) for a in pool)
+    return {level: (model_ocp("quadrotor", coarsen, QUAD_T),
+                    u[:, ::coarsen].contiguous(), x0, ddp)
+            for level, (coarsen, ddp) in LEVELS.items()}
+
+
+# Phase T1's mega launch: k iterations, each barrier stage capped at two
+# so that lanes roll over.  Against its plain version every lane must take
+# the same decisions (it, stage_it, done) on 99% of lanes, and in float64
+# also agree element by element within the tolerance (phase G's rules:
+# past G's k=4, float32 rounding through the cold start's Newton steps
+# outgrows the per-element tolerance).
+QUAD_MEGA_K = 8
+
+
+def quad_kernel_checks(pool, dev):
+    """Phase T1's checks: every kernel of the port at the quadrotor's
+    (6, 2) against its plain version at B in QUAD_CHECK_B, float64 then
+    float32, with phases A, D, G and K's tolerances."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import fused_iter as tf
+    from ipoc_tpu_torch.ops import mega
+
+    out = {}
+    problems = []
+    ocp = model_ocp("quadrotor", 1, QUAD_T)
+    for dtype, tol, prt, ltol in ((torch.float64, 1e-10, 1e-10, 1e-12),
+                                  (torch.float32, 2e-5, 1e-4, 1e-5)):
+        tag = str(dtype).split(".")[-1]
+        dtol = 1e-10 if dtype == torch.float64 else F32_TOL
+        for B in QUAD_CHECK_B:
+            label = f"quadrotor B={B} {tag}"
+            trial, costate = slice_stage_data(
+                tuple(a[:B] for a in pool), dtype, dev, model="quadrotor",
+                horizon=QUAD_T)
+            rec = {"seq_trial": compare_trial(trial, tol, prt, label),
+                   "costates": compare_costates(costate, ltol, label),
+                   "fused": compare_fused(ocp, tuple(a[:2 * B] for a in pool),
+                                          dtype, dev, 0.1, dtol, label)}
+            for level, (ocp_l, u, x0, ddp) in quad_levels(
+                    pool, B, dtype, dev).items():
+                lab = f"{label} {level} T={u.shape[1]}"
+                lane = open_packed(ocp_l, u, x0, BATCH_CONFIG, 0.1)
+                reg = 100.0 * torch.clamp(lane.cun, min=1e-6)
+                args = (ocp_l, lane.xs, lane.xT, lane.u, lane.bp, reg)
+                got = tf.merged_trial_launch(*args, ddp=ddp)
+                ref = tf.fused_newton_iter_plain(*args, ddp=ddp)
+                errs = [compare_out(f"{lab} merged[{n}]", g, r, dtol)
+                        for n, g, r in zip(TRIAL_OUTS, got, ref)]
+                cfg = BATCH_CONFIG.replace(
+                    newton_impl="ddp" if ddp else "fused", max_newton_iters=2)
+                lane0 = open_packed(ocp_l, u, x0, cfg, 0.1)
+                active = torch.ones_like(lane0.done)
+                got, steps = mega.mega_k_iterations(
+                    ocp_l, mega.clone_lane(lane0), active, cfg, QUAD_MEGA_K,
+                    ddp)
+                ref, ref_steps = mega.mega_k_iterations_plain(
+                    ocp_l, lane0, active, cfg, QUAD_MEGA_K, ddp)
+                vs_plain = compare_lanes(got, ref, dtol)
+                key = ("agree_frac" if dtype == torch.float64
+                       else "decisions_equal_frac")
+                if vs_plain[key] < 0.99:
+                    problems.append(f"{lab} mega k={QUAD_MEGA_K} vs plain: "
+                                    f"{key} {vs_plain[key]}")
+                rolled = float((got.bp < lane0.bp).double().mean())
+                if rolled == 0:
+                    problems.append(f"{lab}: no lane rolled over")
+                rec[f"{level}_T{u.shape[1]}"] = {
+                    "merged_trial": {"max_abs_err": max(e[0] for e in errs),
+                                     "max_rel_err": max(e[1] for e in errs)},
+                    f"mega_k{QUAD_MEGA_K}": {
+                        "steps": int(steps), "plain_steps": int(ref_steps),
+                        "rolled_over_frac": rolled, "vs_plain": vs_plain}}
+            trial_p, scans = par_inputs(QUAD_T, B, dtype, dev,
+                                        model="quadrotor")
+            rec.update(compare_scans({k: scans[k] for k in
+                                      ("suffix", "prefix")}, dtol, label))
+            rec.update(par_f64_conditioned(trial_p, scans, label)
+                       if dtype == torch.float64
+                       else par_f32_vs_f64(trial_p, scans, label))
+            out[label] = rec
+    out["problems"] = problems
+    return out
+
+
+def lane_errors(outs, refs):
+    """Per lane (the leading axis), the largest error of ``outs`` against
+    ``refs`` relative to each output's largest |ref|."""
+    import torch
+
+    err = None
+    for o, r in zip(outs, refs):
+        r = r.double()
+        e = ((o.double() - r).abs().flatten(1).amax(1)
+             / (float(r.abs().max()) + 1e-30))
+        err = e if err is None else torch.maximum(err, e)
+    return err
+
+
+def par_f64_conditioned(trial, scans, label):
+    """Phase T1's float64 check of the value scan and the parallel trial at
+    the quadrotor's (6, 2): against the plain version at phase K's 1e-10
+    of scale, or at the float64 image of the data's own rounding
+    amplification where that is larger: 8 x (float64 eps / float32 eps) x
+    the largest lane error of the plain version run in float32 on the same
+    inputs against its float64 result (:func:`par_f32_vs_f64`: up to 8e-2
+    at B=4096, an amplification of some 1e6 that puts float64 rounding
+    near 1e-10); equal ok flags; the trial also against the pipeline on
+    the scan kernels at the same tolerance."""
+    import torch
+
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    ratio = torch.finfo(torch.float64).eps / torch.finfo(torch.float32).eps
+    f32 = lambda args: tuple(a.float() for a in args)  # noqa: E731
+    pairs = {
+        "value_scan": (sk.value_scan(*scans["value"]),
+                       sk.value_scan_plain(*scans["value"]),
+                       sk.value_scan_plain(*f32(scans["value"])), None),
+        "par_trial": (nk.fused_newton_step(*trial),
+                      nk.fused_newton_step_plain(*trial),
+                      nk.fused_newton_step_plain(*f32(trial)),
+                      nk.newton_pipeline(*trial))}
+    out = {}
+    for name, (got, ref, ref32, pipe) in pairs.items():
+        floats = slice(0, 2) if name == "par_trial" else slice(None)
+        amp = float(lane_errors(ref32[floats], ref[floats]).max())
+        tol = max(1e-10, 8 * ratio * amp)
+        rec = {"tolerance": tol, "plain_float32_vs_float64_max": amp}
+        for who, o in (("plain", got), ("pipeline", pipe)):
+            if o is None:
+                continue
+            if name == "par_trial":
+                check(torch.equal(o[3], ref[3]), f"{label} {name} vs {who}: "
+                      "ok differs")
+                prel = float(((o[2] - ref[2]).abs() / ref[2].abs()).max())
+                check(prel <= tol, f"{label} {name} vs {who}: pred rel err "
+                      f"{prel} > {tol}")
+                rec[f"vs_{who}_pred_max_rel_err"] = prel
+            err = float(lane_errors(o[floats], ref[floats]).max())
+            check(err <= tol, f"{label} {name} vs {who}: {err} of scale > "
+                  f"{tol}")
+            rec[f"vs_{who}_max_rel_err"] = err
+        out[name] = rec
+    return out
+
+
+def par_f32_vs_f64(trial, scans, label):
+    """Phase T1's float32 check of the value scan and the parallel trial at
+    the quadrotor's (6, 2).  On this data (a T=40 cold start, bp=0.1) the
+    parallel LQT's float32 rounding is amplified lane by lane: the plain
+    version's own float32 result lies up to 8e-2 of scale from its
+    float64 result on the same inputs (B=4096; 1e-3 at B=33), and JAX's
+    Pallas trial in interpret mode up to 0.61 (B=256), so no float32
+    association meets phase K's 1e-4 against another.  Each kernel and its
+    plain version are held against the plain version in float64 on the
+    same float32 inputs: the median lane within F32_TOL (K's tolerance),
+    equal ok flags, finite outputs; the largest and 99th-percentile lane
+    errors of both are recorded."""
+    import torch
+
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+
+    out = {}
+    pairs = {
+        "value_scan": (sk.value_scan(*scans["value"]),
+                       sk.value_scan_plain(*scans["value"]),
+                       sk.value_scan_plain(*(a.double()
+                                             for a in scans["value"]))),
+        "par_trial": (nk.fused_newton_step(*trial),
+                      nk.fused_newton_step_plain(*trial),
+                      nk.fused_newton_step_plain(*(a.double()
+                                                   for a in trial)))}
+    q = torch.tensor([0.5, 0.99], dtype=torch.float64)
+    for name, (got, plain, ref) in pairs.items():
+        floats = slice(0, 2) if name == "par_trial" else slice(None)
+        if name == "par_trial":
+            check(torch.equal(got[3], plain[3]) and torch.equal(
+                plain[3].cpu(), ref[3].cpu()), f"{label} {name}: ok differs")
+        check(all(bool(torch.isfinite(g).all()) for g in got[floats]),
+              f"{label} {name}: non-finite output")
+        rec = {}
+        for who, o in (("kernel", got), ("plain", plain)):
+            e = lane_errors(o[floats], ref[floats])
+            med, p99 = torch.quantile(e, q.to(e.device)).tolist()
+            rec[f"{who}_vs_float64"] = {"median": med, "p99": p99,
+                                        "max": float(e.max())}
+        rec["kernel_vs_plain_max"] = float(lane_errors(got[floats],
+                                                       plain[floats]).max())
+        check(rec["kernel_vs_float64"]["median"] <= F32_TOL,
+              f"{label} {name}: median lane {rec['kernel_vs_float64']} "
+              f"from float64 > {F32_TOL}")
+        out[name] = rec
+    return out
+
+
+def quad_kernel_times(pool, dev):
+    """Phase T1's times at B=4096, T=40, float32 (the merged trial and the
+    mega kernel: Newton at T=40, DDP at T=10): each kernel through its
+    wrapper (ms) and its C entry on outputs allocated once (entry_ms, per
+    stage in SM cycles), beside its plain version and its bound.  (No
+    float64 times: they were cut to hold the whole smoke near its time
+    budget; PERF.md keeps a measurement of them.)"""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import fused_iter as tf
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+    from ipoc_tpu_torch.ops.cuda import seq_newton as sn
+
+    ocp = model_ocp("quadrotor", 1, QUAD_T)
+    dtype, peak, rec = torch.float32, PEAK_F32_OPS_PER_S, {}
+
+    def plain(fn):
+        return cuda_ms(fn, 3)
+
+    def timed(name, wrapper, entry, horizon, plain_ms, ins, ops):
+        with SmClock() as clock:
+            busy(entry, 0.3)
+            r = {"ms": cuda_ms(wrapper, 20),
+                 "entry_ms": cuda_ms(entry, 20)}
+        r["entry"] = per_stage(r["entry_ms"], horizon, clock.mhz)
+        r["plain_ms"] = plain_ms
+        r.update(bound(nbytes(ins, wrapper()), ops, ops_per_s=peak))
+        rec[name] = r
+
+    trial, costate = slice_stage_data(
+        tuple(a[:LANES] for a in pool), dtype, dev, model="quadrotor",
+        horizon=QUAD_T)
+    B, T_, nx, nu = trial[5].shape
+    timed("seq_newton_trial",
+          lambda: sn.seq_newton_trial_batched(*trial),
+          seq_trial_entry(trial), T_,
+          plain(lambda: sn.seq_newton_trial_plain(*trial)), trial,
+          B * T_ * riccati_ops(nx, nu))
+    timed("seq_costates", lambda: sn.seq_costates_batched(*costate),
+          costate_entry(costate), T_,
+          plain(lambda: sn.seq_costates_plain(*costate)), costate,
+          B * T_ * 2 * nx * nx)
+    # The fused kernels (fused_times times wrapper, entry and plain
+    # version).
+    u, u_other, x0, bpt, rp = fused_inputs(
+        tuple(a[:2 * LANES] for a in pool), dtype, dev, 0.1)
+    xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0, bpt)
+    reg = rp * torch.clamp(torch.sqrt(cunsq), min=1e-6)
+    up = (u + 0.2 * (u - u_other)).contiguous()
+    fused = fused_times(ocp, xs, xT, u, up, x0, bpt, reg)
+    ops = program_ops(ocp, nx, nu)
+    Kk = tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg)[0]
+    per_lane = {
+        "fused_bwd": (T_ * (ops["stage_bwd"] + riccati_ops(nx, nu))
+                      + ops["term"], (xs, xT, u, bpt, reg),
+                      tf.fused_bwd_launch(ocp, xs, xT, u, bpt, reg)),
+        "fused_fwd": (T_ * ops["stage_fwd"] + ops["term_fwd"],
+                      (xs, xT, u, bpt, Kk),
+                      tf.fused_fwd_launch(ocp, xs, xT, u, bpt, Kk)),
+        "rollout": (T_ * ops["dynamics"], (u, x0),
+                    tf.rollout_packed(ocp, u, x0)),
+        "rollout_cost": (T_ * ops["roll_cost"] + ops["final_cost"],
+                         (u, x0, bpt),
+                         tf.rollout_cost_packed(ocp, u, x0, bpt)),
+        "transition": (T_ * ops["transition"] + 2 * ops["final_cost"],
+                       (u, up, x0, bpt),
+                       tf.transition_packed(ocp, u, up, x0, bpt))}
+    for k, (n_ops, ins, outs) in per_lane.items():
+        fused[k].update(bound(nbytes(ins, outs), B * n_ops,
+                              ops_per_s=peak))
+    rec.update(fused)
+    # The merged trial (Newton T=40, DDP T=10) and one k=8 mega launch
+    # in each mode.
+    for level, (ocp_l, ul, xl, ddp) in quad_levels(
+            pool, LANES, dtype, dev).items():
+        cfg = BATCH_CONFIG.replace(newton_impl="ddp" if ddp else "fused")
+        lane0 = open_packed(ocp_l, ul, xl, cfg, 0.1)
+        reg = 100.0 * torch.clamp(lane0.cun, min=1e-6)
+        args = (ocp_l, lane0.xs, lane0.xT, lane0.u, lane0.bp, reg)
+        Tl = ul.shape[1]
+        ops = program_ops(ocp_l, nx, nu)
+        fwd = ops["stage_ddp_fwd" if ddp else "stage_fwd"]
+        trial_ops = (Tl * (ops["stage_bwd"] + riccati_ops(nx, nu) + fwd)
+                     + ops["term"]
+                     + ops["term_ddp_fwd" if ddp else "term_fwd"])
+        timed(f"merged_trial_{level}_T{Tl}",
+              lambda: tf.merged_trial_launch(*args, ddp=ddp),
+              merged_entry(*args, ddp), Tl,
+              plain(lambda: tf.fused_newton_iter_plain(*args, ddp=ddp)),
+              args[1:], B * trial_ops)
+        active = torch.ones_like(lane0.done)
+        ws = mega.mega_workspace(lane0)
+        got, steps = mega.mega_k_iterations(
+            ocp_l, mega.clone_lane(lane0), active, cfg, QUAD_MEGA_K, ddp,
+            ws)
+        lane_iters = int((got.it - lane0.it).sum())
+        with SmClock() as clock:
+            ms = event_ms(lambda ln: mega.mega_k_iterations(
+                ocp_l, ln, active, cfg, QUAD_MEGA_K, ddp, ws), 5,
+                lambda: mega.clone_lane(lane0))
+        rec[f"mega_{level}_T{Tl}_k{QUAD_MEGA_K}"] = {
+            "ms": ms, "steps": int(steps),
+            "per_stage_iteration": per_stage_iteration(ms, int(steps),
+                                                       Tl, clock.mhz),
+            "plain_ms": event_ms(lambda ln: mega.mega_k_iterations_plain(
+                ocp_l, ln, active, cfg, QUAD_MEGA_K, ddp), 1,
+                lambda: lane0, warm=False),
+            **bound(2 * nbytes(tuple(lane0)), lane_iters * trial_ops,
+                    ops_per_s=peak)}
+    # The parallel-in-time kernels at B=4096, T=40.
+    trial_p, scans = par_inputs(QUAD_T, LANES, dtype, dev,
+                                model="quadrotor")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timed("par_newton_trial", lambda: nk.fused_newton_step(*trial_p),
+          trial_entry(cuda.library(cuda.PAR_NEWTON), trial_p, sms), T_,
+          plain(lambda: nk.fused_newton_step_plain(*trial_p)), trial_p,
+          par_trial_ops(B, T_, nx, nu))
+    rec["par_newton_trial"]["lanes"] = nk.trial_lanes(B, T_, sms, nx,
+                                                      dtype)
+    for name, kind in (("affine_scan", "suffix"),
+                       ("affine_scan_prefix", "prefix"),
+                       ("value_scan", "value")):
+        a = scans[kind]
+        if kind == "value":
+            wrapper = lambda a=a: sk.value_scan(*a)  # noqa: E731
+            pl = lambda a=a: sk.value_scan_plain(*a)  # noqa: E731
+            n_ops = B * (a[1].shape[1] - 1) * value_combine_ops(nx)
+        else:
+            rev = kind == "suffix"
+            wrapper = lambda a=a, r=rev: sk.affine_scan(*a, r)  # noqa
+            pl = lambda a=a, r=rev: sk.affine_scan_plain(*a, r)  # noqa
+            n_ops = B * a[1].shape[1] * affine_combine_ops(nx)
+        timed(name, wrapper, scan_entry(name, a), a[1].shape[1],
+              plain(pl), a, n_ops)
+        rec[name]["lanes"] = sk.scan_lanes(
+            B, a[1].shape[1], dtype, sms, value=kind == "value", n=nx)
+    return rec
+
+
+def quad_stream(pool, dev, cfg, mega_path=True):
+    """bench.py's quadrotor single-grid stream at the bench's width
+    (``solve_stream``, 4096 lanes, refill every 32; the two-launch arm
+    without ``mega_path``): its record and solution."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import mega
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+    from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
+
+    ocp = model_ocp("quadrotor", 1, QUAD_T)
+    u, x0 = (a.to(dev) for a in pool)
+    solve = solve_at_width if mega_path else two_launch_at_width
+    solve(ocp, u[:256], x0[:256], cfg.replace(max_newton_iters=1),
+          256).iterations.cpu()
+    with counting(ps, "packed_lane_init", opened_lanes) as opened, \
+            counting(mega, "mega_k_iterations") as rounds:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        sol = solve(ocp, u, x0, cfg, LANES)
+        sol.iterations.cpu()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda.launches)
+    rec = {"wall_s": wall, "solves_per_s": u.shape[0] / wall,
+           "steps": sol.steps, "launches": counts,
+           "lane_openings": len(opened.calls),
+           "refill_rounds": len(rounds.calls),
+           **iteration_summary(sol.iterations, flat_total_cap(cfg))}
+    if mega_path:
+        busy, top = run_busy_share(
+            lambda: solve(ocp, u, x0, cfg, LANES).iterations.cpu(), wall)
+        rec.update({"device_busy_share_whole_run": busy,
+                    "whole_run_device_ms_top_kernels": top})
+    rec.update(quad_quality(ocp, sol.controls, x0))
+    return rec, sol
+
+
+def iteration_summary(iterations, cap):
+    it = iterations.cpu().double()
+    return {"mean_iterations": float(it.mean()),
+            "max_iterations": int(it.max()),
+            "lanes_at_iteration_cap": {f"{cap}": int((it >= cap).sum())}}
+
+
+def quad_quality(ocp, controls, x0):
+    """The non-finite raw-cost share and the controls' range (each must lie
+    strictly inside the thrust box)."""
+    import torch
+
+    costs = raw_costs(ocp, controls, x0).double().cpu()
+    return {"frac_nonfinite_cost": float((~torch.isfinite(costs))
+                                         .double().mean()),
+            "mean_raw_cost": float(costs.mean()),
+            "u_min": float(controls.min()), "u_max": float(controls.max())}
+
+
+def check_quad_quality(rec, label):
+    quad = model_module("quadrotor")
+    check(rec["frac_nonfinite_cost"] == 0.0,
+          f"{label}: non-finite raw cost share {rec['frac_nonfinite_cost']}")
+    check(quad.F_MIN < rec["u_min"] and rec["u_max"] < quad.F_MAX,
+          f"{label}: controls in [{rec['u_min']}, {rec['u_max']}], not "
+          f"strictly inside ({quad.F_MIN}, {quad.F_MAX})")
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_quadrotor(dev, cpu_ref):
+    """Phase T: the planar quadrotor through every path of the port.
+    Returns the launch counts of its paths (T2's streams, T3's card
+    multigrid, T4's single solves, the LQT passes) and the kernels'
+    record (T1's times at B=4096, T=40)."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+    from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
+
+    t_start = time.perf_counter()
+    pool32 = quad_pool()
+    out = {"phase": "T", "model": "quadrotor", "nx": 6, "nu": 2,
+           "horizon": QUAD_T, "dt": 1.0 / QUAD_T}
+    counts = {}
+    # T1: the kernels against their plain versions, then their times.
+    t0 = time.perf_counter()
+    checks = quad_kernel_checks(pool32, dev)
+    record = quad_kernel_times(pool32, dev)
+    trial, _ = par_inputs(QUAD_T, LANES, torch.float32, dev,
+                          model="quadrotor")
+    cuda.reset_launches()
+    nk.newton_pipeline(*trial)
+    torch.cuda.synchronize()
+    lqt = {k: v for k, v in cuda.launches.items() if v}
+    add_counts(counts, lqt)
+    out["T1"] = {"checks": checks, "timing": record,
+                 "lqt_passes_launches": lqt,
+                 "s": time.perf_counter() - t0}
+    # T2: bench.py's quadrotor configuration: the single grid on the mega
+    # executor, the multigrid, and each on the two-launch arm (the
+    # single grid's per-iteration kernels; the coarse level's merged
+    # trial).
+    t0 = time.perf_counter()
+    cfg = BATCH_CONFIG
+    sg, sol_sg = quad_stream(pool32, dev, cfg)
+    add_counts(counts, sg["launches"])
+    two, _ = quad_stream(pool32, dev, cfg, mega_path=False)
+    add_counts(counts, two["launches"])
+    mg, sol_mg, solve, _ = multigrid_at_width(
+        "T2", pool32, dev, sol_sg, horizon=QUAD_T, model="quadrotor")
+    add_counts(counts, mg["launches"])
+    mg.pop("phase")
+    mg.update(quad_quality(model_ocp("quadrotor", 1, QUAD_T),
+                           sol_mg.controls, pool32[1].to(dev)))
+    mg["fine"].update(iteration_summary(sol_mg.iterations,
+                                        flat_total_cap(cfg)))
+    mg["coarse"].update(iteration_summary(sol_mg.iterations_coarse,
+                                          flat_total_cap(cfg)))
+
+    def two_launch_coarse(o, uc, xx, c, lanes, refill_every):
+        return ps.solve_stream_packed(o, uc, xx, c, lanes=lanes,
+                                      refill_every=refill_every, mega=False)
+
+    u, x0 = (a.to(dev) for a in pool32)
+    cuda.reset_launches()
+    sol2 = solve(u, x0, coarse_solver=two_launch_coarse)
+    sol2.iterations.cpu()
+    mg["coarse_two_launch"] = {"launches": dict(cuda.launches),
+                               "steps_coarse": sol2.steps_coarse,
+                               "steps": sol2.steps}
+    add_counts(counts, cuda.launches)
+    out["T2"] = {"config": "BATCH_CONFIG", "dtype": "float32",
+                 "lanes": LANES, "refill_every": REFILL,
+                 "scenarios": POOL, "single_grid": sg,
+                 "single_grid_two_launch": two, "multigrid": mg,
+                 "s": time.perf_counter() - t0}
+    # T4: the single solves, the card against the CPU child's.
+    t0 = time.perf_counter()
+    solves, card_u = {}, {}
+    for name in QUAD_SOLVES:
+        cuda.reset_launches()
+        t1 = time.perf_counter()
+        card_u[name], it_card = quad_single_solve(name, dev)
+        wall = time.perf_counter() - t1
+        launches = {k: v for k, v in cuda.launches.items() if v}
+        add_counts(counts, launches)
+        solves[name] = {"iterations": it_card, "wall_s": wall,
+                        "launches": launches}
+    out["T4"] = {"solves": solves, "config": "FAST_CONFIG (quadrotor; "
+                 "newton_seq with newton_impl='seq'), the default (double "
+                 "integrator)", "dtype": "float64"}
+    # The references: the CPU child's (started with the others).
+    t1 = time.perf_counter()
+    for name, (u_cpu, it_cpu) in cpu_ref().items():
+        solves[name].update({
+            "iterations_cpu": it_cpu,
+            "max_abs_du": float((card_u[name] - u_cpu).abs().max())})
+    out["T4"]["waited_for_cpu_child_s"] = time.perf_counter() - t1
+    out["T4"]["s"] = time.perf_counter() - t0
+    out["s"] = time.perf_counter() - t_start
+    emit(out)
+    problems = checks["problems"]
+    for label, rec in (("T2 single grid", sg), ("T2 multigrid", mg)):
+        check_quad_quality(rec, label)
+    check_mega_path(sg["launches"], sg["refill_rounds"], sg["lane_openings"])
+    check_mega_path(mg["launches"], mg["refill_rounds"], mg["lane_openings"],
+                    gates=1)
+    for k in ("fused_bwd", "fused_fwd", "transition"):
+        check(two["launches"][k] == two["steps"] > 0,
+              f"T2 two-launch arm: {k} launched {two['launches'][k]} times "
+              f"in {two['steps']} steps")
+    check(mg["coarse_two_launch"]["launches"]["merged_trial"]
+          == sol2.steps_coarse > 0,
+          f"T2 coarse two-launch arm: {mg['coarse_two_launch']}")
+    check(lqt == {"value_scan": 1, "affine_scan": 1},
+          f"the LQT passes launched {lqt}")
+    for name, rec in solves.items():
+        check(rec["iterations"] == rec["iterations_cpu"]
+              and rec["max_abs_du"] <= 1e-8,
+              f"T4 {name}: card {rec['iterations']} iterations, CPU "
+              f"{rec['iterations_cpu']}, controls {rec['max_abs_du']} apart")
+    kernels = {"par": ("affine_scan", "par_newton_trial"),
+               "seq": ("seq_costates",),
+               "newton_seq": ("seq_newton_trial", "seq_costates"),
+               "double_integrator": ("affine_scan", "par_newton_trial")}
+    for name, ks in kernels.items():
+        for k in ks:
+            check(solves[name]["launches"].get(k, 0) > 0,
+                  f"T4 {name} launched no {k}")
+    check(not problems, "; ".join(problems))
+    return counts, record
+
+
+def quad_kernel_record(timing, kernel):
+    """A kernel's phase T times in the kernels' line (the merged trial's at
+    the multigrid's coarse level, DDP at T=10; the mega kernel's Newton
+    k=8 launch at T=40)."""
+    key = {"merged_trial": f"merged_trial_ddp_T{QUAD_T // COARSEN}",
+           "mega": f"mega_newton_T{QUAD_T}_k{QUAD_MEGA_K}"}.get(kernel, kernel)
+    rec = timing.get(key)
+    if rec is None:
+        return None
+    return {f: rec.get(f) for f in ("ms", "entry_ms", "plain_ms", "bound_ms",
+                                    "bound_by")}
+
+
 def make_pool(model, n, dtype, seed=SEED, horizon=T):
-    """The bench's pool recipe (bench.py make_batch call), on the CPU."""
+    """The bench's pool recipe (bench.py make_batch call), on the CPU; for
+    the quadrotor (two inputs) the warm start shifted to hover thrust, as
+    bench.py shifts it."""
     import torch
 
     from ipoc_tpu_torch.solvers.batched import make_batch
 
-    return make_batch(torch.Generator().manual_seed(seed),
-                      model.initial_state(dtype), n, horizon, 1,
-                      state_scale=0.01, control_scale=0.1)
+    hover = getattr(model, "hover_controls", None)
+    u, x0 = make_batch(torch.Generator().manual_seed(seed),
+                       model.initial_state(dtype), n, horizon,
+                       1 if hover is None else 2, state_scale=0.01,
+                       control_scale=0.1)
+    return (u, x0) if hover is None else (u + hover(horizon, dtype), x0)
 
 
 # The child processes of the card-against-CPU phases (N's one runs both of
 # its configurations, Q's its goldens and its batch) and of L's goldens.
-# P's, Q's and R's start when phase P does: they run beside Q's
+# P's, Q's, R's and T's start when phase P does: they run beside Q's
 # host-bound solves instead of slowing A-O's.
-CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "P", "Q", "R"]
-LATE_CHILDREN = ("P", "Q", "R")
+CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "T", "P", "Q", "R"]
+LATE_CHILDREN = ("P", "Q", "R", "T")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRS",
-                        help="subset of phases A-S to run after phase 0, "
+    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRST",
+                        help="subset of phases A-T to run after phase 0, "
                              "which always runs (default: "
-                             "ABCDEFGHIJKLMNOPQRS); I needs H")
+                             "ABCDEFGHIJKLMNOPQRST); I needs H")
     parser.add_argument("--cpu-reference", choices=CPU_CHILDREN,
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
@@ -4172,7 +4889,7 @@ def main(argv=None):
                   f"the CPU reference process of phase {child} failed")
             references[child] = pickle.loads(out)
         ref = references[child]
-        return ref[phase] if child in ("N", "Q") else ref
+        return ref[phase] if child in ("N", "Q", "T") else ref
 
     failures, record, counts = [], {}, {}
 
@@ -4194,7 +4911,7 @@ def main(argv=None):
         name, power = phase_device()
         # The CPU halves of phases B, E, J, M, N and L run meanwhile, one
         # child process each (started after the build, which they would
-        # slow down); P's, Q's and R's before phase P.
+        # slow down); P's, Q's, R's and T's before phase P.
         def start(phases):
             children.update({
                 ph: subprocess.Popen(
@@ -4270,9 +4987,19 @@ def main(argv=None):
             if k in counts_p or k in counts_r or k in counts_s:
                 counts[k] = (counts.get(k) or 0) + counts_p.get(k, 0) \
                     + counts_r.get(k, 0) + counts_s.get(k, 0)
+        # The planar quadrotor through every path: its launches are added
+        # to every kernel's count, its (6, 2) times kept beside the
+        # cartpole-shaped ones.
+        counts_t, record["quadrotor"] = run(
+            "T", lambda: phase_quadrotor(dev, lambda: reference("T4"))) \
+            or ({}, {})
+        for k, v in counts_t.items():
+            counts[k] = (counts.get(k) or 0) + v
+        quad64 = (tuple(a.double() for a in quad_pool())
+                  if "T" in args.phases else None)
         for ph in CARD_VS_CPU:
-            run(ph, lambda ph=ph: phase_card_vs_cpu(ph, pool64, dev,
-                                                    reference(ph)))
+            run(ph, lambda ph=ph: phase_card_vs_cpu(
+                ph, quad64 if ph == "T3" else pool64, dev, reference(ph)))
         run("P64", lambda: phase_nmpc_card_vs_cpu(dev, reference("P64")))
     finally:
         for child in children.values():
@@ -4309,8 +5036,10 @@ def main(argv=None):
          "replaces": pallas + rep, "launches": counts.get(k),
          **{f: record.get(k, {}).get(f) for f in keys},
          # The C entry alone, where a phase timed it (all but the mega
-         # kernel's two rows).
-         **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})}}
+         # kernel's two rows); phase T's times at the quadrotor's (6, 2).
+         **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})},
+         **({"quadrotor_6_2": quad_kernel_record(record["quadrotor"], k)}
+            if record.get("quadrotor") else {})}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

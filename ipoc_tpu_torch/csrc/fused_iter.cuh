@@ -60,9 +60,9 @@
 //   in float64; pendulum (NH = 8, 16 scenarios) 16 x (34 + 14): 3,072 /
 //   6,144.  Registers and resident blocks per SM: chip_smoke.py phase 0
 //   (ipoc_fused_bwd_occupancy; cartpole 93 and 20 in float32, 152 and 12
-//   in float64).  At nx = 6, nu = 2 (8 lanes, 4 scenarios) the exchange
-//   slice is 136 scalars and the handoff 2 x 8 x NH; its registers are not
-//   measured (no such model yet).
+//   in float64).  At the planar quadrotor's nx = 6, nu = 2 (8 lanes, 4
+//   scenarios; NH = 15) 6,144 / 12,288 bytes, 115 and 16 / 168 (28 bytes
+//   of spills) and 12 (chip_smoke.py phase 0).
 //
 // fused_fwd_kernel and transition_kernel: one warp per block, 4 scenarios
 // of 8 lanes, the schedules of fused_fwd.h and transition.h (host and

@@ -7,6 +7,9 @@
 
 namespace ipoc {
 
+// The dynamic shared memory a block may take on an H100 (sm_90): 227 KB.
+constexpr size_t kMaxSmem = 232448;
+
 // Lets `kernel` take `bytes` of dynamic shared memory (past 48 KB a launch
 // needs this attribute).
 template <class Kernel>

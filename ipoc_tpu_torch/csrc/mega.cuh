@@ -204,7 +204,9 @@ merged_trial_kernel(const scalar_t* __restrict__ xs,   // (T, NX, B)
                     scalar_t* __restrict__ Kk,         // (T, (1+NX)*NU, B) scratch
                     int B, int T) {
   using Mt = MergedTrial<Model, scalar_t, DDP>;
-  __shared__ __align__(16) scalar_t sh[Mt::kShared];
+  // Dynamic: past 48 KB at the quadrotor's (6, 2) in float64 (54,272 bytes
+  // in Newton mode), which a static array may not take.
+  scalar_t* sh = reinterpret_cast<scalar_t*>(ipoc_ring);
   const typename Mt::Arrays a{xs, us, xT, bp, reg, tu_o, tx_o, txT_o, cost_o,
                               nc_o, mc_o, dv_o, piv_o, hu_o, cun_o, Kk, B, T};
   const int l = static_cast<int>(threadIdx.x);
@@ -249,13 +251,22 @@ int ring_attribute(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
+// The merged trial's shared memory per block, in bytes.
+template <typename Model, typename scalar_t, bool DDP>
+constexpr size_t merged_bytes() {
+  return MergedTrial<Model, scalar_t, DDP>::kShared * sizeof(scalar_t);
+}
+
 template <typename Model, typename scalar_t, bool DDP>
 int launch_merged_trial(const void* const* in, void* const* out, int B, int T,
                         cudaStream_t s) {
   using P = const scalar_t*;
   auto o = [out](int i) { return static_cast<scalar_t*>(out[i]); };
+  constexpr size_t bytes = merged_bytes<Model, scalar_t, DDP>();
+  const int attr = ring_attribute(merged_trial_kernel<Model, scalar_t, DDP>, bytes);
+  if (attr != 0) return attr;
   merged_trial_kernel<Model, scalar_t, DDP>
-      <<<MergedTrial<Model, scalar_t, DDP>::blocks(B), kRowWarp, 0, s>>>(
+      <<<MergedTrial<Model, scalar_t, DDP>::blocks(B), kRowWarp, bytes, s>>>(
           P(in[0]), P(in[1]), P(in[2]), P(in[3]), P(in[4]), o(0), o(1), o(2),
           o(3), o(4), o(5), o(6), o(7), o(8), o(9), o(10), B, T);
   return static_cast<int>(cudaGetLastError());
@@ -264,7 +275,8 @@ int launch_merged_trial(const void* const* in, void* const* out, int B, int T,
 // The card's view of merged_trial_kernel (launch_attr.cuh kernel_occupancy).
 template <typename Model, typename scalar_t, bool DDP>
 int merged_occupancy(int* out) {
-  return kernel_occupancy(merged_trial_kernel<Model, scalar_t, DDP>, kRowWarp, 0,
+  return kernel_occupancy(merged_trial_kernel<Model, scalar_t, DDP>, kRowWarp,
+                          merged_bytes<Model, scalar_t, DDP>(),
                           MergedTrial<Model, scalar_t, DDP>::S, out);
 }
 

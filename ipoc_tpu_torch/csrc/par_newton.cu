@@ -69,11 +69,15 @@
 //     is stored after a barrier, so one buffer serves: (P + P / 32) slots
 //     of ValueOp<NX>::E | 1 scalars per scenario.  Per block of 128
 //     threads at nx=4: 29,184 bytes (float32), 58,368 (float64); at P =
-//     256, 60,192 / 120,384.  At the quadrotor's (6, 2), not instantiated
-//     yet (E = 120, stride 121): 61,952 / 123,904 per 128 threads, 127,776
-//     / 255,552 at P = 256, which would need P <= 128 in float64.
-//     Residency is set by registers (about 200-255 per thread: 8 warps per
-//     SM at nx=4), not by shared memory.
+//     256, 60,192 / 120,384.  At the quadrotor's (6, 2) (E = 120, stride
+//     121): 61,952 / 123,904 per 128 threads, 127,776 / 255,552 at P =
+//     256, past the 232,448 a block may take, so float64 stops at P = 128
+//     (par_trial_62_f64.cu instantiates no more; ops/newton_kernel.py
+//     trial_lanes asks for no more).  Residency is set by registers (about
+//     200-255 per thread: 8 warps per SM at nx=4), not by shared memory;
+//     at (6, 2) float32 takes 255 with 3.7-4.5 KB of spills, float64
+//     spills its whole walk (186 KB of spill stores; chip_smoke.py phase
+//     0).
 //   * Stage rows are loaded in 16- or 8-byte vectors where a row fills them
 //     (par_trial.h load_row): 12 load instructions per stage instead of 42
 //     at (4, 1) in float32, each still one line per lane.  The gains go
@@ -83,120 +87,53 @@
 // Generic in dtype (float, double); templated on n and on (NX, NU).
 
 #include <cuda_runtime.h>
-#include <math.h>
 
-#include <type_traits>
+#include "scan_launch.cuh"
 
-#include "affine_scan.h"
-#include "riccati.cuh"
-#include "scan.cuh"
+// The n = 6 scans' entries, one object per scan and dtype (scan_n6_*.cu).
+#define IPOC_SCAN_DECLS(tag)                                                     \
+  extern "C" int ipoc_scan_launch_##tag(int, int, int, int, const void* const*, \
+                                        void* const*, int, int, void*);          \
+  extern "C" int ipoc_scan_occupancy_##tag(int, int, int, int*);
+IPOC_SCAN_DECLS(n6_affine_f32)
+IPOC_SCAN_DECLS(n6_value_f32)
+IPOC_SCAN_DECLS(n6_affine_f64)
+IPOC_SCAN_DECLS(n6_value_f64)
 
 namespace {
 
-using ipoc::AffineScan;
-using ipoc::allow_smem;
-using ipoc::kernel_occupancy;
-using ipoc::ScanExec;
-using ipoc::ValueScan;
-
-// One scan of one scenario per P threads (affine_scan.h): the affine scan
-// (Sc = AffineScan, NR = 2 rows: F, c) or the value scan (ValueScan, 5:
-// A, b, C, eta, J), each row's (B, T, ...) array in `ins` and `outs`.
-template <class Sc>
-struct Rows {
-  const typename Sc::scalar_t* in[Sc::NR];
-  typename Sc::scalar_t* out[Sc::NR];
-};
-
-template <class Sc>
-__device__ __forceinline__ void scan_scenarios(const Rows<Sc>& rows, int B, int T) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using scalar_t = typename Sc::scalar_t;
-  scalar_t* sh = reinterpret_cast<scalar_t*>(smem_raw);
-  constexpr int P = Sc::NW * ipoc::kScanWarp;
-  const int within = static_cast<int>(threadIdx.x) / P;  // scenario in block
-  const int b = static_cast<int>(blockIdx.x) * Sc::kScenarios + within;
-  if (b >= B) return;  // the scenario's P threads leave together
-  const auto s = Sc::scenario(rows.in, rows.out, b, T);
-  typename Sc::Lane lane;
-  Sc::init(lane, static_cast<int>(threadIdx.x) % P, T);
-  ScanExec<typename Sc::Lane, P> ex{lane};
-  Sc::schedule(ex, s, sh + within * Sc::kShared);
-}
-
-// The affine scan: (B, T, N, N) F and (B, T, N) c in, the same shapes out.
-template <typename scalar_t, int N, int P, bool REVERSE>
-__global__ void __launch_bounds__(AffineScan<scalar_t, N, P, REVERSE>::kBlock)
-affine_scan_kernel(const Rows<AffineScan<scalar_t, N, P, REVERSE>> rows, int B, int T) {
-  scan_scenarios(rows, B, T);
-}
-
-// The value scan: (B, T, N, N) A, C, J and (B, T, N) b, eta in, the same
-// shapes out.
-template <typename scalar_t, int N, int P>
-__global__ void __launch_bounds__(ValueScan<scalar_t, N, P>::kBlock)
-value_scan_kernel(const Rows<ValueScan<scalar_t, N, P>> rows, int B, int T) {
-  scan_scenarios(rows, B, T);
-}
-
-template <class Sc, void (*Kernel)(Rows<Sc>, int, int)>
-struct ScanLaunch {
-  using scalar_t = typename Sc::scalar_t;
-  static constexpr size_t smem = Sc::kScenarios * Sc::kShared * sizeof(scalar_t);
-
-  // ins and outs: the rows' device pointers, in the algebra's order.
-  static int launch(const void* const* ins, void* const* outs, int B, int T,
-                    cudaStream_t stream) {
-    auto kernel = Kernel;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    Rows<Sc> rows;
-    for (int r = 0; r < Sc::NR; ++r) {
-      rows.in[r] = static_cast<const scalar_t*>(ins[r]);
-      rows.out[r] = static_cast<scalar_t*>(outs[r]);
-    }
-    kernel<<<(B + Sc::kScenarios - 1) / Sc::kScenarios, Sc::kBlock, smem, stream>>>(
-        rows, B, T);
-    return static_cast<int>(cudaGetLastError());
+// The scan (value, n, P, reverse) of dtype `dtype` on the rows' pointers:
+// n = 2, 3, 4 instantiated here, n = 6 in scan_n6_*.cu.
+int scan_launch(int dtype, bool value, int n, int P, int reverse,
+                const void* const* ins, void* const* outs, int B, int T,
+                cudaStream_t s) {
+  using ipoc_scan::kAffine;
+  using ipoc_scan::kValue;
+  auto go = [&](auto l) { return l.launch(ins, outs, B, T, s); };
+  if (n == 6) {
+    auto* fn = dtype == 0 ? (value ? ipoc_scan_launch_n6_value_f32 : ipoc_scan_launch_n6_affine_f32)
+             : dtype == 1 ? (value ? ipoc_scan_launch_n6_value_f64 : ipoc_scan_launch_n6_affine_f64)
+                          : nullptr;
+    return fn ? fn(value, n, P, reverse, ins, outs, B, T, s) : -1;
   }
+  if (dtype == 0) return ipoc_scan::with_scan<float, kAffine | kValue, 2, 3, 4>(value, n, P, reverse, go);
+  if (dtype == 1) return ipoc_scan::with_scan<double, kAffine | kValue, 2, 3, 4>(value, n, P, reverse, go);
+  return -1;
+}
 
-  // launch_attr.cuh kernel_occupancy.
-  static int occupancy(int* out) {
-    return kernel_occupancy(Kernel, Sc::kBlock, smem, Sc::kScenarios, out);
+// The scan's launch geometry and residency (the affine scan's suffix mode).
+int scan_occupancy(int dtype, bool value, int n, int P, int* out) {
+  using ipoc_scan::kAffine;
+  using ipoc_scan::kValue;
+  auto go = [&](auto l) { return l.occupancy(out); };
+  if (n == 6) {
+    auto* fn = dtype == 0 ? (value ? ipoc_scan_occupancy_n6_value_f32 : ipoc_scan_occupancy_n6_affine_f32)
+             : dtype == 1 ? (value ? ipoc_scan_occupancy_n6_value_f64 : ipoc_scan_occupancy_n6_affine_f64)
+                          : nullptr;
+    return fn ? fn(value, n, P, out) : -1;
   }
-};
-
-// fn(ScanLaunch<Sc>()) for the scan `value` (the value scan) or the affine
-// scan in direction `reverse`, of dimension n at P lanes per scenario; -1
-// for an n or P with no instantiation.
-template <typename scalar_t, class Fn>
-int with_scan(bool value, int n, int P, int reverse, Fn&& fn) {
-  auto lanes = [&](auto nn, auto kind) -> int {
-    constexpr int N = decltype(nn)::value;
-    constexpr int K = decltype(kind)::value;  // 0 prefix, 1 suffix, 2 value
-    auto go = [&](auto pp) -> int {
-      constexpr int Pv = decltype(pp)::value;
-      if constexpr (K == 2) {
-        return fn(ScanLaunch<ValueScan<scalar_t, N, Pv>, value_scan_kernel<scalar_t, N, Pv>>());
-      } else {
-        return fn(ScanLaunch<AffineScan<scalar_t, N, Pv, K == 1>,
-                             affine_scan_kernel<scalar_t, N, Pv, K == 1>>());
-      }
-    };
-    if (P == 32) return go(std::integral_constant<int, 32>());
-    if (P == 64) return go(std::integral_constant<int, 64>());
-    if (P == 128) return go(std::integral_constant<int, 128>());
-    if (P == 256) return go(std::integral_constant<int, 256>());
-    return -1;
-  };
-  auto kind = [&](auto nn) -> int {
-    if (value) return lanes(nn, std::integral_constant<int, 2>());
-    return reverse ? lanes(nn, std::integral_constant<int, 1>())
-                   : lanes(nn, std::integral_constant<int, 0>());
-  };
-  if (n == 2) return kind(std::integral_constant<int, 2>());
-  if (n == 3) return kind(std::integral_constant<int, 3>());
-  if (n == 4) return kind(std::integral_constant<int, 4>());
+  if (dtype == 0) return ipoc_scan::with_scan<float, kAffine | kValue, 2, 3, 4>(value, n, P, 1, go);
+  if (dtype == 1) return ipoc_scan::with_scan<double, kAffine | kValue, 2, 3, 4>(value, n, P, 1, go);
   return -1;
 }
 
@@ -208,22 +145,16 @@ int with_scan(bool value, int n, int P, int reverse, Fn&& fn) {
 extern "C" int ipoc_affine_scan(int dtype, int n, int reverse, int P, const void* F,
                                 const void* c, void* Fo, void* co, int B,
                                 int T, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* in[2] = {F, c};
   void* out[2] = {Fo, co};
-  auto go = [&](auto l) { return l.launch(in, out, B, T, s); };
-  if (dtype == 0) return with_scan<float>(false, n, P, reverse, go);
-  if (dtype == 1) return with_scan<double>(false, n, P, reverse, go);
-  return -1;
+  return scan_launch(dtype, false, n, P, reverse, in, out, B, T,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The affine scan's launch geometry and residency for (dtype, n, P) in its
 // suffix mode: six ints, as launch_attr.cuh kernel_occupancy.
 extern "C" int ipoc_affine_scan_occupancy(int dtype, int n, int P, int* out) {
-  auto go = [&](auto l) { return l.occupancy(out); };
-  if (dtype == 0) return with_scan<float>(false, n, P, 1, go);
-  if (dtype == 1) return with_scan<double>(false, n, P, 1, go);
-  return -1;
+  return scan_occupancy(dtype, false, n, P, out);
 }
 
 // The value scan at P lanes per scenario.
@@ -231,32 +162,30 @@ extern "C" int ipoc_value_scan(int dtype, int n, int P, const void* A, const voi
                                const void* C, const void* eta, const void* J,
                                void* Ao, void* bo, void* Co, void* etao,
                                void* Jo, int B, int T, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* in[5] = {A, b, C, eta, J};
   void* out[5] = {Ao, bo, Co, etao, Jo};
-  auto go = [&](auto l) { return l.launch(in, out, B, T, s); };
-  if (dtype == 0) return with_scan<float>(true, n, P, 1, go);
-  if (dtype == 1) return with_scan<double>(true, n, P, 1, go);
-  return -1;
+  return scan_launch(dtype, true, n, P, 1, in, out, B, T,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The value scan's launch geometry and residency for (dtype, n, P): six
 // ints, as launch_attr.cuh kernel_occupancy.
 extern "C" int ipoc_value_scan_occupancy(int dtype, int n, int P, int* out) {
-  auto go = [&](auto l) { return l.occupancy(out); };
-  if (dtype == 0) return with_scan<float>(true, n, P, 1, go);
-  if (dtype == 1) return with_scan<double>(true, n, P, 1, go);
-  return -1;
+  return scan_occupancy(dtype, true, n, P, out);
 }
 
-// The trial's entries, one library object per dtype (par_trial_f32.cu,
-// par_trial_f64.cu): they build in parallel.
-extern "C" int ipoc_par_trial_launch_f32(int, int, int, const void* const*, void*, void*, void*,
-                                         void*, void*, int, int, void*);
-extern "C" int ipoc_par_trial_launch_f64(int, int, int, const void* const*, void*, void*, void*,
-                                         void*, void*, int, int, void*);
-extern "C" int ipoc_par_trial_occupancy_f32(int, int, int, int*);
-extern "C" int ipoc_par_trial_occupancy_f64(int, int, int, int*);
+// The trial's entries, one library object per dtype and shape list
+// (par_trial_f32.cu, par_trial_f64.cu, par_trial_62_f32.cu,
+// par_trial_62_f64.cu): they build in parallel.
+#define IPOC_TRIAL_DECLS(tag)                                                    \
+  extern "C" int ipoc_par_trial_launch_##tag(int, int, int, const void* const*, \
+                                             void*, void*, void*, void*, void*,  \
+                                             int, int, void*);                   \
+  extern "C" int ipoc_par_trial_occupancy_##tag(int, int, int, int*);
+IPOC_TRIAL_DECLS(f32)
+IPOC_TRIAL_DECLS(f64)
+IPOC_TRIAL_DECLS(62_f32)
+IPOC_TRIAL_DECLS(62_f64)
 
 extern "C" int ipoc_par_newton_trial(int dtype, int nx, int nu, int P,
                                      const void* ru, const void* Q,
@@ -266,10 +195,13 @@ extern "C" int ipoc_par_newton_trial(int dtype, int nx, int nu, int P,
                                      void* dx, void* pred, void* ok, int B,
                                      int T, void* stream) {
   const void* in[7] = {ru, Q, R, M, fx, fu, XT};
+  const bool quad = nx == 6 && nu == 2;
   if (dtype == 0)
-    return ipoc_par_trial_launch_f32(nx, nu, P, in, gains, du, dx, pred, ok, B, T, stream);
+    return (quad ? ipoc_par_trial_launch_62_f32 : ipoc_par_trial_launch_f32)(
+        nx, nu, P, in, gains, du, dx, pred, ok, B, T, stream);
   if (dtype == 1)
-    return ipoc_par_trial_launch_f64(nx, nu, P, in, gains, du, dx, pred, ok, B, T, stream);
+    return (quad ? ipoc_par_trial_launch_62_f64 : ipoc_par_trial_launch_f64)(
+        nx, nu, P, in, gains, du, dx, pred, ok, B, T, stream);
   return -1;
 }
 
@@ -277,7 +209,12 @@ extern "C" int ipoc_par_newton_trial(int dtype, int nx, int nu, int P,
 // ints, as par_trial.cuh TrialLaunch::occupancy.
 extern "C" int ipoc_par_trial_occupancy(int dtype, int nx, int nu, int P,
                                         int* out) {
-  if (dtype == 0) return ipoc_par_trial_occupancy_f32(nx, nu, P, out);
-  if (dtype == 1) return ipoc_par_trial_occupancy_f64(nx, nu, P, out);
+  const bool quad = nx == 6 && nu == 2;
+  if (dtype == 0)
+    return (quad ? ipoc_par_trial_occupancy_62_f32 : ipoc_par_trial_occupancy_f32)(
+        nx, nu, P, out);
+  if (dtype == 1)
+    return (quad ? ipoc_par_trial_occupancy_62_f64 : ipoc_par_trial_occupancy_f64)(
+        nx, nu, P, out);
   return -1;
 }

@@ -1,13 +1,17 @@
 // The one-launch parallel Newton trial's kernel for Hopper (sm_90a), its
 // launch and its C entries, instantiated once per dtype by
-// par_trial_f32.cu and par_trial_f64.cu (one object each, built in
-// parallel) and dispatched by par_newton.cu ipoc_par_newton_trial.  The
+// par_trial_f32.cu and par_trial_f64.cu, and for the planar quadrotor's
+// (6, 2) by par_trial_62_f32.cu and par_trial_62_f64.cu (one object each,
+// built in parallel) and dispatched by par_newton.cu
+// ipoc_par_newton_trial.  The
 // lanes, their phases and the schedule are par_trial.h's; the design note
 // is at the top of par_newton.cu.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "launch_attr.cuh"
 #include "par_trial.h"
@@ -97,30 +101,37 @@ struct TrialLaunch {
   }
 };
 
-// fn(TrialLaunch<scalar_t, nx, nu, P>()); -1 for a shape or P with no
-// instantiation.
-template <typename scalar_t, class F>
+// fn(TrialLaunch<scalar_t, nx, nu, P>()) for one of the shapes `Shapes`;
+// -1 for a shape or P with no instantiation, or a P whose block would take
+// more shared memory than a block may (at (6, 2) in float64, P = 256:
+// ops/newton_kernel.py trial_lanes never asks for it).
+template <typename scalar_t, class... Shapes, class F>
 int with_trial(int nx, int nu, int P, F&& fn) {
   auto lanes = [&](auto shape) -> int {
     constexpr int NX = decltype(shape)::nx, NU = decltype(shape)::nu;
-    if (P == 32) return fn(TrialLaunch<scalar_t, NX, NU, 32>());
-    if (P == 64) return fn(TrialLaunch<scalar_t, NX, NU, 64>());
-    if (P == 128) return fn(TrialLaunch<scalar_t, NX, NU, 128>());
-    if (P == 256) return fn(TrialLaunch<scalar_t, NX, NU, 256>());
+    auto go = [&](auto pp) -> int {
+      using L = TrialLaunch<scalar_t, NX, NU, decltype(pp)::value>;
+      if constexpr (L::smem <= ipoc::kMaxSmem) return fn(L());
+      return -1;
+    };
+    if (P == 32) return go(std::integral_constant<int, 32>());
+    if (P == 64) return go(std::integral_constant<int, 64>());
+    if (P == 128) return go(std::integral_constant<int, 128>());
+    if (P == 256) return go(std::integral_constant<int, 256>());
     return -1;
   };
-  if (nx == 2 && nu == 1) return lanes(Shape<2, 1>());
-  if (nx == 4 && nu == 1) return lanes(Shape<4, 1>());
-  if (nx == 3 && nu == 2) return lanes(Shape<3, 2>());
-  return -1;
+  int status = -1;
+  ((status = (nx == Shapes::nx && nu == Shapes::nu) ? lanes(Shapes()) : status), ...);
+  return status;
 }
 
 }  // namespace ipoc_trial
 
-// The C entries of one dtype: `ipoc_par_trial_launch_<tag>` launches the
-// trial on (nx, nu, P), `ipoc_par_trial_occupancy_<tag>` reports
-// TrialLaunch::occupancy; -1 for a shape or P with no instantiation.
-#define IPOC_TRIAL_ENTRIES(scalar_t, tag)                                         \
+// The C entries of one dtype and one list of (nx, nu) shapes:
+// `ipoc_par_trial_launch_<tag>` launches the trial on (nx, nu, P),
+// `ipoc_par_trial_occupancy_<tag>` reports TrialLaunch::occupancy; -1 for
+// a shape or P with no instantiation.
+#define IPOC_TRIAL_ENTRIES(scalar_t, tag, ...)                                    \
   extern "C" int ipoc_par_trial_launch_##tag(                                     \
       int nx, int nu, int P, const void* const* in, void* gains, void* du,        \
       void* dx, void* pred, void* ok, int B, int T, void* stream) {               \
@@ -128,9 +139,9 @@ int with_trial(int nx, int nu, int P, F&& fn) {
       return l.launch(in, gains, du, dx, pred, ok, B, T,                          \
                       static_cast<cudaStream_t>(stream));                         \
     };                                                                            \
-    return ipoc_trial::with_trial<scalar_t>(nx, nu, P, go);                        \
+    return ipoc_trial::with_trial<scalar_t, __VA_ARGS__>(nx, nu, P, go);          \
   }                                                                               \
   extern "C" int ipoc_par_trial_occupancy_##tag(int nx, int nu, int P, int* out) { \
     auto go = [&](auto l) { return l.occupancy(out); };                           \
-    return ipoc_trial::with_trial<scalar_t>(nx, nu, P, go);                        \
+    return ipoc_trial::with_trial<scalar_t, __VA_ARGS__>(nx, nu, P, go);          \
   }

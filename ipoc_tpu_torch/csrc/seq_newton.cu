@@ -33,13 +33,12 @@
 //   chip_smoke.py phase 0): (4, 1) 18,560 bytes and 11 blocks in float32,
 //   37,120 and 6 in float64; (3, 2) 16,256 / 13 and 32,512 / 6; (2, 1), 16
 //   scenarios a block, 13,184 / 16 and 25,856 / 8; 128-146 registers, no
-//   spills.  At nx = 6, nu = 2 (8 lanes, 4 scenarios) it would be 22,400 /
-//   44,800 bytes, under the 48 KB of static shared memory; its registers
-//   are not measured (no such model yet), the lane holding rows of 6
-//   rather than 4.
+//   spills.  At nx = 6, nu = 2 (the planar quadrotor: 8 lanes, 4
+//   scenarios) 22,400 / 44,800 bytes, under the 48 KB of static shared
+//   memory; its registers and residency: chip_smoke.py phase 0.
 //
 // costate_kernel: one warp per block, a group of G lanes per scenario
-// (G = 4 at nx = 3, 4; 2 at nx = 2), the schedule of costates.h (host and
+// (G = 4 at nx = 3, 4; 2 at nx = 2; 8 at nx = 6), the schedule of costates.h (host and
 // device; the CPU tests build it with g++).
 //   What bounded the one-thread-per-scenario kernel it replaces: its loads.
 //   It read the (B, T, rows) inputs as they are, so neighbouring threads
@@ -154,6 +153,8 @@ int dispatch_trial(int nx, int nu, const void* ru, const void* Q,
     return launch_trial<scalar_t, 4, 1>(ru, Q, R, M, fx, fu, XT, gains, du, dx, pred, ok, B, T, s);
   if (nx == 3 && nu == 2)
     return launch_trial<scalar_t, 3, 2>(ru, Q, R, M, fx, fu, XT, gains, du, dx, pred, ok, B, T, s);
+  if (nx == 6 && nu == 2)
+    return launch_trial<scalar_t, 6, 2>(ru, Q, R, M, fx, fu, XT, gains, du, dx, pred, ok, B, T, s);
   return -1;
 }
 
@@ -164,6 +165,7 @@ int dispatch_costates(int nx, const void* cx, const void* fx,
   if (nx == 2) return launch_costates<scalar_t, 2>(cx, fx, lamT, lam, B, T, s);
   if (nx == 3) return launch_costates<scalar_t, 3>(cx, fx, lamT, lam, B, T, s);
   if (nx == 4) return launch_costates<scalar_t, 4>(cx, fx, lamT, lam, B, T, s);
+  if (nx == 6) return launch_costates<scalar_t, 6>(cx, fx, lamT, lam, B, T, s);
   return -1;
 }
 
@@ -198,6 +200,7 @@ int dispatch_occupancy(int nx, int nu, int* out) {
   if (nx == 2 && nu == 1) return trial_occupancy<scalar_t, 2, 1>(out);
   if (nx == 4 && nu == 1) return trial_occupancy<scalar_t, 4, 1>(out);
   if (nx == 3 && nu == 2) return trial_occupancy<scalar_t, 3, 2>(out);
+  if (nx == 6 && nu == 2) return trial_occupancy<scalar_t, 6, 2>(out);
   return -1;
 }
 
@@ -228,6 +231,7 @@ int dispatch_costate_occupancy(int nx, int* out) {
   if (nx == 2) return costate_occupancy<scalar_t, 2>(out);
   if (nx == 3) return costate_occupancy<scalar_t, 3>(out);
   if (nx == 4) return costate_occupancy<scalar_t, 4>(out);
+  if (nx == 6) return costate_occupancy<scalar_t, 6>(out);
   return -1;
 }
 

@@ -1,1 +1,2 @@
-"""Models (counterpart of ``ipoc_tpu/models``): pendulum and cartpole."""
+"""Models (counterpart of ``ipoc_tpu/models``): pendulum, cartpole, the
+planar quadrotor and the double integrator."""

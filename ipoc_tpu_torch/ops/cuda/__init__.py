@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import NamedTuple
 
@@ -59,10 +60,17 @@ class LibSpec(NamedTuple):
 
 SEQ_NEWTON = LibSpec("seq_newton", (CSRC / "seq_newton.cu",))
 # The scans and the C entries; the trial's instantiations, one object per
-# dtype (the library's longest compiles, built side by side).
-PAR_NEWTON = LibSpec("par_newton", (CSRC / "par_newton.cu",
-                                    CSRC / "par_trial_f32.cu",
-                                    CSRC / "par_trial_f64.cu"))
+# dtype and per shape list, and the scans' at n=6, one per scan and dtype
+# (the library's longest compiles, built side by side).
+PAR_NEWTON = LibSpec("par_newton", (
+    CSRC / "par_newton.cu", CSRC / "par_trial_f32.cu",
+    CSRC / "par_trial_f64.cu", CSRC / "par_trial_62_f32.cu",
+    CSRC / "par_trial_62_f64.cu", CSRC / "scan_n6_affine_f32.cu",
+    CSRC / "scan_n6_affine_f64.cu", CSRC / "scan_n6_value_f32.cu",
+    CSRC / "scan_n6_value_f64.cu"))
+# The shared memory one block may take on an H100 (csrc/launch_attr.cuh
+# kMaxSmem): the launch rules keep every launch under it.
+MAX_SMEM = 232448
 
 
 # The SMs of an H100 (SXM): the launch rules' default card.
@@ -113,16 +121,28 @@ def lib_path(spec: LibSpec) -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{spec.name}.so"
 
 
+# (source file, seconds from the start of its build to the end of its
+# compile) for each source this process compiled (chip_smoke.py phase 0
+# reports them).
+compile_seconds: list = []
+
+
 def _run(cmds):
-    """Run ``cmds`` all at once; return each one's (returncode, stderr)."""
+    """Run ``cmds`` all at once; return each one's (returncode, stderr,
+    seconds from the start to its end)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in cmds]
-    out = []
-    for proc in procs:
+
+    def wait(proc):
         _, err = proc.communicate()
-        out.append((proc.returncode, err))
-    return out
+        return proc.returncode, err, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        return list(pool.map(wait, procs))
 
 
 def build_all(specs) -> list:
@@ -149,6 +169,8 @@ def build_all(specs) -> list:
                       str(src)] for src, obj in zip(sources, objs)]
         builds.append((path, tmp, objs, range(first, len(compiles))))
     results = _run(compiles)
+    for cmd, (_, _, seconds) in zip(compiles, results):
+        compile_seconds.append((os.path.basename(cmd[-1]), seconds))
     errors, links = [], []
     for path, tmp, objs, idx in builds:
         failed = [i for i in idx if results[i][0] != 0]
@@ -159,8 +181,8 @@ def build_all(specs) -> list:
                 "".join(results[i][1] for i in idx))
             links.append((path, tmp, [_nvcc(), "-shared", "-o",
                                       os.path.join(tmp, "lib.so"), *objs]))
-    for (path, tmp, cmd), (rc, err) in zip(links,
-                                           _run([c for _, _, c in links])):
+    for (path, tmp, cmd), (rc, err, _) in zip(links,
+                                              _run([c for _, _, c in links])):
         if rc != 0:
             errors.append(f"nvcc link failed ({rc}):\n{' '.join(cmd)}\n{err}")
         else:

@@ -16,10 +16,11 @@ import torch
 
 from ipoc_tpu_torch.ops import cuda
 
-# (nx, nu) instantiations of the trial kernel: pendulum, cartpole, and the
-# nu > 1 layout pin.  The costate kernel is instantiated for these nx.
-TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2))
-COSTATE_NX = (2, 3, 4)
+# (nx, nu) instantiations of the trial kernel: pendulum, cartpole, the
+# nu > 1 layout pin and the planar quadrotor.  The costate kernel is
+# instantiated for these nx.
+TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2), (6, 2))
+COSTATE_NX = (2, 3, 4, 6)
 # Threads per block of the kernels that run the cooperative Riccati step
 # (csrc/riccati_rows.h): one warp.
 WARP = 32

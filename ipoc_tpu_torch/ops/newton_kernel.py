@@ -22,8 +22,9 @@ from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.parallel.lqt import newton_lqt, par_bwd_pass, par_fwd_pass
 from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP
 
-# (nx, nu) instantiations: pendulum, cartpole, and the nu > 1 layout pin.
-TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2))
+# (nx, nu) instantiations: pendulum, cartpole, the nu > 1 layout pin and
+# the planar quadrotor (csrc/par_trial_62_*.cu).
+TRIAL_SHAPES = ((2, 1), (4, 1), (3, 2), (6, 2))
 # Lanes per scenario the kernel is instantiated for, and its launch rule's
 # constant: an SM holds RESIDENT_WARPS of the cartpole-shaped (4, 1)
 # kernel's warps in either dtype (its registers, 240-255 a thread, allow
@@ -33,18 +34,33 @@ TRIAL_LANES = (32, 64, 128, 256)
 RESIDENT_WARPS = 8
 
 
-def trial_lanes(B: int, T: int, sms: int = cuda.H100_SMS) -> int:
+def trial_shared_bytes(nx: int, lanes: int, dtype: torch.dtype) -> int:
+    """The trial kernel's shared memory per block at state size ``nx`` and
+    ``lanes`` lanes per scenario (``csrc/par_trial.h`` ParTrial: a slot of
+    ValueOp<nx>::E | 1 scalars for each lane and, past one warp, each
+    warp; max(128 / lanes, 1) scenarios a block)."""
+    slot = (3 * nx * nx + 2 * nx) | 1
+    warps = lanes // 32
+    per_scenario = (lanes + (warps if warps > 1 else 0)) * slot
+    return max(128 // lanes, 1) * per_scenario * dtype.itemsize
+
+
+def trial_lanes(B: int, T: int, sms: int = cuda.H100_SMS, nx: int = 4,
+                dtype: torch.dtype = torch.float32) -> int:
     """P, the trial kernel's lanes per scenario for B scenarios of T
-    stages on a card of ``sms`` SMs.  P starts at 32 and doubles while it
-    is below 256 and below T (each lane keeps a stage) and the doubled
-    launch's warps, B * 2P / 32, still fit in one wave of ``sms`` x
-    RESIDENT_WARPS.  So a large batch keeps 32 lanes, each a chunk of
-    ceil(T / 32) stages (the least work: B=1024, T=100 gets 4 stages a
-    lane), and a small one spreads its horizon for a short critical path
-    (B=1, T=1000: 256 lanes of 4 stages)."""
+    stages of state size ``nx`` on a card of ``sms`` SMs.  P starts at 32
+    and doubles while it is below 256 and below T (each lane keeps a
+    stage), the doubled launch's warps, B * 2P / 32, still fit in one wave
+    of ``sms`` x RESIDENT_WARPS, and its block's shared memory fits
+    (``cuda.MAX_SMEM``: at nx=6 in float64, P=256 would take 255,552
+    bytes).  So a large batch keeps 32 lanes, each a chunk of ceil(T / 32)
+    stages (the least work: B=1024, T=100 gets 4 stages a lane), and a
+    small one spreads its horizon for a short critical path (B=1, T=1000:
+    256 lanes of 4 stages; 128 at nx=6 in float64)."""
     wave = sms * RESIDENT_WARPS * 32
     P = TRIAL_LANES[0]
-    while P < TRIAL_LANES[-1] and P < T and B * 2 * P <= wave:
+    while (P < TRIAL_LANES[-1] and P < T and B * 2 * P <= wave
+           and trial_shared_bytes(nx, 2 * P, dtype) <= cuda.MAX_SMEM):
         P *= 2
     return P
 
@@ -114,7 +130,7 @@ def fused_newton_step(ru, Q, R, M, fx, fu, XT):
     sms = torch.cuda.get_device_properties(fu.device).multi_processor_count
     with torch.cuda.device(fu.device):
         status = lib.ipoc_par_newton_trial(
-            code, nx, nu, trial_lanes(B, T, sms),
+            code, nx, nu, trial_lanes(B, T, sms, nx, fu.dtype),
             *(a.data_ptr() for a in args), gains.data_ptr(),
             du.data_ptr(), dx.data_ptr(), pred.data_ptr(), ok.data_ptr(),
             B, T, torch.cuda.current_stream().cuda_stream)

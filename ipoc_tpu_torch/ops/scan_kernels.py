@@ -26,8 +26,8 @@ from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.parallel.scan import associative_scan
 
 # State dimensions the scan kernels are instantiated for (pendulum,
-# cartpole and the nx=3 layout pin).
-SCAN_N = (2, 3, 4)
+# cartpole, the nx=3 layout pin and the planar quadrotor).
+SCAN_N = (2, 3, 4, 6)
 # Lanes per scenario the affine scan is instantiated for, and its launch
 # rule's constants: the warps an SM holds of the n=4 kernel in each dtype
 # at each lane count (its tile in shared memory, 40-83 KB a block in
@@ -42,8 +42,34 @@ VALUE_RESIDENT_WARPS = {dtype: dict.fromkeys(SCAN_LANES, 8)
                         for dtype in (torch.float32, torch.float64)}
 
 
+def _odd_stride(n: int, a: int) -> int:
+    """``csrc/riccati_rows.h`` odd_stride: the least odd multiple of ``a``
+    that is >= n."""
+    m = -(-n // a)
+    return (m if m % 2 else m + 1) * a
+
+
+def scan_shared_bytes(n: int, lanes: int, dtype: torch.dtype,
+                      value: bool = False) -> int:
+    """A scan kernel's shared memory per block at ``n`` and ``lanes``
+    lanes per scenario (``csrc/affine_scan.h`` LaneScan: a tile of LT
+    stages of each lane at a slot stride ES, and past one warp the warps'
+    totals; max(128 / lanes, 1) scenarios a block)."""
+    size = dtype.itemsize
+    E = 3 * n * n + 2 * n if value else n * n + n
+    if value:  # read in place: an odd stride, as many stages as 16 KB holds
+        es = E | 1
+        lt = min(max(16384 // (32 * es * size), 1), 4)
+    else:
+        es, lt = _odd_stride(E, 16 // size), 4
+    warps = lanes // 32
+    per_scenario = lt * lanes * es + (warps * E if warps > 1 else 0)
+    return max(128 // lanes, 1) * per_scenario * size
+
+
 def scan_lanes(B: int, T: int, dtype: torch.dtype,
-               sms: int = cuda.H100_SMS, value: bool = False) -> int:
+               sms: int = cuda.H100_SMS, value: bool = False,
+               n: int = 4) -> int:
     """P, a scan's lanes per scenario for B scenarios of T stages on a card
     of ``sms`` SMs: the trial's rule (``ops/newton_kernel.py``
     trial_lanes) with the scan's resident warps (``value``: the value
@@ -53,10 +79,15 @@ def scan_lanes(B: int, T: int, dtype: torch.dtype,
     wave of ``sms`` x the resident warps at 2P.  So a float32 batch of
     1024 takes 64 lanes of the affine scan (B=1024, T=101: 2 stages a
     lane; float64 32 lanes of 4) and 32 of the value scan, and a single
-    scenario spreads its horizon (T=1001: 256 lanes of 4 stages)."""
+    scenario spreads its horizon (T=1001: 256 lanes of 4 stages).  P
+    doubles only while the doubled block's shared memory fits
+    (``cuda.MAX_SMEM``): at n=6 in float64 both scans stop at 128 lanes.
+    The resident warps are n=4's at every n."""
     warps = (VALUE_RESIDENT_WARPS if value else SCAN_RESIDENT_WARPS)[dtype]
     P = SCAN_LANES[0]
-    while P < SCAN_LANES[-1] and P < T and B * 2 * P <= sms * warps[2 * P] * 32:
+    while (P < SCAN_LANES[-1] and P < T
+           and B * 2 * P <= sms * warps[2 * P] * 32
+           and scan_shared_bytes(n, 2 * P, dtype, value) <= cuda.MAX_SMEM):
         P *= 2
     return P
 
@@ -122,7 +153,7 @@ def affine_scan(F, c, reverse: bool = False):
     with cuda.device_guard(dev):
         status = lib.ipoc_affine_scan(
             code, n, int(bool(reverse)),
-            scan_lanes(B, T, F.dtype, cuda.sm_count(dev)), F.data_ptr(),
+            scan_lanes(B, T, F.dtype, cuda.sm_count(dev), n=n), F.data_ptr(),
             c.data_ptr(), Fo.data_ptr(), co.data_ptr(), B, T,
             torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(status, "affine_scan")
@@ -152,7 +183,8 @@ def value_scan(A, b, C, eta, J):
     dev = A.device
     with cuda.device_guard(dev):
         status = lib.ipoc_value_scan(
-            code, n, scan_lanes(B, T, A.dtype, cuda.sm_count(dev), value=True),
+            code, n, scan_lanes(B, T, A.dtype, cuda.sm_count(dev), value=True,
+                                n=n),
             *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs), B,
             T, torch.cuda.current_stream(dev).cuda_stream)
     cuda.check(status, "value_scan")

@@ -36,7 +36,7 @@ from ipoc_tpu_torch.ops.scan_kernels import (
     value_scan,
     value_scan_plain,
 )
-from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP
+from ipoc_tpu_torch.problem import Derivatives, LinearizedOCP, stage_sum
 
 
 class LQT(NamedTuple):
@@ -213,7 +213,7 @@ def par_bwd_pass(lqt: LQT, plain: bool = False):
     v = torch.cat([full.eta, eT.eta[:, None]], dim=1)
     K, d, _, _, dV, posdef = stage_gains(lqt_stages(lqt), S[:, 1:], v[:, 1:])
     feasible = posdef.all(-1) & linalg.is_posdef(lqt.U, batch_dims=1)
-    return K, d, S, v, dV.sum(-1), feasible
+    return K, d, S, v, stage_sum(dV), feasible
 
 
 def seq_bwd_pass(lqt: LQT):
@@ -240,7 +240,7 @@ def seq_bwd_pass_full(lqt: LQT):
     S = torch.cat([S, ST[:, None]], dim=1)
     v = torch.cat([v, vT[:, None]], dim=1)
     feasible = posdef.all(-1) & linalg.is_posdef(lqt.U, batch_dims=1)
-    return K, d, S, v, dV.sum(-1), feasible
+    return K, d, S, v, stage_sum(dV), feasible
 
 
 def _closed_loop(lqt: LQT, Kx, d):

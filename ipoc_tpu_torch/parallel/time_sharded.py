@@ -43,6 +43,7 @@ from ipoc_tpu_torch.parallel.sharding import (
     rank_sum,
     shard,
 )
+from ipoc_tpu_torch.problem import stage_sum
 
 TIME_AXIS = "time"
 
@@ -91,7 +92,8 @@ def par_bwd_pass_time_sharded(lqt: LQT, group):
     K, d, _, _, dV, posdef = stage_gains(lqt_stages(lqt), S_next, v_next)
     ok = posdef.all(-1) & linalg.is_posdef(lqt.U, batch_dims=1)
     # The predicted reduction and the flag in one all-gather.
-    parts = all_gather(torch.stack([dV.sum(-1), ok.to(dV.dtype)], -1), group)
+    parts = all_gather(torch.stack([stage_sum(dV), ok.to(dV.dtype)], -1),
+                       group)
     pred, feasible = rank_sum(parts[..., 0]), (parts[..., 1] > 0).all(0)
     return K, d, S_stage, v_stage, pred, feasible
 

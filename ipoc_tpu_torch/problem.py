@@ -128,3 +128,24 @@ def barrier_ocp(
         return stage_sum(ct) + final_cost(states[..., -1, :])
 
     return OCP(dynamics, constraints, stage_cost_bp, final_cost, total_cost)
+
+
+def unconstrained_ocp(dynamics: Callable, stage_cost: Callable,
+                      final_cost: Callable) -> OCP:
+    """An :class:`OCP` with a vacuous constraint (always feasible) and no
+    barrier term: ``constraints`` is ``-1`` on every stage and the stage
+    cost ignores ``bp``."""
+
+    def constraints(x, u):
+        return torch.full((*x.shape[:-1], 1), -1.0, dtype=x.dtype,
+                          device=x.device)
+
+    def stage_cost_bp(x, u, bp):
+        del bp
+        return stage_cost(x, u)
+
+    def total_cost(states, controls, bp):
+        ct = stage_cost_bp(states[..., :-1, :], controls, bp)
+        return stage_sum(ct) + final_cost(states[..., -1, :])
+
+    return OCP(dynamics, constraints, stage_cost_bp, final_cost, total_cost)

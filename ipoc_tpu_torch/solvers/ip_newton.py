@@ -60,6 +60,7 @@ from ipoc_tpu_torch.problem import (
     Derivatives,
     LinearizedOCP,
     stage_norm,
+    stage_sum,
 )
 from ipoc_tpu_torch.solvers.barrier import barrier_loop, n_barrier_stages
 from ipoc_tpu_torch.solvers.globalization import gain_ratio, lm_update
@@ -593,7 +594,7 @@ def seq_bwd_newton(final_cost, xN, lin: LinearizedOCP, d: Derivatives, rp):
                   + 0.5 * (k * (Quu @ k[..., None])[..., 0]).sum(-1))
         Ks[t], ks[t] = K, k
     return (torch.stack(Ks, dim=1), torch.stack(ks, dim=1),
-            torch.stack(dvs, dim=1).sum(-1), convex)
+            stage_sum(torch.stack(dvs, dim=1)), convex)
 
 
 def seq_fwd_newton(K, k, d: Derivatives):

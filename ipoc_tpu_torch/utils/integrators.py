@@ -18,6 +18,28 @@ def wrap_angle(x):
     return torch.remainder(x, 2.0 * math.pi)
 
 
+def runge_kutta(state, action, ode: Callable, step: float):
+    """Classic RK4 step with zero-order-hold action."""
+    k1 = ode(state, action)
+    k2 = ode(state + 0.5 * step * k1, action)
+    k3 = ode(state + 0.5 * step * k2, action)
+    k4 = ode(state + step * k3, action)
+    return state + (step / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def discretize_dynamics(ode: Callable, simulation_step: float,
+                        downsampling: int = 1):
+    """RK4 discretizer with ``downsampling`` sub-steps per control step (a
+    Python loop where the JAX package has ``lax.fori_loop``)."""
+
+    def dynamics(state, action):
+        for _ in range(downsampling):
+            state = runge_kutta(state, action, ode, simulation_step)
+        return state
+
+    return dynamics
+
+
 def euler(ode: Callable, simulation_step: float):
     """Forward-Euler discretizer."""
 

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Find the first tensor operation of ``solve_batch`` whose result for a
-lane depends on how many lanes run beside it.
+"""Find the first tensor operation of ``solve_batch`` (or of the LQT
+passes) whose result for a lane depends on how many lanes run beside it.
 
 Run from the root of a checkout (on a CUDA card, or with ``--device cpu``):
 
     python3 scripts/batch_size_witness.py [--device cuda] [--ops 20000]
+        [--runs par,seq,lqt]
 
-For each dtype (float64, then float32) the script solves the pendulum
-scenarios of ``chip_smoke.py`` phase S (seed 1, T=100, FAST_CONFIG with the
-single-trial globalization, ``method="par"``) twice: the first 8 alone, and
-all 16.  It prints, per dtype, one JSON line with
+For each run and dtype (float64, then float32) the script runs it on the
+pendulum scenarios of ``chip_smoke.py`` phase S (seed 1, T=100) twice: the
+first 8 alone, and all 16.  The runs: ``par`` and ``seq``, ``solve_batch``
+with FAST_CONFIG's single-trial globalization and ``method="par"`` (the
+parallel trial) or ``method="seq"`` (the sequential validation solve,
+``seq_bwd_newton``'s Riccati pass); ``lqt``, the LQT passes on the
+scenarios' cold-start Newton data (``newton_lqt``, ``par_bwd_pass``,
+``seq_bwd_pass_full``, ``par_fwd_pass``).  It prints, per run and dtype,
+one JSON line with
 
-* the whole solve: the iterations of the first 8 lanes in both runs and
-  the largest difference of their controls;
+* the whole run: for the solves the iterations of the first 8 lanes in
+  both runs and the largest difference of their controls; for the LQT
+  passes the largest difference of the first 8 lanes' gains and predicted
+  reductions, and whether the reductions are the same bits;
 * the first ``--ops`` ATen operations of both runs, logged by a
   ``TorchDispatchMode`` and compared in order: each tensor of the 16-lane
   run is cut to the first 8 lanes along the one dimension where its size
@@ -205,38 +213,92 @@ def sum_witness(dtype, dev):
     return out
 
 
+def lqt_passes(ocp, u, x0):
+    """The LQT passes on the lanes' cold-start Newton data (bp=0.1, the
+    Levenberg parameter 1 scaled by ||cu||): ``(par gains K, d, par
+    predicted reduction, seq gains K, seq predicted reduction, du)``."""
+    from ipoc_tpu_torch.ops.cuda.seq_newton import seq_costates_plain
+    from ipoc_tpu_torch.ops.derivatives import (
+        compute_first_order,
+        compute_hamiltonian_lqr,
+        final_gradient,
+        final_hessian,
+    )
+    from ipoc_tpu_torch.parallel import lqt as L
+    from ipoc_tpu_torch.solvers.ip_newton import _regularized
+    from ipoc_tpu_torch.utils.integrators import rollout
+
+    x = rollout(ocp.dynamics, u, x0)
+    bp = torch.tensor(0.1, dtype=u.dtype, device=u.device)
+    d = compute_first_order(ocp, x, u, bp)
+    lam = seq_costates_plain(d.cx, d.fx, final_gradient(ocp, x[:, -1]))
+    lin = _regularized(compute_hamiltonian_lqr(ocp, x, u, lam, bp), d,
+                       torch.ones(u.shape[0], dtype=u.dtype, device=u.device),
+                       True, FAST_CONFIG.reg_scale_floor)
+    lqt = L.newton_lqt(lin, d, final_hessian(ocp, x[:, -1]))
+    K, kff, _, _, pred, _ = L.par_bwd_pass(lqt)
+    Ks, _, _, _, pred_s, _ = L.seq_bwd_pass_full(lqt)
+    du, _ = L.par_fwd_pass(lqt, torch.zeros_like(x0), K, kff)
+    return K, kff, pred, Ks, pred_s, du
+
+
+def whole_run(name, ocp, cfg, u, x0):
+    """Run ``name`` on the first 8 lanes and on all 16: the record of how
+    the first 8 lanes' results compare."""
+    half = B // 2
+    if name == "lqt":
+        r8, r16 = (lqt_passes(ocp, u[:n], x0[:n]) for n in (half, B))
+        diff = [float((a - b[:half]).abs().max()) for a, b in zip(r8, r16)]
+        return {"max_abs_diff_K_d_pred_Kseq_predseq_du": diff,
+                "pred_bit_equal": bool(torch.equal(r8[2], r16[2][:half])),
+                "pred_seq_bit_equal": bool(torch.equal(r8[4],
+                                                       r16[4][:half]))}
+    s8 = solve_batch(ocp, u[:half], x0[:half], cfg, method=name)
+    s16 = solve_batch(ocp, u, x0, cfg, method=name)
+    return {"iterations_8": s8.iterations.tolist(),
+            "iterations_16_first_8": s16.iterations[:half].tolist(),
+            "max_abs_du": float((s8.controls - s16.controls[:half])
+                                .abs().max())}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ops", type=int, default=20000)
+    ap.add_argument("--runs", default="par,seq,lqt",
+                    help="comma-separated: par, seq (solve_batch's methods) "
+                         "and lqt (the LQT passes)")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA card: pass --device cpu")
     cfg = FAST_CONFIG.replace(globalization="single")
     ocp = pendulum.make_ocp(1.0 / T)
-    for dtype in (torch.float64, torch.float32):
+    for name, dtype in ((n, dt) for n in args.runs.split(",")
+                        for dt in (torch.float64, torch.float32)):
         u, x0 = make_batch(torch.Generator().manual_seed(SEED),
                            pendulum.initial_state(dtype), B, T, 1,
                            state_scale=0.01, control_scale=0.1, dtype=dtype)
         u, x0 = u.to(dev), x0.to(dev)
         half = B // 2
-        # The whole solves first (the kernels built), then the logged ones.
-        s8 = solve_batch(ocp, u[:half], x0[:half], cfg)
-        s16 = solve_batch(ocp, u, x0, cfg)
+
+        def run(n):
+            if name == "lqt":
+                return lqt_passes(ocp, u[:n], x0[:n])
+            return solve_batch(ocp, u[:n], x0[:n], cfg, method=name)
+
+        # The whole runs first (the kernels built), then the logged ones.
+        whole = whole_run(name, ocp, cfg, u, x0)
         ref = OpLog(args.ops)
         with ref:
-            solve_batch(ocp, u[:half], x0[:half], cfg)
+            run(half)
         cmp = OpLog(args.ops, ref)
         with cmp:
-            solve_batch(ocp, u, x0, cfg)
-        rec = {"dtype": str(dtype), "device": str(dev),
+            run(B)
+        rec = {"run": name, "dtype": str(dtype), "device": str(dev),
                "card": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else None),
-               "iterations_8": s8.iterations.tolist(),
-               "iterations_16_first_8": s16.iterations[:half].tolist(),
-               "max_abs_du": float((s8.controls - s16.controls[:half])
-                                   .abs().max()),
+               **whole,
                "ops_compared": min(cmp.limit, len(ref.log)),
                "ops_in_8_lane_solve": ref.n,
                "cross_lane_ops_skipped": cmp.cross_lane,

@@ -2,7 +2,8 @@
 and the JAX package.
 
 Every stage program of ``ops/fused_iter.py`` is traced and scalarized for
-cartpole and pendulum; at the same float64 inputs (made with numpy, the
+cartpole, pendulum and the planar quadrotor (nx=6, nu=2: its sin, cos,
+stack and cat lowered to straight-line code); at the same float64 inputs (made with numpy, the
 angle at and near 0 and 2*pi, where the angle wrap switches branch) its
 DAG's torch evaluator equals the port's ``torch.func`` program and the JAX
 package's stage program (``fused_iter_kernel.py``), and the emitted C
@@ -25,9 +26,11 @@ from torch.func import vmap
 
 from ipoc_tpu.models import cartpole as j_cartpole
 from ipoc_tpu.models import pendulum as j_pendulum
+from ipoc_tpu.models import quadrotor as j_quadrotor
 from ipoc_tpu.ops.pallas import fused_iter_kernel as jf
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import scalarize
@@ -35,9 +38,11 @@ from ipoc_tpu_torch.ops.codegen.scalarize import scalarize
 torch.set_num_threads(1)
 
 RTOL = 1e-12
-# model: (JAX module, port module, nx, index of the wrapped angle)
-MODELS = {"cartpole": (j_cartpole, t_cartpole, 4, 1),
-          "pendulum": (j_pendulum, t_pendulum, 2, 0)}
+# model: (JAX module, port module, nx, nu, index of the angle, the
+# controls' centre inside the box)
+MODELS = {"cartpole": (j_cartpole, t_cartpole, 4, 1, 1, 0.0),
+          "pendulum": (j_pendulum, t_pendulum, 2, 1, 0, 0.0),
+          "quadrotor": (j_quadrotor, t_quadrotor, 6, 2, 2, t_quadrotor.HOVER)}
 PROGRAMS = ("stage_bwd", "term", "stage_fwd", "term_fwd", "roll_cost",
             "transition", "final_cost", "dynamics")
 ANGLES = (0.0, 1e-13, -1e-13, 2 * np.pi, 2 * np.pi - 1e-12,
@@ -57,15 +62,18 @@ def _jax_program(name, jocp, nx, nu):
     }[name]
 
 
-def _inputs(shapes, nx, angle, seed, B=len(ANGLES)):
+def _inputs(shapes, nx, angle, seed, B=len(ANGLES), nu=1, u_centre=0.0):
     """Float64 inputs, batch-first: states (nx,) carry the test angles,
-    controls-shaped (1,) stay well inside the box, scalars are bp."""
+    controls-shaped (nu,) stay well inside the box (about ``u_centre``),
+    scalars are bp."""
     rng = np.random.default_rng(seed)
     out = []
     for s in shapes:
         a = 0.3 * rng.normal(size=(B,) + tuple(s))
         if tuple(s) == (nx,):
             a[:, angle] = ANGLES
+        elif tuple(s) == (nu,):
+            a = a + u_centre
         elif tuple(s) == ():
             a = rng.uniform(0.01, 0.2, size=(B,))
         out.append(a)
@@ -82,22 +90,22 @@ def _close(got, ref, name):
 
 @pytest.fixture(scope="module", params=list(MODELS))
 def model(request):
-    jm, tm, nx, angle = MODELS[request.param]
+    jm, tm, nx, nu, angle, centre = MODELS[request.param]
     tocp = tm.make_ocp(0.01)
-    return (request.param, jm.make_ocp(0.01), tocp, nx, angle,
-            tf.scalar_programs(tocp, nx, 1))
+    return (request.param, jm.make_ocp(0.01), tocp, nx, nu, angle, centre,
+            tf.scalar_programs(tocp, nx, nu))
 
 
 @pytest.mark.parametrize("name", PROGRAMS)
 def test_program_matches_torch_func_and_jax(model, name):
-    mname, jocp, tocp, nx, angle, progs = model
-    fn, shapes = tf.stage_programs(tocp, nx, 1)[name]
-    args = _inputs(shapes, nx, angle, seed=len(name))
+    mname, jocp, tocp, nx, nu, angle, centre, progs = model
+    fn, shapes = tf.stage_programs(tocp, nx, nu)[name]
+    args = _inputs(shapes, nx, angle, seed=len(name), nu=nu, u_centre=centre)
     prog = progs[name]
     got = prog.evaluate(*(torch.as_tensor(a).movedim(0, -1) for a in args))
     ref = vmap(fn)(*(torch.as_tensor(a) for a in args))
     ref = ref if isinstance(ref, tuple) else (ref,)
-    jref = jax.vmap(_jax_program(name, jocp, nx, 1))(
+    jref = jax.vmap(_jax_program(name, jocp, nx, nu))(
         *(jnp.asarray(a) for a in args))
     jref = jref if isinstance(jref, tuple) else (jref,)
     assert len(got) == len(ref) == len(jref)
@@ -149,7 +157,7 @@ def test_emitted_c_matches_torch_func(model, tmp_path):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    mname, _, tocp, nx, angle, progs = model
+    mname, _, tocp, nx, nu, angle, centre, progs = model
     src = tmp_path / "model.cpp"
     so = tmp_path / "model.so"
     src.write_text(_host_source(progs))
@@ -158,11 +166,12 @@ def test_emitted_c_matches_torch_func(model, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
-    fns = tf.stage_programs(tocp, nx, 1)
+    fns = tf.stage_programs(tocp, nx, nu)
     for name, prog in progs.items():
         fn, shapes = fns[name]
         args = [torch.as_tensor(a) for a in
-                _inputs(shapes, nx, angle, seed=len(name))]
+                _inputs(shapes, nx, angle, seed=len(name), nu=nu,
+                        u_centre=centre)]
         ref = vmap(fn)(*args)
         ref = ref if isinstance(ref, tuple) else (ref,)
         for b in range(args[0].shape[0]):

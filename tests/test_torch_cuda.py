@@ -134,6 +134,8 @@ def _data(case, dtype, device, B=64, T=40):
         return _model_data(cartpole, B, T, 0, dtype, device)
     if case == "pendulum":
         return _model_data(pendulum, B, T, 1, dtype, device)
+    if case == "random_nx6_nu2":  # the planar quadrotor's shape
+        return _random_data(B, T, 6, 2, 6, dtype, device)
     return _random_data(B, T, 3, 2, 2, dtype, device)
 
 
@@ -150,7 +152,8 @@ def _size_id(size):
 
 @pytest.mark.parametrize("size", SIZES, ids=_size_id)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("case", ["cartpole", "pendulum", "random_nx3_nu2"])
+@pytest.mark.parametrize("case", ["cartpole", "pendulum", "random_nx3_nu2",
+                                  "random_nx6_nu2"])
 def test_kernels_match_plain(card, case, dtype, size):
     tol, pred_rtol, lam_tol = TOLS[dtype]
     trial, costate = _data(case, dtype, card, *size)
@@ -206,6 +209,10 @@ def test_uninstantiated_shape_raises(card):
         seq_newton_trial_batched(*trial)
     with pytest.raises(NotImplementedError):
         seq_costates_batched(*costate)
+    # (6, 1) beside the quadrotor's instantiated (6, 2).
+    with pytest.raises(NotImplementedError):
+        seq_newton_trial_batched(*_random_data(4, 5, 6, 1, 3, torch.float32,
+                                               card)[0])
 
 
 def test_stream_on_card_matches_cpu(card):

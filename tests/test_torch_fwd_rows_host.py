@@ -9,7 +9,8 @@ order them; their host executors step a block's 32 lanes (4 scenarios of
 included, on scenario B - 1's data, writing nothing), with the shared
 memory filled with NaN first.  Here they are compiled with ``g++`` and held
 
-* in float64 at 1e-12 of scale, cartpole and pendulum at dt = 1/40, B in
+* in float64 at 1e-12 of scale, cartpole, pendulum and the planar
+  quadrotor (nx=6, nu=2) at dt = 1/40, B in
   {1, 3, 37} and T in {1, 7, 40}: the forward sweep (on the gains of the
   host build of ``csrc/fused_bwd.h``) against the plain fused iteration's
   trial point, cost, maximum constraint value and sum ||cu||^2; the
@@ -44,6 +45,7 @@ from ipoc_tpu.ops.pallas import set_pallas_scans
 from ipoc_tpu.ops.pallas.seq_newton_kernel import _pack_s, _unpack_s
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import ELEMENTARY_CALLS as CALLS
@@ -53,7 +55,9 @@ torch.set_num_threads(1)
 
 TOL = 1e-12
 DT = 1.0 / 40
-MODELS = {"cartpole": (t_cartpole, 4), "pendulum": (t_pendulum, 2)}
+# model: (port module, nx, nu, the controls' centre inside the box)
+MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
 
 SOURCE = r"""
 #include <math.h>
@@ -122,12 +126,12 @@ def _library(tmp_path_factory, name):
         cxx = shutil.which("g++") or shutil.which("c++")
         if cxx is None:
             pytest.skip("no host C++ compiler")
-        model, nx = MODELS[name]
+        model, nx, nu, _ = MODELS[name]
         ocp = model.make_ocp(DT)
         out = tmp_path_factory.mktemp(f"fwd_{name}")
         src, so = out / "fwd.cpp", out / "fwd.so"
         src.write_text('#include "scalar_math.h"\n'
-                       + tf.model_struct(ocp, nx, 1) + SOURCE)
+                       + tf.model_struct(ocp, nx, nu) + SOURCE)
         res = subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
                               "-I", str(cuda.CSRC), "-o", str(so), str(src)],
                              capture_output=True, text=True, timeout=300)
@@ -145,7 +149,7 @@ def _library(tmp_path_factory, name):
 @pytest.fixture(scope="module", params=list(MODELS))
 def host(request, tmp_path_factory):
     """``(model, ocp, nx, lib)`` of one model's host build."""
-    model, nx = MODELS[request.param]
+    model, nx, _, _ = MODELS[request.param]
     ocp, lib = _library(tmp_path_factory, request.param)
     return model, ocp, nx, lib
 
@@ -167,13 +171,13 @@ def _run(lib, kernel, ins, out_shapes):
 def _bwd(lib, xs, u, xT, bp, reg):
     T, nx, B = xs.shape
     return _run(lib, "fused_bwd", (xs, u, xT, bp, reg),
-                [(T, (1 + nx) * 1, B)] + [(B,)] * 4)
+                [(T, (1 + nx) * u.shape[1], B)] + [(B,)] * 4)
 
 
 def _fwd(lib, xs, u, xT, bp, Kk):
     T, nx, B = xs.shape
     return _run(lib, "fused_fwd", (xs, u, xT, bp, Kk),
-                [(T, 1, B), (T, nx, B), (nx, B), (B,), (B,), (B,)])
+                [(T, u.shape[1], B), (T, nx, B), (nx, B), (B,), (B,), (B,)])
 
 
 def _transition(lib, u, up, x0, bp):
@@ -189,9 +193,10 @@ def _lanes(model, ocp, nx, B, T, seed, dtype=torch.float64):
     Levenberg parameter."""
     rng = np.random.default_rng(seed)
     x0 = model.initial_state(torch.float64).numpy()
+    _, _, nu, centre = next(m for m in MODELS.values() if m[0] is model)
     t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
-    u = t(0.1 * rng.normal(size=(T, 1, B)))
-    up = t(0.15 * rng.normal(size=(T, 1, B)))
+    u = t(centre + 0.1 * rng.normal(size=(T, nu, B)))
+    up = t(centre + 0.15 * rng.normal(size=(T, nu, B)))
     x0b = t(x0[:, None] + 0.01 * rng.normal(size=(nx, B)))
     bp = t(rng.uniform(0.01, 0.2, size=B))
     xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0b, bp)
@@ -257,7 +262,8 @@ def test_launch_rule(host, B):
     memory per block that the source notes state."""
     _, _, nx, lib = host
     shared = {(1, 4): (11008, 22016), (1, 2): (6912, 13824),
-              (2, 4): (2560, 5120), (2, 2): (2048, 4096)}
+              (1, 6): (20992, 41984), (2, 4): (2560, 5120),
+              (2, 2): (2048, 4096), (2, 6): (3584, 7168)}
     for kernel in (1, 2):
         for code in (0, 1):
             out = (ctypes.c_int * 5)()
@@ -280,15 +286,17 @@ def test_forward_parts_are_the_stage_program(host):
     (each summand the product of its pair), to the bit on the torch
     evaluators in float64.  The handoff holds the inputs the chain reads
     (x, u, gains) and the elementary-function calls that do not read the
-    deviation: 12 values at cartpole (sin and cos), 7 at pendulum (cos);
-    the step computes the rest of the chain, 85 and 15 operations, the
-    evaluation 36 and 30; pre makes no other call."""
+    deviation: 12 values at cartpole (sin and cos), 7 at pendulum (cos), 24
+    at the quadrotor (sin and cos); the step computes the rest of the
+    chain, 85, 15 and 64 operations, the evaluation 36, 30 and 64; pre
+    makes no other call."""
     _, ocp, nx, _ = host
-    prog = tf.scalar_programs(ocp, nx, 1)["stage_fwd"]
-    pre, step, ev = tf.forward_parts(ocp, nx, 1)
+    nu = {4: 1, 2: 1, 6: 2}[nx]
+    prog = tf.scalar_programs(ocp, nx, nu)["stage_fwd"]
+    pre, step, ev = tf.forward_parts(ocp, nx, nu)
     assert {nd.op for nd in pre.order} <= CALLS | {"input"}
     assert {nd.op for nd in step.order} & CALLS == set()
-    counts = {4: (12, 2, 85, 36), 2: (7, 1, 15, 30)}[nx]
+    counts = {4: (12, 2, 85, 36), 2: (7, 1, 15, 30), 6: (24, 2, 64, 64)}[nx]
     assert (pre.out_shapes[0][0], pre.stats["ops"], step.stats["ops"],
             ev.stats["ops"]) == counts
     assert ev.out_shapes == [(2,), (), (2,)]
@@ -305,12 +313,14 @@ def test_transition_parts_are_the_stage_program(host):
     """Candidate a's cut, run on each candidate's data, gives transition's
     states, costs and sums ||cu||^2 to the bit (torch evaluators, float64);
     candidate b's own cut is the same program.  The step is the dynamics
-    (28 operations at cartpole, 9 at pendulum), the evaluation the stage
-    cost and ||cu||^2 (35 and 29)."""
+    (28 operations at cartpole, 9 at pendulum, 22 at the quadrotor), the
+    evaluation the stage cost and ||cu||^2 (35, 29 and 61)."""
     _, ocp, nx, _ = host
-    prog = tf.scalar_programs(ocp, nx, 1)["transition"]
-    step, ev = tf.transition_parts(ocp, nx, 1)
-    assert (step.stats["ops"], ev.stats["ops"]) == {4: (28, 35), 2: (9, 29)}[nx]
+    nu = {4: 1, 2: 1, 6: 2}[nx]
+    prog = tf.scalar_programs(ocp, nx, nu)["transition"]
+    step, ev = tf.transition_parts(ocp, nx, nu)
+    assert (step.stats["ops"], ev.stats["ops"]) == {
+        4: (28, 35), 2: (9, 29), 6: (22, 61)}[nx]
     xa, xb, u, up, bp = _args(prog, nx + 1)
     ref = prog.evaluate(xa, xb, u, up, bp)
     for c, (x, uu) in enumerate(((xa, u), (xb, up))):

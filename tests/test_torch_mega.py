@@ -14,6 +14,10 @@ stream's mega executor against the JAX package, on the CPU.
   exactly, leaves inactive lanes exactly as they were, and counts as
   ``steps`` the iterations in which some active lane was unfinished when
   lanes finish inside the block.
+* the plain version on the planar quadrotor (nx=6, nu=2), float64, Newton
+  and DDP, against k JAX ``flat_lane_iter`` steps at
+  ``tests/test_torch_packed_stream.py``'s bars (controls and trajectories
+  within 1e-10, equal decisions).
 * ``solve_stream`` under ``BATCH_CONFIG`` on the mega executor (the
   default) against the two-launch arm (``mega=False``) and against JAX
   ``solve_stream`` on ``tests/test_torch_packed_stream.py``'s pools: equal
@@ -22,7 +26,8 @@ stream's mega executor against the JAX package, on the CPU.
   transition, the ping-pong iterate and its copy-back), compiled with the
   host C++ compiler against the generated model source and run lane by
   lane with plain loads, against ``mega_k_iterations_plain`` in float64:
-  pendulum and cartpole, B=8, T=12, two blocks of k=6 with the lane
+  pendulum, cartpole and the planar quadrotor (nx=6, nu=2), B=8, T=12,
+  two blocks of k=6 with the lane
   carried across them, ``max_newton_iters=2`` so that lanes roll over,
   Newton and DDP, predictor on and off.  Equal ``it``, ``stage_it``,
   ``done`` and ``steps``; every float field within 1e-12 of its scale
@@ -46,6 +51,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import ipoc_tpu
 from ipoc_tpu.models import pendulum as j_pendulum
+from ipoc_tpu.models import quadrotor as j_quadrotor
 from ipoc_tpu.ops.pallas import set_pallas_scans
 from ipoc_tpu.ops.pallas.fused_iter_kernel import _pack_vec
 from ipoc_tpu.ops.pallas.mega_kernel import mega_k_iterations as j_mega
@@ -55,12 +61,15 @@ from ipoc_tpu.ops.pallas.seq_newton_kernel import (
     _pack_s,
     _unpack_s,
 )
+from ipoc_tpu.solvers.ip_newton import flat_lane_init as j_flat_lane_init
+from ipoc_tpu.solvers.ip_newton import flat_lane_iter as j_flat_lane_iter
 from ipoc_tpu.solvers.packed_stream import _pack_scal, _unpack_scal
 from ipoc_tpu.solvers.packed_stream import packed_lane_init as j_lane_init
 from ipoc_tpu.solvers.stream import solve_stream as j_solve_stream
 from ipoc_tpu_torch.interop import config_from_jax, pool_from_numpy, to_numpy
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import mega
@@ -150,6 +159,50 @@ def test_mega_plain_matches_jax_interpret(predictor, ddp):
     np.testing.assert_allclose(got.rp.numpy(), ref["rp"], rtol=1e-4)
     np.testing.assert_allclose(got.cun.numpy(), ref["cun"], rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("ddp", [False, True], ids=["newton", "ddp"])
+def test_mega_plain_matches_jax_flat_nu2(ddp):
+    """The planar quadrotor (nx=6, nu=2: the gains' (1 + nx) * nu rows, two
+    controls a stage), float64: k=7 iterations of the plain version, two a
+    barrier stage so that lanes roll over, the predictor on, against k
+    JAX ``flat_lane_iter`` steps vmapped (the lane iteration that JAX's
+    mega kernel is held to; interpret mode takes minutes at this shape):
+    controls and trajectories within 1e-10, equal iterations, stage
+    iterations and done flags, bp and rp within rtol 1e-14
+    (``tests/test_torch_packed_stream.py``'s bars)."""
+    Tq, Bq, k = 8, 6, 7
+    cfg = CFG.replace(max_newton_iters=2,
+                      newton_impl="ddp" if ddp else "fused")
+    rng = np.random.default_rng(5)
+    u0 = j_quadrotor.HOVER + 0.05 * rng.normal(size=(Bq, Tq, 2))
+    x0b = 0.02 * rng.normal(size=(Bq, 6))
+    jocp = j_quadrotor.make_ocp(1.0 / Tq)
+    flat = jax.vmap(lambda u, x: j_flat_lane_init(jocp, u, x, cfg))(
+        jnp.asarray(u0), jnp.asarray(x0b))
+    step = jax.jit(jax.vmap(lambda ln: j_flat_lane_iter(jocp, ln, cfg,
+                                                        ~ln.done)))
+    for _ in range(k):
+        flat = step(flat)
+    tcfg = config_from_jax(cfg)
+    tocp = t_quadrotor.make_ocp(1.0 / Tq)
+    lane = _port_lanes(tocp, u0, x0b, tcfg)
+    got, steps = mega.mega_k_iterations(
+        tocp, lane, torch.ones(Bq, dtype=torch.bool), tcfg, k, ddp)
+    assert int(steps) == k
+    assert bool((got.bp < cfg.bp_init).any()), "no lane rolled over"
+    np.testing.assert_allclose(got.u.permute(2, 0, 1).numpy(),
+                               np.asarray(flat.u), rtol=0, atol=1e-10)
+    x = torch.cat([got.xs, got.xT[None]]).permute(2, 0, 1).numpy()
+    np.testing.assert_allclose(x, np.asarray(flat.x), rtol=0, atol=1e-10)
+    for field in ("it", "stage_it", "done"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(flat, field)),
+                                      err_msg=field)
+    for field in ("bp", "rp"):
+        np.testing.assert_allclose(getattr(got, field).numpy(),
+                                   np.asarray(getattr(flat, field)),
+                                   rtol=1e-14, err_msg=field)
 
 
 @pytest.fixture(scope="module")
@@ -242,7 +295,12 @@ def test_mega_stream_matches_two_launch_arm_and_jax(solved):
 
 # --- the lane iteration's host build (csrc/lane.h) ---------------------------
 
-HOST_MODELS = {"pendulum": (t_pendulum, 2), "cartpole": (t_cartpole, 4)}
+# model: (port module, nx, nu, the controls' centre inside the box and
+# their spread: wide enough at the quadrotor that some trials are rejected,
+# so the blocks end with the iterate in both buffers)
+HOST_MODELS = {"pendulum": (t_pendulum, 2, 1, 0.0, 0.1),
+               "cartpole": (t_cartpole, 4, 1, 0.0, 0.1),
+               "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER, 1.0)}
 HB, HT, HK = 8, 12, 6
 INACTIVE = 3
 
@@ -275,11 +333,11 @@ def host_lane(request, tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    model, nx = HOST_MODELS[request.param]
+    model, nx, nu, centre, spread = HOST_MODELS[request.param]
     ocp = model.make_ocp(1.0 / HT)
     out = tmp_path_factory.mktemp(f"lane_{request.param}")
     src, so = out / "lane_host.cpp", out / "lane_host.so"
-    src.write_text(_host_mega_source(tf.scalar_programs(ocp, nx, 1), nx, 1))
+    src.write_text(_host_mega_source(tf.scalar_programs(ocp, nx, nu), nx, nu))
     res = subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
                           "-I", str(cuda.CSRC), "-o", str(so), str(src)],
                          capture_output=True, text=True, timeout=300)
@@ -288,7 +346,7 @@ def host_lane(request, tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_mega.argtypes = [i, p, p, p, i, i, i, p]
     lib.host_mega.restype = None
-    return model, ocp, lib
+    return model, ocp, lib, nu, centre, spread
 
 
 def _host_mega(lib, lane, active, cfg, k, ddp):
@@ -314,14 +372,14 @@ def _host_mega(lib, lane, active, cfg, k, ddp):
                          ids=["newton-predictor", "newton", "ddp-predictor",
                               "ddp"])
 def test_lane_host_build_matches_plain(host_lane, ddp, predictor):
-    model, ocp, lib = host_lane
+    model, ocp, lib, nu, centre, spread = host_lane
     nx = model.initial_state(torch.float64).shape[0]
     cfg = config_from_jax(CFG).replace(
         max_newton_iters=2, stage_predictor=predictor,
         newton_impl="ddp" if ddp else "fused")
     rng = np.random.default_rng(11)
     x0 = model.initial_state(torch.float64).numpy()
-    u0 = 0.1 * rng.normal(size=(HB, HT, 1))
+    u0 = centre + spread * rng.normal(size=(HB, HT, nu))
     x0b = x0 + 0.01 * rng.normal(size=(HB, nx))
     lane = _port_lanes(ocp, u0, x0b, cfg)
     active = torch.arange(HB) != INACTIVE

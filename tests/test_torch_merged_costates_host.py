@@ -14,15 +14,15 @@ the shared memory filled with NaN first.  Here they are compiled with
 ``g++`` (no FMA contraction on the host's baseline instruction set) and
 held
 
-* in float64, cartpole and pendulum at dt = 1/40, B in {1, 3, 37} and T in
-  {1, 7, 40}: the merged trial, both modes, against ``lane.h``'s
+* in float64, cartpole, pendulum and the planar quadrotor (nx=6, nu=2) at
+  dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}: the merged trial, both modes, against ``lane.h``'s
   one-thread trial (the parent kernel's body) built by the same compiler,
   bit for bit on every output, and against ``fused_newton_iter_plain`` at
   1e-12 of scale; at B = 37 also on inputs that start one scalar past a
   16-byte boundary, to the bit of the aligned ones;
 * the costate recursion against the parent kernel's loop built by the same
   compiler, bit for bit, and against ``seq_costates_plain`` at 1e-12 of
-  scale, nx in {2, 3, 4}, on offset views too;
+  scale, nx in {2, 3, 4, 6}, on offset views too;
 * ``RowStep<..., true>`` against ``riccati_step<..., true>`` over a chain of
   stages, bit for bit, in float64 and float32;
 * the codegen's ``ddp_forward_parts``: composed, ``stage_ddp_fwd`` to the
@@ -56,6 +56,7 @@ from ipoc_tpu.ops.pallas.seq_newton_kernel import (
 )
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import ELEMENTARY_CALLS as CALLS
@@ -67,7 +68,9 @@ torch.set_num_threads(1)
 
 TOL = 1e-12
 DT = 1.0 / 40
-MODELS = {"cartpole": (t_cartpole, 4), "pendulum": (t_pendulum, 2)}
+# model: (port module, nx, nu, the controls' centre inside the box)
+MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
 NAMES = ("tu", "tx", "txT", "cost", "nc", "mc", "dv", "piv", "hu", "cun")
 
 MERGED_SOURCE = r"""
@@ -197,6 +200,7 @@ extern "C" int host_costates(int dtype, int nx, int which, const void* const* in
   if (dtype == 1 && nx == 2) return run<double, 2>(which, in, out, B, T), 0;
   if (dtype == 1 && nx == 3) return run<double, 3>(which, in, out, B, T), 0;
   if (dtype == 1 && nx == 4) return run<double, 4>(which, in, out, B, T), 0;
+  if (dtype == 1 && nx == 6) return run<double, 6>(which, in, out, B, T), 0;
   if (dtype == 0 && nx == 2) return run<float, 2>(which, in, out, B, T), 0;
   if (dtype == 0 && nx == 3) return run<float, 3>(which, in, out, B, T), 0;
   if (dtype == 0 && nx == 4) return run<float, 4>(which, in, out, B, T), 0;
@@ -217,9 +221,11 @@ extern "C" int host_costate_geometry(int dtype, int nx, int B, int* out) {
   if (dtype == 0 && nx == 2) return geometry<float, 2>(B, out), 0;
   if (dtype == 0 && nx == 3) return geometry<float, 3>(B, out), 0;
   if (dtype == 0 && nx == 4) return geometry<float, 4>(B, out), 0;
+  if (dtype == 0 && nx == 6) return geometry<float, 6>(B, out), 0;
   if (dtype == 1 && nx == 2) return geometry<double, 2>(B, out), 0;
   if (dtype == 1 && nx == 3) return geometry<double, 3>(B, out), 0;
   if (dtype == 1 && nx == 4) return geometry<double, 4>(B, out), 0;
+  if (dtype == 1 && nx == 6) return geometry<double, 6>(B, out), 0;
   return -1;
 }
 
@@ -295,9 +301,11 @@ extern "C" int host_ddp_steps(int dtype, int nx, int nu, int which,
   if (dtype == 1 && nx == 2 && nu == 1) return ddp_run<double, 2, 1>(which, in, out, T), 0;
   if (dtype == 1 && nx == 4 && nu == 1) return ddp_run<double, 4, 1>(which, in, out, T), 0;
   if (dtype == 1 && nx == 3 && nu == 2) return ddp_run<double, 3, 2>(which, in, out, T), 0;
+  if (dtype == 1 && nx == 6 && nu == 2) return ddp_run<double, 6, 2>(which, in, out, T), 0;
   if (dtype == 0 && nx == 2 && nu == 1) return ddp_run<float, 2, 1>(which, in, out, T), 0;
   if (dtype == 0 && nx == 4 && nu == 1) return ddp_run<float, 4, 1>(which, in, out, T), 0;
   if (dtype == 0 && nx == 3 && nu == 2) return ddp_run<float, 3, 2>(which, in, out, T), 0;
+  if (dtype == 0 && nx == 6 && nu == 2) return ddp_run<float, 6, 2>(which, in, out, T), 0;
   return -1;
 }
 """
@@ -323,10 +331,10 @@ def _merged_library(tmp_path_factory, name):
     """One model's generated struct (dt = 1/40) with the merged schedule and
     lane.h's one-thread trial, compiled once per module: ``(ocp, lib)``."""
     if name not in _LIBS:
-        model, nx = MODELS[name]
+        model, nx, nu, _ = MODELS[name]
         ocp = model.make_ocp(DT)
         lib = _compile(tmp_path_factory, f"merged_{name}",
-                       '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, 1)
+                       '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, nu)
                        + MERGED_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.host_trial.argtypes = [i, i, i, p, p, i, i]
@@ -340,7 +348,7 @@ def _merged_library(tmp_path_factory, name):
 @pytest.fixture(scope="module", params=list(MODELS))
 def host(request, tmp_path_factory):
     """``(model, ocp, nx, lib)`` of one model's merged host build."""
-    model, nx = MODELS[request.param]
+    model, nx, _, _ = MODELS[request.param]
     ocp, lib = _merged_library(tmp_path_factory, request.param)
     return model, ocp, nx, lib
 
@@ -381,8 +389,9 @@ def _lanes(model, ocp, nx, B, T, seed, dtype=torch.float64):
     of numpy-made controls, a per-lane barrier and Levenberg parameter."""
     rng = np.random.default_rng(seed)
     x0 = model.initial_state(torch.float64).numpy()
+    _, _, nu, centre = next(m for m in MODELS.values() if m[0] is model)
     t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
-    u = t(0.1 * rng.normal(size=(T, 1, B)))
+    u = t(centre + 0.1 * rng.normal(size=(T, nu, B)))
     x0b = t(x0[:, None] + 0.01 * rng.normal(size=(nx, B)))
     bp = t(rng.uniform(0.01, 0.2, size=B))
     xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0b, bp)
@@ -428,14 +437,16 @@ def test_host_merged_trial_matches_parent_and_plain(host, ddp, T):
 @pytest.mark.parametrize("B", [1, 3, 4096])
 def test_merged_launch_rule(host, B):
     """One warp per block in both modes: G = RowStep's lanes per scenario
-    (4 at cartpole, 2 at pendulum), 32 / G scenarios, chunks of W = G
+    (4 at cartpole, 2 at pendulum, 8 at the quadrotor), 32 / G
+    scenarios, chunks of W = G
     stages, ceil(B / S) blocks, as ``row_geometry`` states them; the shared
     memory per block that the source notes state (DDP mode holds no
     forward handoffs)."""
     _, _, nx, lib = host
     shared = {(4, False): (15104, 30208), (4, True): (11776, 23552),
-              (2, False): (9984, 19968), (2, True): (8192, 16384)}
-    G = {4: 4, 2: 2}[nx]
+              (2, False): (9984, 19968), (2, True): (8192, 16384),
+              (6, False): (27136, 54272), (6, True): (20736, 41472)}
+    G = {4: 4, 2: 2, 6: 8}[nx]
     geo = sn.row_geometry(nx, B)
     for ddp in (False, True):
         for code in (0, 1):
@@ -460,15 +471,17 @@ def test_ddp_forward_parts_are_the_stage_program(host):
     ||cu||^2 (each summand the product of its pair), to the bit on the
     torch evaluators in float64; the evaluation is stage_fwd_eval's
     program, and the step holds the chain's calls (sin and cos at
-    cartpole, 41 operations; pendulum 16) and reads no bp."""
+    cartpole, 41 operations; pendulum 16; the quadrotor 54) and reads no
+    bp."""
     _, ocp, nx, _ = host
-    prog = tf.scalar_programs(ocp, nx, 1)["stage_ddp_fwd"]
-    step, ev = tf.ddp_forward_parts(ocp, nx, 1)
-    assert same_program(ev, tf.forward_parts(ocp, nx, 1)[2])
+    nu = {4: 1, 2: 1, 6: 2}[nx]
+    prog = tf.scalar_programs(ocp, nx, nu)["stage_ddp_fwd"]
+    step, ev = tf.ddp_forward_parts(ocp, nx, nu)
+    assert same_program(ev, tf.forward_parts(ocp, nx, nu)[2])
     assert not same_program(step, ev)
-    assert step.stats["ops"] == {4: 41, 2: 16}[nx]
+    assert step.stats["ops"] == {4: 41, 2: 16, 6: 54}[nx]
     assert {nd.op for nd in step.order} & CALLS
-    assert step.in_shapes == [(nx,), (1,), (nx,), ((1 + nx),)]
+    assert step.in_shapes == [(nx,), (nu,), (nx,), ((1 + nx) * nu,)]
     x, u, bp, tx, g = _args(prog, nx + 7)
     ref = prog.evaluate(x, u, bp, tx, g)
     tu, tx2, txn = step.evaluate(x, u, tx, g)
@@ -498,7 +511,7 @@ def _ddp_data(T, nx, nu, seed, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (3, 2)],
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (3, 2), (6, 2)],
                          ids=lambda s: f"nx{s[0]}nu{s[1]}")
 def test_rowstep_ddp_equals_riccati_step(host_costates, shape, dtype):
     """Twelve DDP steps from a terminal (Vxx, Vx): every gain, the final
@@ -541,7 +554,7 @@ def _costates(lib, ins, parent=False):
 
 
 @pytest.mark.parametrize("T", [1, 7, 40, 100])
-@pytest.mark.parametrize("nx", [2, 3, 4])
+@pytest.mark.parametrize("nx", [2, 3, 4, 6])
 def test_host_costates_match_parent_and_plain(host_costates, nx, T):
     """Float64, B in {1, 3, 37}: lam equal to the one-thread loop's to the
     bit and within 1e-12 of scale of ``seq_costates_plain``; at B = 37 also
@@ -564,11 +577,11 @@ def test_costate_launch_rule(host_costates, B):
     scenarios, chunks of 8 stages, ceil(B / S) blocks, as ``row_geometry``
     states them; the shared memory per block that the source notes state."""
     shared = {(0, 2): 11264, (1, 2): 21504, (0, 3): 10496, (1, 3): 20992,
-              (0, 4): 16896, (1, 4): 33792}
+              (0, 4): 16896, (1, 4): 33792, (0, 6): 17408, (1, 6): 34816}
     for (code, nx), bytes_ in shared.items():
         out = (ctypes.c_int * 5)()
         assert host_costates.host_costate_geometry(code, nx, B, out) == 0
-        G = {2: 2, 3: 4, 4: 4}[nx]
+        G = {2: 2, 3: 4, 4: 4, 6: 8}[nx]
         assert list(out)[:4] == [G, 32 // G, 8, -(-B // (32 // G))]
         geo = sn.row_geometry(nx, B)
         assert [geo["lanes_per_scenario"], geo["scenarios_per_block"],

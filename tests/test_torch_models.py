@@ -1,4 +1,8 @@
-"""The port's models against the JAX package's, float64, atol 1e-12.
+"""The port's models against the JAX package's, float64, atol 1e-12:
+pendulum, cartpole, the planar quadrotor (nx=6, nu=2) and the double
+integrator (``unconstrained_ocp``, RK4 through ``discretize_dynamics``);
+``runge_kutta`` and ``discretize_dynamics`` with sub-steps on the
+quadrotor's ODE; every model's constants (``interop.model_constants``).
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -10,28 +14,42 @@ import pytest
 import torch
 
 from ipoc_tpu.models import cartpole as j_cartpole
+from ipoc_tpu.models import double_integrator as j_double_integrator
 from ipoc_tpu.models import pendulum as j_pendulum
+from ipoc_tpu.models import quadrotor as j_quadrotor
+from ipoc_tpu.utils.integrators import discretize_dynamics as j_discretize
 from ipoc_tpu.utils.integrators import rollout as j_rollout
+from ipoc_tpu.utils.integrators import runge_kutta as j_runge_kutta
 from ipoc_tpu.utils.integrators import wrap_angle as j_wrap
+from ipoc_tpu_torch.interop import model_constants
 from ipoc_tpu_torch.models import cartpole as t_cartpole
+from ipoc_tpu_torch.models import double_integrator as t_double_integrator
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.utils.integrators import discretize_dynamics as t_discretize
 from ipoc_tpu_torch.utils.integrators import rollout as t_rollout
+from ipoc_tpu_torch.utils.integrators import runge_kutta as t_runge_kutta
 from ipoc_tpu_torch.utils.integrators import wrap_angle as t_wrap
 
 torch.set_num_threads(1)
 
 ATOL = 1e-12
+# model: (JAX module, port module, nx, nu, the controls' centre inside
+# the box)
 MODELS = {
-    "pendulum": (j_pendulum, t_pendulum, 2),
-    "cartpole": (j_cartpole, t_cartpole, 4),
+    "pendulum": (j_pendulum, t_pendulum, 2, 1, 0.0),
+    "cartpole": (j_cartpole, t_cartpole, 4, 1, 0.0),
+    "quadrotor": (j_quadrotor, t_quadrotor, 6, 2, t_quadrotor.HOVER),
+    "double_integrator": (j_double_integrator, t_double_integrator, 2, 1,
+                          0.0),
 }
 
 
-def _inputs(nx, B=5, T=7, seed=0):
+def _inputs(nx, nu=1, B=5, T=7, seed=0, u_centre=0.0):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(B, nx)) * 2.0
     x[:, :min(nx, 2)] -= 3.0  # negative angles, below -2 pi for some
-    u = rng.normal(size=(B, T, 1)) * 0.5
+    u = rng.normal(size=(B, T, nu)) * 0.5 + u_centre
     X = rng.normal(size=(B, T + 1, nx))
     bp = rng.uniform(0.01, 0.2, size=(B,))
     return x, u, X, bp
@@ -47,17 +65,17 @@ def test_wrap_angle_negative_and_large():
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_model_functions_match_jax(name):
-    jm, tm, nx = MODELS[name]
+    jm, tm, nx, nu, centre = MODELS[name]
     dt = 0.01
     jocp, tocp = jm.make_ocp(dt), tm.make_ocp(dt)
-    x, u, X, bp = _inputs(nx)
+    x, u, X, bp = _inputs(nx, nu, u_centre=centre)
     ut = u[:, 0]
     t = torch.tensor
 
     dyn_j = jax.vmap(jocp.dynamics)(jnp.asarray(x), jnp.asarray(ut))
     np.testing.assert_allclose(tocp.dynamics(t(x), t(ut)).numpy(),
                                np.asarray(dyn_j), rtol=0, atol=ATOL)
-    for uu in (ut, ut * 200.0):  # feasible, and outside the box (NaN)
+    for uu in (ut, ut * 200.0):  # feasible, and outside a box (NaN)
         sc_j = jax.vmap(jocp.stage_cost)(jnp.asarray(x), jnp.asarray(uu),
                                          jnp.asarray(bp))
         np.testing.assert_allclose(
@@ -76,16 +94,22 @@ def test_model_functions_match_jax(name):
                                      jnp.asarray(bp))
     np.testing.assert_allclose(tocp.total_cost(t(X), t(u), t(bp)).numpy(),
                                np.asarray(tc_j), rtol=0, atol=ATOL)
-    np.testing.assert_allclose(
-        tm.initial_state(torch.float64).numpy(),
-        np.asarray(jm.initial_state(jnp.float64)), rtol=0, atol=ATOL)
+    if hasattr(jm, "initial_state"):
+        np.testing.assert_allclose(
+            tm.initial_state(torch.float64).numpy(),
+            np.asarray(jm.initial_state(jnp.float64)), rtol=0, atol=ATOL)
+    if hasattr(jm, "hover_controls"):
+        np.testing.assert_array_equal(
+            tm.hover_controls(9, torch.float64).numpy(),
+            np.asarray(jm.hover_controls(9, jnp.float64)))
+    assert model_constants(tm) == model_constants(jm)
 
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_rollout_matches_jax(name):
-    jm, tm, nx = MODELS[name]
+    jm, tm, nx, nu, centre = MODELS[name]
     jocp, tocp = jm.make_ocp(0.02), tm.make_ocp(0.02)
-    x, u, _, _ = _inputs(nx, seed=1)
+    x, u, _, _ = _inputs(nx, nu, seed=1, u_centre=centre)
     X_j = jax.vmap(lambda uu, xx: j_rollout(jocp.dynamics, uu, xx))(
         jnp.asarray(u), jnp.asarray(x))
     X_t = t_rollout(tocp.dynamics, torch.tensor(u), torch.tensor(x))
@@ -128,3 +152,37 @@ def test_stage_sum_order_and_lanes(T, dtype):
     np.testing.assert_allclose(
         norm.numpy(), np.linalg.norm(c2.astype(np.float64), axis=(1, 2)),
         rtol=1e-5 if dtype == np.float32 else 1e-12)
+
+
+@pytest.mark.parametrize("downsampling", [1, 3])
+def test_runge_kutta_and_discretize_match_jax(downsampling):
+    """``runge_kutta`` and ``discretize_dynamics`` (``downsampling`` RK4
+    sub-steps) on the quadrotor's nonlinear ODE, batched over leading axes
+    against JAX vmapped."""
+    x, u, _, _ = _inputs(6, 2, seed=2, u_centre=t_quadrotor.HOVER)
+    ut = u[:, 0]
+    np.testing.assert_allclose(
+        t_runge_kutta(torch.tensor(x), torch.tensor(ut), t_quadrotor.ode,
+                      0.05).numpy(),
+        np.asarray(jax.vmap(lambda xx, uu: j_runge_kutta(
+            xx, uu, j_quadrotor.ode, 0.05))(jnp.asarray(x), jnp.asarray(ut))),
+        rtol=0, atol=ATOL)
+    t_dyn = t_discretize(t_quadrotor.ode, 0.05, downsampling)
+    j_dyn = j_discretize(j_quadrotor.ode, 0.05, downsampling)
+    np.testing.assert_allclose(
+        t_dyn(torch.tensor(x), torch.tensor(ut)).numpy(),
+        np.asarray(jax.vmap(j_dyn)(jnp.asarray(x), jnp.asarray(ut))),
+        rtol=0, atol=ATOL)
+
+
+def test_unconstrained_ocp_is_vacuous():
+    """The double integrator's constraint is -1 on every stage, on any
+    leading axes, and its stage cost ignores ``bp``."""
+    ocp = t_double_integrator.make_ocp(0.1)
+    x, u, X, bp = _inputs(2, seed=3)
+    c = ocp.constraints(torch.tensor(X[:, :-1]), torch.tensor(u))
+    assert c.shape == (5, 7, 1) and bool((c == -1.0).all())
+    a = ocp.stage_cost(torch.tensor(x), torch.tensor(u[:, 0]),
+                       torch.tensor(bp))
+    b = ocp.stage_cost(torch.tensor(x), torch.tensor(u[:, 0]), 123.0)
+    assert torch.equal(a, b)

@@ -8,10 +8,14 @@ scenario through each step in turn.  Here it is compiled with ``g++`` and
 held, in float64 at 1e-12 of scale with equal ``ok`` flags, to
 ``fused_newton_step_plain`` (the ``newton_lqt`` -> ``par_bwd_pass`` ->
 ``par_fwd_pass`` pipeline) at every lane count the launch rule can pick,
-all three instantiated ``(nx, nu)``, horizons on both sides of a warp's 32
-lanes, with an indefinite R on one lane; at the lane counts the rule picks
-for B in {1, 3, 1024}; and in float32 against JAX's ``fused_newton_step(...,
-interpret=True)`` at ``tests/test_torch_par_newton.py``'s tolerances.
+every instantiated ``(nx, nu)`` (the planar quadrotor's (6, 2) included),
+horizons on both sides of a warp's 32 lanes, with an indefinite R on one
+lane; at the lane counts the rule picks for B in {1, 3, 1024}; and in
+float32 against JAX's ``fused_newton_step(..., interpret=True)`` at
+``tests/test_torch_par_newton.py``'s tolerances.  The rule's shared-memory
+count (``trial_shared_bytes``) equals the header's at every shape, dtype
+and lane count, and caps P at 128 where a block of 256 lanes would not fit
+(nx=6, float64).
 """
 
 import ctypes
@@ -66,8 +70,38 @@ extern "C" int host_par_trial(int dtype, int nx, int nu, int P,
   if (dtype == 1 && nx == 2 && nu == 1) return lanes<double, 2, 1>(P, in, out, B, T);
   if (dtype == 1 && nx == 4 && nu == 1) return lanes<double, 4, 1>(P, in, out, B, T);
   if (dtype == 1 && nx == 3 && nu == 2) return lanes<double, 3, 2>(P, in, out, B, T);
+  if (dtype == 1 && nx == 6 && nu == 2) return lanes<double, 6, 2>(P, in, out, B, T);
   if (dtype == 0 && nx == 2 && nu == 1) return lanes<float, 2, 1>(P, in, out, B, T);
   return -1;
+}
+
+// A block's shared bytes (par_trial.cuh TrialLaunch::smem).
+template <typename scalar_t, int NX, int NU, int P>
+int bytes() {
+  using Tr = ipoc::ParTrial<scalar_t, NX, NU, P>;
+  return Tr::kScenarios * Tr::kShared * static_cast<int>(sizeof(scalar_t));
+}
+
+template <typename scalar_t, int NX, int NU>
+int shape_bytes(int P) {
+  if (P == 32) return bytes<scalar_t, NX, NU, 32>();
+  if (P == 64) return bytes<scalar_t, NX, NU, 64>();
+  if (P == 128) return bytes<scalar_t, NX, NU, 128>();
+  if (P == 256) return bytes<scalar_t, NX, NU, 256>();
+  return -1;
+}
+
+template <typename scalar_t>
+int dtype_bytes(int nx, int nu, int P) {
+  if (nx == 2 && nu == 1) return shape_bytes<scalar_t, 2, 1>(P);
+  if (nx == 4 && nu == 1) return shape_bytes<scalar_t, 4, 1>(P);
+  if (nx == 3 && nu == 2) return shape_bytes<scalar_t, 3, 2>(P);
+  if (nx == 6 && nu == 2) return shape_bytes<scalar_t, 6, 2>(P);
+  return -1;
+}
+
+extern "C" int host_par_shared_bytes(int dtype, int nx, int nu, int P) {
+  return dtype == 0 ? dtype_bytes<float>(nx, nu, P) : dtype_bytes<double>(nx, nu, P);
 }
 """
 
@@ -89,6 +123,8 @@ def host_trial(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_par_trial.argtypes = [i, i, i, i, p, p, i, i]
     lib.host_par_trial.restype = i
+    lib.host_par_shared_bytes.argtypes = [i, i, i, i]
+    lib.host_par_shared_bytes.restype = i
     return lib
 
 
@@ -143,8 +179,29 @@ def test_host_trial_matches_plain(host_trial, shape, T):
     ref = nk.fused_newton_step_plain(*args)
     assert bool(ref[3].all())
     for lanes in nk.TRIAL_LANES:
+        if nk.trial_shared_bytes(shape[0], lanes, torch.float64) \
+                > cuda.MAX_SMEM:
+            continue  # a block the card cannot hold: never launched
         _assert_close(_host(host_trial, args, lanes), ref, TOL,
                       f"{shape} T={T} P={lanes}")
+
+
+@pytest.mark.parametrize("shape", nk.TRIAL_SHAPES, ids=lambda s: f"nx{s[0]}nu{s[1]}")
+def test_shared_bytes_and_lane_cap(host_trial, shape):
+    """``trial_shared_bytes`` against the header's constants at every
+    dtype and lane count, and the rule's cap: a single long scenario gets
+    256 lanes unless that block would pass the card's shared memory (then
+    128: the quadrotor's (6, 2) in float64, 255,552 bytes)."""
+    nx, nu = shape
+    for dtype in (torch.float32, torch.float64):
+        for lanes in nk.TRIAL_LANES:
+            assert nk.trial_shared_bytes(nx, lanes, dtype) == \
+                host_trial.host_par_shared_bytes(cuda.dtype_code(dtype), nx,
+                                                 nu, lanes), (dtype, lanes)
+        fits = nk.trial_shared_bytes(nx, 256, dtype) <= cuda.MAX_SMEM
+        assert fits == (shape != (6, 2) or dtype == torch.float32)
+        assert nk.trial_lanes(1, 1000, nx=nx, dtype=dtype) == \
+            (256 if fits else 128)
 
 
 @pytest.mark.parametrize("B", [1, 3, 1024])

@@ -15,8 +15,8 @@ and held
   ``(nx, nu)``, T in {1, 2, 7, 33, 100} and B in {1, 3, 64}, on views that
   start one scalar past an aligned address and on an indefinite R at one
   stage of one lane; the fused backward sweep (the codegen's split of the
-  stage program included) against the plain fused iteration, cartpole and
-  pendulum, its gains through the closed-loop rollout they give; the
+  stage program included) against the plain fused iteration, cartpole,
+  pendulum and the quadrotor (nx=6, nu=2), its gains through the closed-loop rollout they give; the
   split itself (post after pre is the stage program, to the bit);
 * the launch rule (lanes per scenario, scenarios per block) against the
   headers' constants at B in {1, 3, 4096};
@@ -46,6 +46,7 @@ from ipoc_tpu.ops.pallas.seq_newton_kernel import (
 )
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import ELEMENTARY_CALLS as CALLS
@@ -88,6 +89,7 @@ extern "C" int host_seq_trial(int dtype, int nx, int nu, const void* const* in,
   if (dtype == 1 && nx == 2 && nu == 1) return run<double, 2, 1>(in, out, B, T);
   if (dtype == 1 && nx == 4 && nu == 1) return run<double, 4, 1>(in, out, B, T);
   if (dtype == 1 && nx == 3 && nu == 2) return run<double, 3, 2>(in, out, B, T);
+  if (dtype == 1 && nx == 6 && nu == 2) return run<double, 6, 2>(in, out, B, T);
   if (dtype == 0 && nx == 4 && nu == 1) return run<float, 4, 1>(in, out, B, T);
   return -1;
 }
@@ -99,6 +101,7 @@ extern "C" int host_seq_geometry(int dtype, int nx, int nu, int* out) {
   if (dtype == 0 && nx == 2 && nu == 1) return geometry<float, 2, 1>(out), 0;
   if (dtype == 0 && nx == 4 && nu == 1) return geometry<float, 4, 1>(out), 0;
   if (dtype == 0 && nx == 3 && nu == 2) return geometry<float, 3, 2>(out), 0;
+  if (dtype == 0 && nx == 6 && nu == 2) return geometry<float, 6, 2>(out), 0;
   if (dtype == 1 && nx == 6 && nu == 2) return geometry<double, 6, 2>(out), 0;
   return -1;
 }
@@ -232,7 +235,7 @@ def test_launch_rule(host_seq, B):
     the shared memory per block that the source notes state."""
     shared = {(0, 4, 1): 18560, (1, 4, 1): 37120, (0, 3, 2): 16256,
               (1, 3, 2): 32512, (0, 2, 1): 13184, (1, 2, 1): 25856,
-              (1, 6, 2): 44800}
+              (0, 6, 2): 22400, (1, 6, 2): 44800}
     for (code, nx, nu), bytes_ in shared.items():
         out = (ctypes.c_int * 3)()
         assert host_seq.host_seq_geometry(code, nx, nu, out) == 0
@@ -265,13 +268,15 @@ def test_host_seq_trial_matches_jax_kernel_interpret(host_seq):
 
 # --- the fused backward sweep (csrc/fused_bwd.h) ---------------------------
 
-MODELS = {"cartpole": (t_cartpole, 4), "pendulum": (t_pendulum, 2)}
+# model: (port module, nx, nu, the controls' centre inside the box)
+MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
 FT = 12  # the models' horizon (dt = 1 / FT)
 
 
-def _fused_source(ocp, nx):
+def _fused_source(ocp, nx, nu=1):
     return ('#include <math.h>\n#include <vector>\n#include "fused_bwd.h"\n'
-            + tf.model_struct(ocp, nx, 1) + r"""
+            + tf.model_struct(ocp, nx, nu) + r"""
 template <typename scalar_t>
 int run(const void* const* in, void* const* out, int B, int T) {
   using F = ipoc::FusedBwd<Model, scalar_t>;
@@ -296,7 +301,7 @@ extern "C" int host_fused_bwd(int dtype, const void* const* in,
 def host_fused(request, tmp_path_factory):
     """One model's generated struct and fused_bwd.h compiled with the host
     C++ compiler; returns (model, ocp, nx, the loaded library)."""
-    model, nx = MODELS[request.param]
+    model, nx, nu, _ = MODELS[request.param]
     ocp = model.make_ocp(1.0 / FT)
     p, i = ctypes.c_void_p, ctypes.c_int
 
@@ -305,7 +310,7 @@ def host_fused(request, tmp_path_factory):
         lib.host_fused_bwd.restype = i
 
     lib = _compile(tmp_path_factory, f"fused_bwd_{request.param}",
-                   _fused_source(ocp, nx), bind)
+                   _fused_source(ocp, nx, nu), bind)
     return model, ocp, nx, lib
 
 
@@ -328,8 +333,9 @@ def _lane_inputs(model, ocp, nx, B, T, seed, dtype=torch.float64):
     parameter."""
     rng = np.random.default_rng(seed)
     x0 = model.initial_state(torch.float64).numpy()
+    _, _, nu, centre = next(m for m in MODELS.values() if m[0] is model)
     t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
-    u = t(0.1 * rng.normal(size=(T, 1, B)))
+    u = t(centre + 0.1 * rng.normal(size=(T, nu, B)))
     x0b = t(x0[:, None] + 0.01 * rng.normal(size=(nx, B)))
     bp = t(rng.uniform(0.01, 0.2, size=B))
     xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0b, bp)
@@ -365,16 +371,17 @@ def test_backward_halves_are_the_stage_program(host_fused):
     lam) equals stage_bwd(x, u, bp, lam) to the bit on every output (torch
     evaluators of the DAGs, float64); the handoff values are the inputs and
     the elementary-function calls that post reads (10 per stage at
-    cartpole, 8 at pendulum; pre computes 10 operations at either), and
-    post computes every operation of the program but those calls and what
-    only they read."""
+    cartpole, 8 at pendulum, 15 at the quadrotor; pre computes 10
+    operations at cartpole and pendulum, 14 at the quadrotor), and post computes every operation of the program but those calls
+    and what only they read."""
     _, ocp, nx, _ = host_fused
-    prog = tf.scalar_programs(ocp, nx, 1)["stage_bwd"]
-    pre, post = tf.backward_halves(ocp, nx, 1)
-    assert pre.out_shapes == [({4: 10, 2: 8}[nx],)]
+    nu = {4: 1, 2: 1, 6: 2}[nx]
+    prog = tf.scalar_programs(ocp, nx, nu)["stage_bwd"]
+    pre, post = tf.backward_halves(ocp, nx, nu)
+    assert pre.out_shapes == [({4: 10, 2: 8, 6: 15}[nx],)]
     assert {h.op for h in pre.outs[0]} <= CALLS | {"input"}
     assert {nd.op for nd in post.order} & CALLS == set()
-    assert pre.stats["ops"] == 10
+    assert pre.stats["ops"] == {4: 10, 2: 10, 6: 14}[nx]
     assert post.stats["ops"] >= prog.stats["ops"] - pre.stats["ops"]
     gen = torch.Generator().manual_seed(nx)
     args = [0.1 + 0.4 * torch.rand(tuple(s) + (16,), generator=gen,

@@ -12,8 +12,8 @@ lane of a scenario through each step, with the shared memory filled with
 NaN first.  Here they are compiled with ``g++`` and held
 
 * the rollout cost in float64 at 1e-12 of scale to ``rollout_cost_plain``
-  (xs, xT, the barrier total cost, sum ||cu||^2), cartpole and pendulum
-  at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the one-thread
+  (xs, xT, the barrier total cost, sum ||cu||^2), cartpole, pendulum and
+  the planar quadrotor (nx=6, nu=2) at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the one-thread
   loop it replaces (the parent kernel's, ``roll_cost`` whole, built by the
   same compiler) bit for bit in float64 and float32, at the kernel's group
   and chunk and at those timed against it; on inputs that start one scalar
@@ -21,8 +21,11 @@ NaN first.  Here they are compiled with ``g++`` and held
 * the codegen's cut of ``roll_cost`` (``rollout_cost_parts``): the
   transition kernel's programs, composed to ``roll_cost`` to the bit;
 * the value scan in float64 at 1e-12 of scale to ``value_scan_plain``
-  (the association follows P, so not to the bit), n in {2, 3, 4}, every
-  lane count P in {32, 64, 128, 256}, T in {1, 7, 33, 129, 1000};
+  (the association follows P, so not to the bit), n in {2, 3, 4, 6}, every
+  lane count P in {32, 64, 128, 256} whose block fits the card's shared
+  memory, T in {1, 7, 33, 129, 1000}; ``scan_shared_bytes(...,
+  value=True)`` equal to the header's count at every n, dtype and P, and
+  the cap it puts on P;
 * the launch rules: the rollout cost's lanes per scenario, scenarios per
   block and blocks, and ``scan_lanes(..., value=True)`` with the value
   scan's block shape, at B in {1, 3, 1024, 4096};
@@ -51,6 +54,7 @@ from ipoc_tpu.ops.pallas.seq_newton_kernel import _pack_s, _unpack_s
 from ipoc_tpu.parallel import lqt as J
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import scan_kernels as sk
@@ -61,7 +65,9 @@ torch.set_num_threads(1)
 
 TOL = 1e-12
 DT = 1.0 / 40
-MODELS = {"cartpole": (t_cartpole, 4), "pendulum": (t_pendulum, 2)}
+# model: (port module, nx, nu, the controls' centre inside the box)
+MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
 # (G lanes per scenario, W stages per chunk): the kernel's first, then
 # those timed against it.
 ROLL_SHAPES = ("kernel's", (8, 8), (4, 8), (1, 8))
@@ -179,8 +185,39 @@ extern "C" int host_value_scan(int dtype, int n, int P, const void* const* in,
   if (dtype == 1 && n == 2) return lanes<double, 2>(P, in, out, B, T);
   if (dtype == 1 && n == 3) return lanes<double, 3>(P, in, out, B, T);
   if (dtype == 1 && n == 4) return lanes<double, 4>(P, in, out, B, T);
+  if (dtype == 1 && n == 6) return lanes<double, 6>(P, in, out, B, T);
   if (dtype == 0 && n == 4) return lanes<float, 4>(P, in, out, B, T);
   return -1;
+}
+
+// Shared bytes per block of the value scan at (n, P) (par_newton.cu
+// ScanLaunch::smem).
+template <typename scalar_t, int N, int P>
+int bytes() {
+  using Sc = ipoc::ValueScan<scalar_t, N, P>;
+  return Sc::kScenarios * Sc::kShared * static_cast<int>(sizeof(scalar_t));
+}
+
+template <typename scalar_t, int N>
+int bytes_p(int P) {
+  if (P == 32) return bytes<scalar_t, N, 32>();
+  if (P == 64) return bytes<scalar_t, N, 64>();
+  if (P == 128) return bytes<scalar_t, N, 128>();
+  if (P == 256) return bytes<scalar_t, N, 256>();
+  return -1;
+}
+
+template <typename scalar_t>
+int bytes_n(int n, int P) {
+  if (n == 2) return bytes_p<scalar_t, 2>(P);
+  if (n == 3) return bytes_p<scalar_t, 3>(P);
+  if (n == 4) return bytes_p<scalar_t, 4>(P);
+  if (n == 6) return bytes_p<scalar_t, 6>(P);
+  return -1;
+}
+
+extern "C" int host_value_bytes(int dtype, int n, int P) {
+  return dtype == 0 ? bytes_n<float>(n, P) : bytes_n<double>(n, P);
 }
 
 // A lane's stages in a tile, a slot's stride in scalars, scenarios and
@@ -231,9 +268,9 @@ def _compile(tmp_path_factory, key, text):
     return _LIBS[key]
 
 
-def _roll_lib(tmp_path_factory, name, ocp, nx):
+def _roll_lib(tmp_path_factory, name, ocp, nx, nu=1):
     lib = _compile(tmp_path_factory, f"rollout_cost_{name}",
-                   '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, 1)
+                   '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, nu)
                    + ROLL_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_rollout_cost.argtypes = [i, i, p, p, i, i]
@@ -247,9 +284,10 @@ def _roll_lib(tmp_path_factory, name, ocp, nx):
 def roll(request, tmp_path_factory):
     """``(model, ocp, nx, lib)``: one model's generated struct (dt = 1/40)
     and rollout_cost.h compiled with the host C++ compiler."""
-    model, nx = MODELS[request.param]
+    model, nx, nu, _ = MODELS[request.param]
     ocp = model.make_ocp(DT)
-    return model, ocp, nx, _roll_lib(tmp_path_factory, request.param, ocp, nx)
+    return model, ocp, nx, _roll_lib(tmp_path_factory, request.param, ocp, nx,
+                                     nu)
 
 
 @pytest.fixture(scope="module")
@@ -261,6 +299,8 @@ def value(tmp_path_factory):
     lib.host_value_scan.restype = i
     lib.host_value_geometry.argtypes = [i, i, p]
     lib.host_value_geometry.restype = i
+    lib.host_value_bytes.argtypes = [i, i, i]
+    lib.host_value_bytes.restype = i
     return lib
 
 
@@ -282,11 +322,12 @@ def _rollout_cost(lib, u, x0, bp, shape=0):
 
 def _lanes(model, nx, B, T, seed, dtype=torch.float64):
     """Packed controls, initial states and barrier parameters from numpy:
-    ``u (T, 1, B)``, ``x0 (nx, B)``, ``bp (B,)``."""
+    ``u (T, nu, B)``, ``x0 (nx, B)``, ``bp (B,)``."""
     rng = np.random.default_rng(seed)
     x0 = model.initial_state(torch.float64).numpy()
+    _, _, nu, centre = next(m for m in MODELS.values() if m[0] is model)
     t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
-    return (t(0.1 * rng.normal(size=(T, 1, B))),
+    return (t(centre + 0.1 * rng.normal(size=(T, nu, B))),
             t(x0[:, None] + 0.01 * rng.normal(size=(nx, B))),
             t(rng.uniform(0.01, 0.2, size=B)))
 
@@ -347,9 +388,10 @@ def test_rollout_cost_parts_are_the_stage_program(roll):
     and ||cu||^2 (each the product of its pair) to the bit on the torch
     evaluators in float64."""
     _, ocp, nx, _ = roll
-    prog = tf.scalar_programs(ocp, nx, 1)["roll_cost"]
-    step, ev = tf.rollout_cost_parts(ocp, nx, 1)
-    t_step, t_ev = tf.transition_parts(ocp, nx, 1)
+    nu = {4: 1, 2: 1, 6: 2}[nx]
+    prog = tf.scalar_programs(ocp, nx, nu)["roll_cost"]
+    step, ev = tf.rollout_cost_parts(ocp, nx, nu)
+    t_step, t_ev = tf.transition_parts(ocp, nx, nu)
     assert same_program(step, t_step) and same_program(ev, t_ev)
     assert not same_program(step, ev)
     gen = torch.Generator().manual_seed(nx)
@@ -391,7 +433,26 @@ def test_host_value_scan_matches_plain(value, n, T):
     elems = _value_elems(T + n, 1 if T == 1000 else 2, T, n)
     ref = sk.value_scan_plain(*elems)
     for P in sk.SCAN_LANES:
+        if sk.scan_shared_bytes(n, P, torch.float64, value=True) \
+                > cuda.MAX_SMEM:
+            continue  # a block the card cannot hold: never launched
         _assert_close(_value_scan(value, elems, P), ref, f"n={n} T={T} P={P}")
+
+
+@pytest.mark.parametrize("n", sk.SCAN_N)
+def test_value_shared_bytes_and_lane_cap(value, n):
+    """``scan_shared_bytes(..., value=True)`` against the header's
+    constants at every dtype and lane count, and the rule's cap: a single
+    long scenario gets 256 lanes unless that block would pass the card's
+    shared memory (then 128: n=6 in float64, 255,488 bytes)."""
+    for dtype in (torch.float32, torch.float64):
+        for P in sk.SCAN_LANES:
+            assert sk.scan_shared_bytes(n, P, dtype, value=True) == \
+                value.host_value_bytes(cuda.dtype_code(dtype), n, P), (dtype, P)
+        fits = sk.scan_shared_bytes(n, 256, dtype, value=True) <= cuda.MAX_SMEM
+        assert fits == (n != 6 or dtype == torch.float32)
+        assert sk.scan_lanes(1, 1001, dtype, value=True, n=n) == \
+            (256 if fits else 128)
 
 
 @pytest.mark.parametrize("B", [1, 3, 1024, 4096])

@@ -8,16 +8,18 @@ the scan's steps every lane of a scenario through each step, a shuffle
 reading the lanes' values as they stood before it, with the shared memory
 filled with NaN first.  Here they are compiled with ``g++`` and held
 
-* the rollout in float64 at 1e-12 of scale to ``rollout_plain``, cartpole
-  and pendulum at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the
+* the rollout in float64 at 1e-12 of scale to ``rollout_plain``, cartpole,
+  pendulum and the planar quadrotor (nx=6, nu=2) at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the
   one-thread loop it replaces (the parent kernel's, built by the same
   compiler) bit for bit in float64 and float32, at the kernel's chunk
   length and at those measured against it; on inputs that start one scalar
   past a 16-byte boundary, to the bit of the aligned ones;
 * the scan in float64 to ``affine_scan_plain`` at 1e-12 of scale (the
   association follows P, so not to the bit), both directions, n in
-  {2, 3, 4}, every lane count P in {32, 64, 128, 256}, T in {1, 7, 33,
-  129, 1000} (1000 and 129 are no multiple of P times the chunk length);
+  {2, 3, 4, 6}, every lane count P in {32, 64, 128, 256} whose block fits
+  the card's shared memory, T in {1, 7, 33, 129, 1000} (1000 and 129 are
+  no multiple of P times the chunk length); ``scan_shared_bytes`` equal to
+  the header's count at every n, dtype and P, and the cap it puts on P;
 * the launch rules: the rollout's scenarios per block, chunk length and
   blocks, and ``scan_lanes`` with the scan's block shape, at B in {1, 3,
   1024, 4096};
@@ -39,10 +41,12 @@ import torch
 
 from ipoc_tpu.models import cartpole as j_cartpole
 from ipoc_tpu.models import pendulum as j_pendulum
+from ipoc_tpu.models import quadrotor as j_quadrotor
 from ipoc_tpu.ops.pallas import fused_iter_kernel as jf
 from ipoc_tpu.ops.pallas.scan_kernels import pallas_affine_scan
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
+from ipoc_tpu_torch.models import quadrotor as t_quadrotor
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import scan_kernels as sk
@@ -51,8 +55,11 @@ torch.set_num_threads(1)
 
 TOL = 1e-12
 DT = 1.0 / 40
-MODELS = {"cartpole": (t_cartpole, j_cartpole, 4),
-          "pendulum": (t_pendulum, j_pendulum, 2)}
+# model: (port module, JAX module, nx, nu, the controls' centre inside the
+# box)
+MODELS = {"cartpole": (t_cartpole, j_cartpole, 4, 1, 0.0),
+          "pendulum": (t_pendulum, j_pendulum, 2, 1, 0.0),
+          "quadrotor": (t_quadrotor, j_quadrotor, 6, 2, t_quadrotor.HOVER)}
 # Stages per chunk: the kernel's (8 in float32, 1 in float64) first, then
 # those timed against it.
 ROLLOUT_CHUNKS = ("kernel's", 2, 4, 16)
@@ -127,6 +134,7 @@ extern "C" int host_rollout_geometry(int dtype, int B, int* out) {
 
 SCAN_SOURCE = r"""
 #include <math.h>
+#include <type_traits>
 #include <vector>
 #include "affine_scan.h"
 
@@ -163,6 +171,7 @@ int shape(int n, int reverse, int P, const void* F, const void* c, void* Fo, voi
   if (n == 2) return dir<scalar_t, 2>(reverse, P, F, c, Fo, co, B, T);
   if (n == 3) return dir<scalar_t, 3>(reverse, P, F, c, Fo, co, B, T);
   if (n == 4) return dir<scalar_t, 4>(reverse, P, F, c, Fo, co, B, T);
+  if (n == 6) return dir<scalar_t, 6>(reverse, P, F, c, Fo, co, B, T);
   return -1;
 }
 
@@ -182,6 +191,34 @@ void geometry_t(int* out) {
   out[1] = Sc::kScenarios;
   out[2] = Sc::kBlock;
   out[3] = Sc::kScenarios * Sc::kShared * static_cast<int>(sizeof(scalar_t));
+}
+
+// Shared bytes per block of the affine scan at (n, P) (par_newton.cu
+// ScanLaunch::smem).
+template <typename scalar_t, int N>
+int scan_bytes(int P) {
+  auto b = [](auto pp) {
+    using Sc = ipoc::AffineScan<scalar_t, N, decltype(pp)::value, true>;
+    return Sc::kScenarios * Sc::kShared * static_cast<int>(sizeof(scalar_t));
+  };
+  if (P == 32) return b(std::integral_constant<int, 32>());
+  if (P == 64) return b(std::integral_constant<int, 64>());
+  if (P == 128) return b(std::integral_constant<int, 128>());
+  if (P == 256) return b(std::integral_constant<int, 256>());
+  return -1;
+}
+
+template <typename scalar_t>
+int scan_bytes_n(int n, int P) {
+  if (n == 2) return scan_bytes<scalar_t, 2>(P);
+  if (n == 3) return scan_bytes<scalar_t, 3>(P);
+  if (n == 4) return scan_bytes<scalar_t, 4>(P);
+  if (n == 6) return scan_bytes<scalar_t, 6>(P);
+  return -1;
+}
+
+extern "C" int host_scan_bytes(int dtype, int n, int P) {
+  return dtype == 0 ? scan_bytes_n<float>(n, P) : scan_bytes_n<double>(n, P);
 }
 
 extern "C" int host_scan_geometry(int dtype, int P, int* out) {
@@ -224,10 +261,10 @@ def _compile(tmp_path_factory, key, text):
 def roll(request, tmp_path_factory):
     """``(model, ocp, nx, lib)``: one model's generated struct (dt = 1/40)
     and rollout.h compiled with the host C++ compiler."""
-    model, _, nx = MODELS[request.param]
+    model, _, nx, nu, _ = MODELS[request.param]
     ocp = model.make_ocp(DT)
     lib = _compile(tmp_path_factory, f"rollout_{request.param}",
-                   '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, 1)
+                   '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, nu)
                    + ROLLOUT_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_rollout.argtypes = [i, i, p, p, i, i]
@@ -247,6 +284,8 @@ def scan(tmp_path_factory):
     lib.host_affine_scan.restype = i
     lib.host_scan_geometry.argtypes = [i, i, p]
     lib.host_scan_geometry.restype = i
+    lib.host_scan_bytes.argtypes = [i, i, i]
+    lib.host_scan_bytes.restype = i
     return lib
 
 
@@ -266,11 +305,12 @@ def _rollout(lib, u, x0, shape=0):
 
 
 def _lanes(model, nx, B, T, seed, dtype=torch.float64):
-    """Packed controls and initial states from numpy: ``u (T, 1, B)``,
+    """Packed controls and initial states from numpy: ``u (T, nu, B)``,
     ``x0 (nx, B)``."""
     rng = np.random.default_rng(seed)
     x0 = model.initial_state(torch.float64).numpy()
-    u = torch.tensor(0.1 * rng.normal(size=(T, 1, B)), dtype=dtype)
+    _, _, _, nu, centre = next(m for m in MODELS.values() if m[0] is model)
+    u = torch.tensor(centre + 0.1 * rng.normal(size=(T, nu, B)), dtype=dtype)
     x0b = torch.tensor(x0[:, None] + 0.01 * rng.normal(size=(nx, B)), dtype=dtype)
     return u, x0b
 
@@ -350,8 +390,25 @@ def test_host_scan_matches_plain(scan, n, reverse, T):
     F, c = (torch.tensor(a) for a in _affine(np.random.default_rng(T + n), 3, T, n))
     ref = sk.affine_scan_plain(F, c, reverse)
     for P in sk.SCAN_LANES:
+        if sk.scan_shared_bytes(n, P, torch.float64) > cuda.MAX_SMEM:
+            continue  # a block the card cannot hold: never launched
         _assert_close(_scan(scan, F, c, reverse, P), ref,
                       f"n={n} T={T} P={P} reverse={reverse}")
+
+
+@pytest.mark.parametrize("n", sk.SCAN_N)
+def test_scan_shared_bytes_and_lane_cap(scan, n):
+    """``scan_shared_bytes`` against the header's constants at every dtype
+    and lane count, and the rule's cap: a single long scenario gets 256
+    lanes unless that block would pass the card's shared memory (then 128:
+    n=6 in float64, 346,752 bytes)."""
+    for dtype in (torch.float32, torch.float64):
+        for P in sk.SCAN_LANES:
+            assert sk.scan_shared_bytes(n, P, dtype) == scan.host_scan_bytes(
+                cuda.dtype_code(dtype), n, P), (dtype, P)
+        fits = sk.scan_shared_bytes(n, 256, dtype) <= cuda.MAX_SMEM
+        assert fits == (n != 6 or dtype == torch.float32)
+        assert sk.scan_lanes(1, 1001, dtype, n=n) == (256 if fits else 128)
 
 
 @pytest.mark.parametrize("B", [1, 3, 1024, 4096])
@@ -390,18 +447,18 @@ def test_host_rollout_matches_jax_kernel_f32(tmp_path_factory, model):
     """The kernel's schedule against ``rollout_batched`` (interpret mode, one
     sublane), T=17, B=3 (``tests/test_torch_fused_iter.py``'s case): x0
     equal, every state within 1e-6."""
-    tm, jm, nx = MODELS[model]
+    tm, jm, nx, nu, centre = MODELS[model]
     Tn, Bn = 17, 3
     ocp = tm.make_ocp(1.0 / Tn)
     lib = _compile(tmp_path_factory, f"rollout_{model}_T{Tn}",
-                   '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, 1)
+                   '#include "scalar_math.h"\n' + tf.model_struct(ocp, nx, nu)
                    + ROLLOUT_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_rollout.argtypes = [i, i, p, p, i, i]
     lib.host_rollout.restype = i
     rng = np.random.default_rng(2)
     x0 = np.asarray(jm.initial_state(jnp.float64))
-    u = (0.1 * rng.normal(size=(Bn, Tn, 1))).astype(np.float32)
+    u = (centre + 0.1 * rng.normal(size=(Bn, Tn, nu))).astype(np.float32)
     x0b = (x0 + 0.02 * rng.normal(size=(Bn, nx))).astype(np.float32)
     with jax.enable_x64(False):
         ref = np.asarray(jf.rollout_batched(jm.make_ocp(1.0 / Tn).dynamics,
