@@ -8,9 +8,11 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``ipoc_tpu_torch/csrc`` (the seq
 and parallel-in-time libraries and one fused library per model and time
 step, generated from the model: cartpole at dt 0.01, 0.04, 0.001 and 0.004,
-pendulum at 0.01, the planar quadrotor at 0.025 and 0.1, each model traced
-in a worker process of its own; parallel ``nvcc`` calls, one per source)
-and then runs its phases, each printing one JSON line:
+pendulum at 0.01, the planar quadrotor at 0.025 and 0.1, the unicycle at
+0.01 and 0.04, each model traced
+in a worker process of its own; parallel ``nvcc`` calls, one per source,
+those of the seq and parallel-in-time libraries started before the
+tracing) and then runs its phases, each printing one JSON line:
 
   0. the device: its name, power limit, the kernels' build time, the
      registers and spills ``ptxas`` reports for the mega kernel, the
@@ -32,13 +34,15 @@ and then runs its phases, each printing one JSON line:
      must fail the PD test; then each kernel's time beside the plain
      version's (the trial in both dtypes, through its wrapper and its C
      entry alone, also in SM cycles per stage);
-  B. ``solve_stream`` on 256 cartpole scenarios in float64: the card
+  B. ``solve_stream`` on 128 cartpole scenarios in float64 (cut from 256
+     when phase U came): the card
      (kernels) against the CPU (plain versions);
   C. ``solve_stream`` at the bench's width: cartpole H=100, float32,
      ``BATCH_CONFIG.replace(newton_impl="seq")``, 4096 lanes, refill every
      32, a pool of 1 x 4096 scenarios (cut from 4 x 4096 to keep the
      script inside its time limit: this host-bound path takes some 60 s at
-     4 x 4096);
+     4 x 4096), its busy window (as F's) after 30 iterations (after 90
+     until phase U came);
   D. the five fused kernels against their plain versions on the fused
      slice's data (cartpole T=100, the pool's first 4096 lanes, at bp=0.1
      and at bp=0.004), float64 then float32, and on pendulum at B=256;
@@ -57,15 +61,18 @@ and then runs its phases, each printing one JSON line:
   F. the packed stream's two-launch arm (``mega=False``) at the bench's
      width: cartpole H=100, float32, ``BATCH_CONFIG`` unmodified, 4096
      lanes, refill every 32, a pool of 4 x 4096 scenarios, with the device
-     busy share, every kernel's launch count and the lane openings' B
-     (count, min, median, max; so too H, I and O); then the first 512 raw
-     costs against the float64 solve on the card;
+     busy share over a window of 10 iterations (the whole run's, profiled
+     again, was cut when phase U came), every kernel's launch count and
+     the lane openings' B (count, min, median, max; so too H, I and O);
+     then the first 512 raw costs against the float64 solve on the card;
   G. the merged trial (Newton at T=100, DDP at T=25) and the mega kernel
      (Newton at T=100 and DDP at T=25, k=4 with two iterations per barrier
      stage so that lanes roll over, then k=32) against their plain
      versions, and the mega kernel against k steps of ``packed_lane_iter``
      on the two-launch kernels, on 4096 lanes of the pool at bp 0.1 and
-     0.004, float64 then float32; then each kernel's time beside its plain
+     0.004 (the k=32 launch against its plain version on its first 1024:
+     cut from 4096 when phase U came), float64 then float32; then each
+     kernel's time beside its plain
      version's, the mega launch beside 32 two-launch iterations, and its
      time per serial stage-iteration
      (ms / (steps x T), and in cycles at the SM clock ``nvidia-smi``
@@ -92,12 +99,13 @@ and then runs its phases, each printing one JSON line:
      per scenario their launch rule picked);
   L. ``par_interior_point_optimal_control``: the goldens (pendulum and
      cartpole H=100, float64) against tests/golden/*.npz and the CPU run,
-     the seq solve beside them; cartpole H=1000 under FAST_CONFIG in
-     float32 and float64 with iterations, trials, wall time (one solve;
-     cut from the median of 5 to 3 when phases N and O came, to 1 when S
-     came), host reads and launches per
-     solve, and the busy share over the first barrier stage with the
-     trial's share of its device time and wall;
+     pendulum's seq solve beside them (cartpole's cut when phase U came);
+     cartpole H=1000 under FAST_CONFIG in float32 and float64 with
+     iterations, trials, wall time (one solve; cut from the median of 5
+     to 3 when phases N and O came, to 1 when S came), host reads and
+     launches per solve, and, in float32 (float64's cut when U came), the
+     busy share over the first barrier stage with the trial's share of
+     its device time and wall;
   M. ``solve_batch(method="par")`` on the pool's first 1024 scenarios in
      float32 under FAST_CONFIG (the busy share over its first 11 lockstep
      iterations, and the trial's share of them); then 128 scenarios (cut
@@ -144,11 +152,12 @@ and then runs its phases, each printing one JSON line:
      in JAX): the pendulum golden on the card against
      tests/golden/pendulum_h100.npz and the CPU run, the cartpole golden
      on the CPU child against its file; ``solve_batch(method="ddp")`` on
-     16 pool scenarios under FAST_CONFIG (wall, lockstep iterations, mean
+     4 pool scenarios under FAST_CONFIG (wall, lockstep iterations, mean
      and max iterations, lanes at a stage's cap, non-finite costs; against
-     the CPU lane by lane; cut from 256: the plain solve is host-bound,
-     some 0.3-0.5 s per lockstep iteration on the card whatever the
-     lanes, and more lanes take more lockstep iterations); no float32
+     the CPU lane by lane; cut from 256, and from 16 when phase U came:
+     the plain solve is host-bound, some 0.3-0.5 s per lockstep iteration
+     on the card whatever the lanes, and more lanes take more lockstep
+     iterations); no float32
      solve is timed (P, Q and R together are held near 120 s);
   R. warm transfer in the packed stream at H's width (4096 lanes, refill
      32, a pool of 4 x 4096, float32): on pendulum H=100 against the cold
@@ -195,15 +204,49 @@ and then runs its phases, each printing one JSON line:
      solves of tests/test_quadrotor.py (par, seq, and par with the seq
      trial) and a double-integrator par solve, float64, against the CPU
      child's: equal iterations, controls within 1e-8.
+  U. the state constraints: the unicycle (nx=3, nu=2) with its keep-out
+     disc, and BASELINE.json config 3's cart box.  (U1) every generated
+     kernel at (3, 2) against its plain version, float64 then float32, at
+     B in {33, 4096} and bp in {0.1, 0.004} (at 0.1 the pool's cold
+     start; at 0.004 each level's iterates converged at that barrier
+     stage, which ride the disc): the fused five on the fine grid, the
+     merged trial and one k=8 mega launch per mode (Newton at T=100, DDP
+     at T=25; at B=4096 held on its first 1024 lanes), with phases D and
+     G's tolerances and, where the disc's barrier makes every evaluation
+     order round apart, the plain version's own one-ulp spread; the disc
+     batches (a
+     single interior stage inside the disc: max_c > 0 and NaN barrier
+     costs, kernel and plain version alike; only the terminal state
+     inside: feasible); then each generated kernel's float32 time at
+     B=4096, T=100 on the iterates at bp 0.004; (U2) bench.py's unicycle
+     configuration (IPOC_BENCH_MODEL=unicycle: H=100, dt 1/100,
+     BATCH_CONFIG, float32, 4096 lanes, refill 32) on 4 x 4096
+     scenarios: the single grid on the mega executor and the two-launch
+     arm, the multigrid (a DDP coarse level at T=25) with the lanes its
+     usable gate sent to the cold start, and its coarse level on the
+     two-launch arm: solves/s, busy share, steps and iterations per level,
+     lanes at the cap, the non-finite raw-cost share (0), every lane's
+     largest constraint over its stage points (<= 0), the least distance
+     to the disc's centre (>= its radius), the basin-switch fraction
+     (reported, no limit); (U3) ``solve_batch`` under BATCH_CONFIG on
+     1024 scenarios, its launches held to their exact counts, every lane
+     feasible; (U4) tests/test_unicycle.py's par and seq solves and
+     config 3's par solve (examples/p50_budget.py: cartpole H=100,
+     cart_limit 0.3) in float64 against the CPU child's (equal
+     iterations, controls within 1e-8; the unicycle riding the disc
+     within 1e-3), config 3 in float32 (median wall of 3, |x_cart| < 0.3);
+     (U5, last) the multigrid on 128 of U2's scenarios in float64, the
+     card against the CPU: equal steps and iterations on both levels, the
+     same fallback lanes, controls within 1e-8.
 
-Phases B, E, J, the second halves of M and N, R's float64 check, T3 and P64
-run last: their CPU halves (and L's and Q's CPU golden solves) run
+Phases B, E, J, the second halves of M and N, R's float64 check, T3, P64
+and U5 run last: their CPU halves (and L's and Q's CPU golden solves) run
 meanwhile, in one child process each, started at the beginning (P's, Q's,
-R's and T's when phase P starts).  A failed
+R's, T's and U's when phase P starts).  A failed
 check fails its phase; the other phases still run, and any failure exits
 non-zero.  The line before the last holds the kernels' record; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of
-A-T (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
+A-U (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
 script's total seconds.  Without a card, or outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
@@ -252,8 +295,12 @@ LONG_T = 1000
 # the batch of phase M.
 PAR_HORIZONS = (T, LONG_T)
 PAR_BATCH = 1024
+# Phase L's goldens whose seq solve also runs on the card (cartpole's, some
+# 40 s of host-bound tensor code, was cut when phase U came).
+GOLDEN_SEQ = ("pendulum",)
 # Scenarios of the card-against-CPU phases (256 unless listed).
-CARD_VS_CPU_SCENARIOS = {"M": 128, "Nflat": 128, "Nddp": 128, "T3": 128}
+CARD_VS_CPU_SCENARIOS = {"B": 128, "M": 128, "Nflat": 128, "Nddp": 128,
+                         "T3": 128, "U5": 128}
 # Phase T: bench.py's quadrotor configuration (IPOC_BENCH_MODEL=quadrotor
 # IPOC_BENCH_HORIZON=40: H=40, dt=1/40; the multigrid's coarse level T=10),
 # the batches of its kernel checks, and tests/test_quadrotor.py's single
@@ -262,6 +309,16 @@ QUAD_T = 40
 QUAD_CHECK_B = (33, LANES)
 QUAD_SOLVE = (2, QUAD_T)   # (coarsen, horizon): dt = 2 / 40 = 0.05
 DI_SOLVE = (1, 100)        # dt = 0.01
+# Phase U: bench.py's unicycle configuration (IPOC_BENCH_MODEL=unicycle:
+# H=100, dt 1/100; the multigrid's coarse level T=25), the batches and
+# barrier parameters of its kernel checks, tests/test_unicycle.py's single
+# solve (T=60, dt 2/60) and BASELINE.json config 3 (cartpole H=100, dt
+# 0.01, the cart box |x_cart| <= 0.3; examples/p50_budget.py).
+UNI_CHECK_B = (33, LANES)
+UNI_BPS = (0.1, 0.004)
+UNI_SOLVE = (2, 60)
+CART_LIMIT = 0.3
+UNI_SCENARIOS = 1024       # U3's batch
 
 def model_ocp(name, coarsen=1, horizon=T):
     """One OCP object per model, horizon and coarsening (the time step is
@@ -277,16 +334,20 @@ def model_module(name):
         double_integrator,
         pendulum,
         quadrotor,
+        unicycle,
     )
 
     return {"cartpole": cartpole, "pendulum": pendulum,
-            "quadrotor": quadrotor,
-            "double_integrator": double_integrator}[name]
+            "quadrotor": quadrotor, "double_integrator": double_integrator,
+            "unicycle": unicycle, "cartpole_box": cartpole}[name]
 
 
 @functools.lru_cache(maxsize=None)
 def _model_ocp(name, coarsen, horizon):
-    return model_module(name).make_ocp(coarsen * (1.0 / horizon))
+    dt = coarsen * (1.0 / horizon)
+    if name == "cartpole_box":
+        return model_module(name).make_ocp(dt, cart_limit=CART_LIMIT)
+    return model_module(name).make_ocp(dt)
 
 
 def check(cond, msg):
@@ -553,13 +614,14 @@ def compare_costates(args, tol, label):
 
 
 # The fused libraries phase 0 builds: (model, coarsen, horizon, nx, nu);
-# the last two are phase T's planar quadrotor, fine (T=40) and coarse
-# (T=10).
+# then phase T's planar quadrotor, fine (T=40) and coarse (T=10), and
+# phase U's unicycle, fine (T=100) and coarse (T=25).
 FUSED_MODELS = (("cartpole", 1, T, 4, 1), ("cartpole", COARSEN, T, 4, 1),
                 ("pendulum", 1, T, 2, 1), ("cartpole", 1, LONG_T, 4, 1),
                 ("cartpole", COARSEN, LONG_T, 4, 1),
                 ("quadrotor", 1, QUAD_T, 6, 2),
-                ("quadrotor", COARSEN, QUAD_T, 6, 2))
+                ("quadrotor", COARSEN, QUAD_T, 6, 2),
+                ("unicycle", 1, T, 3, 2), ("unicycle", COARSEN, T, 3, 2))
 
 
 def traced_programs(name, coarsen, horizon, nx, nu):
@@ -574,7 +636,7 @@ def traced_programs(name, coarsen, horizon, nx, nu):
 
 def phase_device():
     import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     import torch
 
@@ -589,19 +651,26 @@ def phase_device():
     power = smi.stdout.strip().splitlines()[0]
     print(power, flush=True)
     t0 = time.perf_counter()
-    # The codegen traces each model's stage programs (some 15 s of Python
-    # per model on the card's host): one worker process per model.
-    with ProcessPoolExecutor(len(FUSED_MODELS), multiprocessing.get_context(
-            "spawn")) as pool:
-        traced = list(pool.map(traced_programs, *zip(*FUSED_MODELS)))
-    specs = [cuda.SEQ_NEWTON, cuda.PAR_NEWTON]
-    for (model, coarsen, horizon, nx, nu), progs in zip(FUSED_MODELS,
-                                                        traced):
-        ocp = model_ocp(model, coarsen, horizon)
-        fused_iter.scalar_programs(ocp, nx, nu, traced=progs)
-        specs.append(fused_iter.model_spec(ocp, nx, nu))
-    codegen_s = time.perf_counter() - t0
-    paths = cuda.build_all(specs)
+    # The fixed-shape libraries need no codegen: their nvcc calls (the
+    # longest, par_newton.cu, some 150 s) start now, in a thread, while
+    # the codegen traces each model's stage programs (some 15 s of Python
+    # per model on the card's host) in one worker process per model.
+    with ThreadPoolExecutor(1) as compiling:
+        fixed = compiling.submit(cuda.build_all,
+                               [cuda.SEQ_NEWTON, cuda.PAR_NEWTON])
+        with ProcessPoolExecutor(len(FUSED_MODELS),
+                                 multiprocessing.get_context(
+                                     "spawn")) as pool:
+            traced = list(pool.map(traced_programs, *zip(*FUSED_MODELS)))
+        specs = []
+        for (model, coarsen, horizon, nx, nu), progs in zip(FUSED_MODELS,
+                                                            traced):
+            ocp = model_ocp(model, coarsen, horizon)
+            fused_iter.scalar_programs(ocp, nx, nu, traced=progs)
+            specs.append(fused_iter.model_spec(ocp, nx, nu))
+        codegen_s = time.perf_counter() - t0
+        paths = cuda.build_all(specs)
+        paths = fixed.result() + paths
     build_s = time.perf_counter() - t0
     cuda.library()
     cuda.library(cuda.PAR_NEWTON)
@@ -616,13 +685,19 @@ def phase_device():
               level: ptxas_report(paths[i], model_ocp(*FUSED_MODELS[i - 2][:3]),
                                   6, 2)
               for level, i in (("fine_T40", 7), ("coarse_T10", 8))},
+          "ptxas_unicycle": {
+              level: ptxas_report(paths[i], model_ocp(*FUSED_MODELS[i - 2][:3]),
+                                  3, 2)
+              for level, i in (("fine_T100", 9), ("coarse_T25", 10))},
           "sass_cartpole": sass_mix(paths[2]),
           "ptxas_par_newton": par_ptxas_report(paths[1]),
           "rows_kernels": rows_report(paths[0], {
               "cartpole": (model_ocp(*FUSED_MODELS[0][:3]), 4, 1, paths[2]),
               "pendulum": (model_ocp(*FUSED_MODELS[2][:3]), 2, 1, paths[4]),
               "quadrotor": (model_ocp(*FUSED_MODELS[5][:3]), 6, 2,
-                            paths[7])}),
+                            paths[7]),
+              "unicycle": (model_ocp(*FUSED_MODELS[7][:3]), 3, 2,
+                           paths[9])}),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return name, power
 
@@ -1034,6 +1109,9 @@ CARD_VS_CPU = {"B": "BATCH_CONFIG.replace(newton_impl='seq')",
                "R": "solve_stream(warm_transfer=True), BATCH_CONFIG",
                "T3": "quadrotor H=40, solve_stream_multigrid(coarsen=4, "
                      "coarse_impl='ddp'), BATCH_CONFIG"}
+# Phase U5's, which runs apart from the loop over CARD_VS_CPU.
+U5_CONFIG = ("unicycle H=100, solve_stream_multigrid(coarsen=4, "
+             "coarse_impl='ddp'), BATCH_CONFIG")
 # The model of a card-against-CPU phase other than cartpole H=100:
 # model_ocp's arguments.
 CARD_VS_CPU_MODEL = {"T3": ("quadrotor", 1, QUAD_T)}
@@ -1087,7 +1165,7 @@ def cpu_reference_solve(phase):
     a dict of those for Nflat and Nddp, which one process runs in turn.
     For L, the goldens' parallel solves (:func:`golden_par_cpu`); for P,
     the nmpc loop (:func:`nmpc_cpu`); for Q, a dict of the goldens' IP-DDP
-    solves (Qgolden) and IP-DDP on the first 16 scenarios (Qddp)."""
+    solves (Qgolden) and IP-DDP on the first DDP_SCENARIOS (Qddp)."""
     import torch
 
     from ipoc_tpu_torch.models import cartpole
@@ -1100,6 +1178,8 @@ def cpu_reference_solve(phase):
         return golden_par_cpu()
     if phase == "T":
         return quad_cpu()
+    if phase == "U":
+        return uni_cpu()
     if phase == "P":
         return nmpc_cpu()
     pool = make_pool(cartpole, POOL, torch.float32)
@@ -1222,7 +1302,7 @@ def top_kernels(per_kernel, n=8):
     return dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:n])
 
 
-def busy_share(lane, step, warm_iters=90, window=10):
+def busy_share(lane, step, warm_iters=30, window=10):
     """Device busy share over a window of lane iterations on the full lane
     batch, after ``warm_iters`` iterations (lanes then sit in several
     barrier stages): device time of the profiler's kernel rows over the
@@ -1361,7 +1441,7 @@ def phase_stream_at_width(phase, cfg, cfg_name, pool32, pool64, dev,
             open_lanes(ocp, u[:LANES], x0[:LANES]), lambda ln: step(ocp, ln))
         record.update({
             "device_busy_share": busy,
-            "busy_window": f"10 iterations of {LANES} lanes after 90, "
+            "busy_window": f"10 iterations of {LANES} lanes after 30, "
                            "profiler kernel-row device time / unprofiled "
                            "host time",
             "window_ms_per_iteration": step_ms,
@@ -1834,8 +1914,7 @@ def phase_fused_bench_size(pool32, pool64, dev):
             pool64, dev,
             (lambda ocp, u, x0: open_packed(ocp, u, x0, cfg, cfg.bp_init),
              lambda ocp, ln: ps.packed_lane_iter(ocp, ln, cfg, ~ln.done)),
-            {"lane_openings": opened.calls}, solve=two_launch_at_width,
-            whole_run_busy=True)
+            {"lane_openings": opened.calls}, solve=two_launch_at_width)
     counts, steps = rec["launches"], rec["steps"]
     for k in ("fused_bwd", "fused_fwd", "transition"):
         check(counts[k] == steps, f"{k} launched {counts[k]} times in "
@@ -1874,6 +1953,19 @@ def ended_bad(lane, cfg):
     by reaching ``bp_min``: a finished lane keeps its barrier parameter
     only then."""
     return lane.done & (lane.bp > cfg.bp_min)
+
+
+# The lanes a long mega launch is held to its plain version on (G's k=32,
+# U1's k=8 at B=4096): the kernel runs every lane, its plain version, some
+# 0.3 s an iteration at 4096 lanes and T=100, the first PLAIN_LANES of
+# them (a lane's iterations read no other lane; cut from all when phase U
+# came).
+PLAIN_LANES = 1024
+
+
+def first_lanes(lane, n):
+    """The packed lanes' first ``n`` lanes (each field's last axis)."""
+    return type(lane)(*(a[..., :n].contiguous() for a in lane))
 
 
 def compare_lanes(got, ref, tol):
@@ -1998,10 +2090,11 @@ def phase_mega_kernels(pool32, dev):
                     active = torch.ones_like(lane0.done)
                     got, steps = mega.mega_k_iterations(
                         ocp, mega.clone_lane(lane0), active, cfg, k, ddp)
+                    n = LANES if k == 4 else PLAIN_LANES
                     ref, ref_steps = mega.mega_k_iterations_plain(
-                        ocp, lane0, active, cfg, k, ddp)
+                        ocp, first_lanes(lane0, n), active[:n], cfg, k, ddp)
                     two, two_steps = two_launch_iterations(ocp, lane0, cfg, k)
-                    vs_plain = compare_lanes(got, ref, tol)
+                    vs_plain = compare_lanes(first_lanes(got, n), ref, tol)
                     vs_two = compare_lanes(got, two, tol)
                     # Against the two-launch kernels (the same generated
                     # code) and over k=4 against the plain version, each
@@ -2277,6 +2370,7 @@ def multigrid_at_width(phase, pool32, dev, single_grid, horizon=T,
                  "max_iterations": int(it_f.max())},
         "launches": counts, "refill_rounds": n_rounds,
         "lane_openings": n_open, "lane_openings_B": open_b,
+        "fallback_lanes": int(sol.fallback.sum()),
         "max_abs_u": umax,
         "basin_switch_frac_vs_single_grid": float(switched.double().mean()),
         "mean_signed_rel_cost_delta_switched": float(
@@ -2847,6 +2941,7 @@ def phase_single_solve(dev, cpu_ref):
     cfg_parity = DEFAULT_CONFIG.replace(stall_exit=False)
     out = {"phase": "L", "golden_config": PARITY}
     for name in ("pendulum", "cartpole"):
+        t_golden = time.perf_counter()
         data, ocp, u0, x0 = golden_setup(name)
         (u, it), launches, trials, scans, _ = counted_solve(
             par, ocp, u0.to(dev), x0.to(dev), cfg_parity)
@@ -2856,8 +2951,6 @@ def phase_single_solve(dev, cpu_ref):
         cost_rel = abs(cost - float(data["cost_seq"])) / abs(
             float(data["cost_seq"]))
         du = float(np.abs(u.numpy() - data["u_seq"]).max())
-        u_s, it_s = seq(ocp, u0.to(dev), x0.to(dev), cfg_parity)
-        du_seq = float(np.abs(u_s.cpu().numpy() - data["u_seq"]).max())
         u_cpu, it_cpu = cpu_ref[name]
         out[f"golden_{name}"] = {
             "par_iterations": it, "par_iterations_cpu": it_cpu,
@@ -2865,11 +2958,18 @@ def phase_single_solve(dev, cpu_ref):
             "cost_rel_err_vs_golden": cost_rel,
             "max_abs_du_vs_golden": du,
             "max_abs_du_vs_cpu": float((u - u_cpu).abs().max()),
-            "seq_iterations": int(it_s), "seq_iterations_golden": int(
-                data["iters_seq"]), "seq_max_abs_du_vs_golden": du_seq}
+            "par_wall_s": time.perf_counter() - t_golden}
         check(cost_rel <= 1e-8, f"{name} par cost rel err {cost_rel}")
         check(du <= 5e-2, f"{name} par |du| vs golden {du}")
-        check(du_seq <= 1e-6, f"{name} seq |du| vs golden {du_seq}")
+        if name in GOLDEN_SEQ:
+            t_seq = time.perf_counter()
+            u_s, it_s = seq(ocp, u0.to(dev), x0.to(dev), cfg_parity)
+            du_seq = float(np.abs(u_s.cpu().numpy() - data["u_seq"]).max())
+            out[f"golden_{name}"].update({
+                "seq_iterations": int(it_s), "seq_iterations_golden": int(
+                    data["iters_seq"]), "seq_max_abs_du_vs_golden": du_seq,
+                "seq_wall_s": time.perf_counter() - t_seq})
+            check(du_seq <= 1e-6, f"{name} seq |du| vs golden {du_seq}")
         check(it == it_cpu, f"{name} par iterations card {it}, CPU {it_cpu}")
         check(launches == {"affine_scan": scans, "par_newton_trial": trials}
               and scans == it,
@@ -2894,9 +2994,6 @@ def phase_single_solve(dev, cpu_ref):
         t0 = time.perf_counter()
         (u, it), launches, trials, scans, reads = counted_solve(solve)
         wall = time.perf_counter() - t0
-        first = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99)
-        busy, wall_first, per_kernel, n_window = window_trials(
-            lambda: par(ocp, uu, xx, first)[0].cpu())
         x = rollout(ocp.dynamics, u.double(), x0)
         feasible = bool(check_feasibility(ocp, x, u.double()))
         raw = float(ocp.total_cost(x, u.double(),
@@ -2905,13 +3002,20 @@ def phase_single_solve(dev, cpu_ref):
             "config": "FAST_CONFIG", "iterations": it, "trials": trials,
             "costate_scans": scans, "launches_per_solve": launches,
             "wall_s": wall, "host_reads_per_solve": reads,
-            "device_busy_share_first_stage": busy,
-            "first_stage_wall_s": wall_first,
-            "first_stage_device_ms_top_kernels": top_kernels(per_kernel),
-            "first_stage_trial": trial_share(per_kernel, wall_first,
-                                             n_window, trials, wall),
             "max_abs_u": float(u.abs().max()), "feasible": feasible,
             "raw_cost": raw}
+        if dtype == torch.float32:
+            # The busy share over the first barrier stage, float32 only
+            # (float64's was cut when phase U came).
+            first = FAST_CONFIG.replace(bp_min=FAST_CONFIG.bp_init * 0.99)
+            busy, wall_first, per_kernel, n_window = window_trials(
+                lambda: par(ocp, uu, xx, first)[0].cpu())
+            out[f"H{T_}_{tag}"].update({
+                "device_busy_share_first_stage": busy,
+                "first_stage_wall_s": wall_first,
+                "first_stage_device_ms_top_kernels": top_kernels(per_kernel),
+                "first_stage_trial": trial_share(per_kernel, wall_first,
+                                                 n_window, trials, wall)})
         check(bool(torch.isfinite(u).all()) and feasible and it > 0,
               f"H={T_} {tag}: infeasible or non-finite solution")
         check(launches == {"affine_scan": scans, "par_newton_trial": trials}
@@ -3351,9 +3455,10 @@ NMPC_CARD_VS_CPU = (64, 5)
 # 5000 steps; a par step is host-bound at some 5 ms on the card).
 LQT_STEPS = 300
 # Phase Q's IP-DDP batch, held to the CPU lane by lane: cut from 256
-# scenarios, since the plain solve is host-bound at some 0.3 s per lockstep
-# iteration on the card whatever the lanes.
-DDP_SCENARIOS = 16
+# scenarios, since the plain solve is host-bound at some 0.3-0.5 s per
+# lockstep iteration on the card whatever the lanes (and from 16 to 4 when
+# phase U came: fewer lanes take fewer lockstep iterations).
+DDP_SCENARIOS = 4
 
 
 def double_integrator_lqt(T_, dt, dtype, device):
@@ -4473,56 +4578,38 @@ def par_f32_vs_f64(trial, scans, label):
     return out
 
 
-def quad_kernel_times(pool, dev):
-    """Phase T1's times at B=4096, T=40, float32 (the merged trial and the
-    mega kernel: Newton at T=40, DDP at T=10): each kernel through its
-    wrapper (ms) and its C entry on outputs allocated once (entry_ms, per
-    stage in SM cycles), beside its plain version and its bound.  (No
-    float64 times: they were cut to hold the whole smoke near its time
-    budget; PERF.md keeps a measurement of them.)"""
+def timed_kernel(rec, name, wrapper, entry, horizon, plain_ms, ins, ops):
+    """One kernel's float32 times into ``rec[name]``: through its wrapper
+    (ms) and its C entry on outputs allocated once (entry_ms, per stage in
+    SM cycles), beside its plain version's ``plain_ms`` and its bound."""
+    with SmClock() as clock:
+        busy(entry, 0.3)
+        r = {"ms": cuda_ms(wrapper, 20), "entry_ms": cuda_ms(entry, 20)}
+    r["entry"] = per_stage(r["entry_ms"], horizon, clock.mhz)
+    r["plain_ms"] = plain_ms
+    r.update(bound(nbytes(ins, wrapper()), ops))
+    rec[name] = r
+
+
+def codegen_kernel_times(model, horizon, fine, levels, dev, bp=0.1):
+    """The times of one model's generated kernels at B=4096 in float32
+    (``fine``: at least 2 x 4096 scenario rows of the fine grid; ``levels``:
+    :func:`quad_levels`' layout): the five fused kernels (wrapper, C
+    entry, plain version) at ``horizon``, then the merged trial and one
+    k=8 mega launch on each level (Newton on the fine grid, DDP on the
+    coarse), each beside its bound."""
     import torch
 
     from ipoc_tpu_torch import BATCH_CONFIG
-    from ipoc_tpu_torch.ops import cuda
     from ipoc_tpu_torch.ops import fused_iter as tf
     from ipoc_tpu_torch.ops import mega
-    from ipoc_tpu_torch.ops import newton_kernel as nk
-    from ipoc_tpu_torch.ops import scan_kernels as sk
-    from ipoc_tpu_torch.ops.cuda import seq_newton as sn
 
-    ocp = model_ocp("quadrotor", 1, QUAD_T)
+    ocp = model_ocp(model, 1, horizon)
     dtype, peak, rec = torch.float32, PEAK_F32_OPS_PER_S, {}
-
-    def plain(fn):
-        return cuda_ms(fn, 3)
-
-    def timed(name, wrapper, entry, horizon, plain_ms, ins, ops):
-        with SmClock() as clock:
-            busy(entry, 0.3)
-            r = {"ms": cuda_ms(wrapper, 20),
-                 "entry_ms": cuda_ms(entry, 20)}
-        r["entry"] = per_stage(r["entry_ms"], horizon, clock.mhz)
-        r["plain_ms"] = plain_ms
-        r.update(bound(nbytes(ins, wrapper()), ops, ops_per_s=peak))
-        rec[name] = r
-
-    trial, costate = slice_stage_data(
-        tuple(a[:LANES] for a in pool), dtype, dev, model="quadrotor",
-        horizon=QUAD_T)
-    B, T_, nx, nu = trial[5].shape
-    timed("seq_newton_trial",
-          lambda: sn.seq_newton_trial_batched(*trial),
-          seq_trial_entry(trial), T_,
-          plain(lambda: sn.seq_newton_trial_plain(*trial)), trial,
-          B * T_ * riccati_ops(nx, nu))
-    timed("seq_costates", lambda: sn.seq_costates_batched(*costate),
-          costate_entry(costate), T_,
-          plain(lambda: sn.seq_costates_plain(*costate)), costate,
-          B * T_ * 2 * nx * nx)
-    # The fused kernels (fused_times times wrapper, entry and plain
-    # version).
     u, u_other, x0, bpt, rp = fused_inputs(
-        tuple(a[:2 * LANES] for a in pool), dtype, dev, 0.1)
+        tuple(a[:2 * LANES] for a in fine), dtype, dev, bp)
+    T_, nu, B = u.shape
+    nx = x0.shape[0]
     xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0, bpt)
     reg = rp * torch.clamp(torch.sqrt(cunsq), min=1e-6)
     up = (u + 0.2 * (u - u_other)).contiguous()
@@ -4548,12 +4635,9 @@ def quad_kernel_times(pool, dev):
         fused[k].update(bound(nbytes(ins, outs), B * n_ops,
                               ops_per_s=peak))
     rec.update(fused)
-    # The merged trial (Newton T=40, DDP T=10) and one k=8 mega launch
-    # in each mode.
-    for level, (ocp_l, ul, xl, ddp) in quad_levels(
-            pool, LANES, dtype, dev).items():
+    for level, (ocp_l, ul, xl, ddp) in levels.items():
         cfg = BATCH_CONFIG.replace(newton_impl="ddp" if ddp else "fused")
-        lane0 = open_packed(ocp_l, ul, xl, cfg, 0.1)
+        lane0 = open_packed(ocp_l, ul, xl, cfg, bp)
         reg = 100.0 * torch.clamp(lane0.cun, min=1e-6)
         args = (ocp_l, lane0.xs, lane0.xT, lane0.u, lane0.bp, reg)
         Tl = ul.shape[1]
@@ -4562,11 +4646,11 @@ def quad_kernel_times(pool, dev):
         trial_ops = (Tl * (ops["stage_bwd"] + riccati_ops(nx, nu) + fwd)
                      + ops["term"]
                      + ops["term_ddp_fwd" if ddp else "term_fwd"])
-        timed(f"merged_trial_{level}_T{Tl}",
-              lambda: tf.merged_trial_launch(*args, ddp=ddp),
-              merged_entry(*args, ddp), Tl,
-              plain(lambda: tf.fused_newton_iter_plain(*args, ddp=ddp)),
-              args[1:], B * trial_ops)
+        timed_kernel(rec, f"merged_trial_{level}_T{Tl}",
+                     lambda: tf.merged_trial_launch(*args, ddp=ddp),
+                     merged_entry(*args, ddp), Tl,
+                     cuda_ms(lambda: tf.fused_newton_iter_plain(
+                         *args, ddp=ddp), 3), args[1:], B * trial_ops)
         active = torch.ones_like(lane0.done)
         ws = mega.mega_workspace(lane0)
         got, steps = mega.mega_k_iterations(
@@ -4586,6 +4670,49 @@ def quad_kernel_times(pool, dev):
                 lambda: lane0, warm=False),
             **bound(2 * nbytes(tuple(lane0)), lane_iters * trial_ops,
                     ops_per_s=peak)}
+    return rec
+
+
+def quad_kernel_times(pool, dev):
+    """Phase T1's times at B=4096, T=40, float32 (the merged trial and the
+    mega kernel: Newton at T=40, DDP at T=10): each kernel through its
+    wrapper (ms) and its C entry on outputs allocated once (entry_ms, per
+    stage in SM cycles), beside its plain version and its bound.  (No
+    float64 times: they were cut to hold the whole smoke near its time
+    budget; PERF.md keeps a measurement of them.)"""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.ops import newton_kernel as nk
+    from ipoc_tpu_torch.ops import scan_kernels as sk
+    from ipoc_tpu_torch.ops.cuda import seq_newton as sn
+
+    dtype, rec = torch.float32, {}
+
+    def plain(fn):
+        return cuda_ms(fn, 3)
+
+    def timed(*a):
+        timed_kernel(rec, *a)
+
+    trial, costate = slice_stage_data(
+        tuple(a[:LANES] for a in pool), dtype, dev, model="quadrotor",
+        horizon=QUAD_T)
+    B, T_, nx, nu = trial[5].shape
+    timed("seq_newton_trial",
+          lambda: sn.seq_newton_trial_batched(*trial),
+          seq_trial_entry(trial), T_,
+          plain(lambda: sn.seq_newton_trial_plain(*trial)), trial,
+          B * T_ * riccati_ops(nx, nu))
+    timed("seq_costates", lambda: sn.seq_costates_batched(*costate),
+          costate_entry(costate), T_,
+          plain(lambda: sn.seq_costates_plain(*costate)), costate,
+          B * T_ * 2 * nx * nx)
+    # The generated kernels (fused_times times wrapper, entry and plain
+    # version; the merged trial and one k=8 mega launch in each mode).
+    rec.update(codegen_kernel_times("quadrotor", QUAD_T, pool,
+                                    quad_levels(pool, LANES, dtype, dev),
+                                    dev))
     # The parallel-in-time kernels at B=4096, T=40.
     trial_p, scans = par_inputs(QUAD_T, LANES, dtype, dev,
                                 model="quadrotor")
@@ -4616,18 +4743,19 @@ def quad_kernel_times(pool, dev):
     return rec
 
 
-def quad_stream(pool, dev, cfg, mega_path=True):
-    """bench.py's quadrotor single-grid stream at the bench's width
-    (``solve_stream``, 4096 lanes, refill every 32; the two-launch arm
-    without ``mega_path``): its record and solution."""
-    import torch
-
+def bench_stream(pool, dev, cfg, mega_path=True, model="quadrotor",
+                 horizon=QUAD_T, quality=None):
+    """bench.py's single-grid stream of ``model`` at ``horizon`` (the
+    quadrotor's by default) at the bench's width (``solve_stream``, 4096
+    lanes, refill every 32; the two-launch arm without ``mega_path``): its
+    record, with ``quality(ocp, controls, x0)``'s (the quadrotor's by
+    default), and solution."""
     from ipoc_tpu_torch.ops import cuda
     from ipoc_tpu_torch.ops import mega
     from ipoc_tpu_torch.solvers import packed_stream as ps
     from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
 
-    ocp = model_ocp("quadrotor", 1, QUAD_T)
+    ocp = model_ocp(model, 1, horizon)
     u, x0 = (a.to(dev) for a in pool)
     solve = solve_at_width if mega_path else two_launch_at_width
     solve(ocp, u[:256], x0[:256], cfg.replace(max_newton_iters=1),
@@ -4650,7 +4778,8 @@ def quad_stream(pool, dev, cfg, mega_path=True):
             lambda: solve(ocp, u, x0, cfg, LANES).iterations.cpu(), wall)
         rec.update({"device_busy_share_whole_run": busy,
                     "whole_run_device_ms_top_kernels": top})
-    rec.update(quad_quality(ocp, sol.controls, x0))
+    rec.update((quality or quad_quality)(ocp, sol.controls, x0,
+                                         sol.completed))
     return rec, sol
 
 
@@ -4661,16 +4790,20 @@ def iteration_summary(iterations, cap):
             "lanes_at_iteration_cap": {f"{cap}": int((it >= cap).sum())}}
 
 
-def quad_quality(ocp, controls, x0):
+def quad_quality(ocp, controls, x0, completed=None):
     """The non-finite raw-cost share and the controls' range (each must lie
-    strictly inside the thrust box)."""
+    strictly inside the thrust box); with ``completed``, the scenarios
+    whose solve stopped before bp_min."""
     import torch
 
     costs = raw_costs(ocp, controls, x0).double().cpu()
-    return {"frac_nonfinite_cost": float((~torch.isfinite(costs))
-                                         .double().mean()),
-            "mean_raw_cost": float(costs.mean()),
-            "u_min": float(controls.min()), "u_max": float(controls.max())}
+    out = {"frac_nonfinite_cost": float((~torch.isfinite(costs))
+                                        .double().mean()),
+           "mean_raw_cost": float(costs.mean()),
+           "u_min": float(controls.min()), "u_max": float(controls.max())}
+    if completed is not None:
+        out["lanes_incomplete"] = int((~completed).sum())
+    return out
 
 
 def check_quad_quality(rec, label):
@@ -4725,9 +4858,9 @@ def phase_quadrotor(dev, cpu_ref):
     # trial).
     t0 = time.perf_counter()
     cfg = BATCH_CONFIG
-    sg, sol_sg = quad_stream(pool32, dev, cfg)
+    sg, sol_sg = bench_stream(pool32, dev, cfg)
     add_counts(counts, sg["launches"])
-    two, _ = quad_stream(pool32, dev, cfg, mega_path=False)
+    two, _ = bench_stream(pool32, dev, cfg, mega_path=False)
     add_counts(counts, two["launches"])
     mg, sol_mg, solve, _ = multigrid_at_width(
         "T2", pool32, dev, sol_sg, horizon=QUAD_T, model="quadrotor")
@@ -4827,19 +4960,712 @@ def quad_kernel_record(timing, kernel):
                                     "bound_by")}
 
 
+# ---------------------------------------------------------------------------
+# Phase U: state constraints (the unicycle's keep-out disc, the cart box)
+# ---------------------------------------------------------------------------
+
+
+def uni_pool():
+    """Phase U's pool: bench.py's recipe for the unicycle (H=100, 4 x 4096
+    scenarios, both controls about zero), float32 on the CPU."""
+    import torch
+
+    return make_pool(model_module("unicycle"), POOL, torch.float32)
+
+
+def uni_stage_data(pool, dev):
+    """U1's scenario rows, bp -> level -> ``(u, x0)`` on the CPU, 2 x 4096
+    of them: at bp 0.1 the pool's cold start (the coarse level every 4th
+    control, as the multigrid takes them); at bp 0.004 the iterates of
+    each level's stream (Newton on the fine grid, DDP on the coarse; the
+    mega executor, float32) converged at that barrier stage, which ride
+    the disc."""
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_stream
+
+    u, x0 = (a[:2 * LANES] for a in pool)
+    cold, solved = {}, {}
+    for level, (coarsen, ddp) in LEVELS.items():
+        uc = u[:, ::coarsen].contiguous()
+        cold[level] = (uc, x0)
+        cfg = BATCH_CONFIG.replace(bp_min=UNI_BPS[1] * 0.99)
+        if ddp:
+            cfg = cfg.replace(newton_impl="ddp")
+        sol = solve_stream(model_ocp("unicycle", coarsen), uc.to(dev),
+                           x0.to(dev), cfg, lanes=LANES, refill_every=REFILL)
+        solved[level] = (sol.controls.cpu(), x0)
+    return {UNI_BPS[0]: cold, UNI_BPS[1]: solved}
+
+
+def disc_lanes(stages, dtype, dev):
+    """Unicycle lanes at T=100, dt 0.01, that drive straight along +x at
+    v = 1.6 on the chord 0.005 below the disc's top: a stage point every
+    0.016 of x, so lane b's only point inside the disc is at stage
+    ``stages[b]`` (T: the terminal state; past T: none).  Returns ``(u
+    (T, 2, B), x0 (3, B))``, batch-last."""
+    import math
+
+    import torch
+
+    uni = model_module("unicycle")
+    cx, cy = uni.CENTER
+    v, h = 1.6, 0.005
+    B = len(stages)
+    u = torch.zeros((T, 2, B), dtype=dtype)
+    u[:, 0] = v
+    x0 = torch.zeros((3, B), dtype=dtype)
+    x0[0] = torch.tensor([cx - v * DT * s for s in stages], dtype=dtype)
+    x0[1] = cy + math.sqrt(uni.RADIUS**2 - h * h)
+    return u.to(dev), x0.to(dev)
+
+
+def uni_disc_checks(dtype, dev):
+    """U1's disc batches: lanes whose states enter the disc at one
+    constrained stage (0, 1, 50, 99: infeasible) and lanes whose only entry
+    is the terminal state or that never enter (feasible).  The forward
+    sweep on zero gains (its trial point is the iterate) against the plain
+    version's ``max(constraints(temp_x[:-1], temp_u))``; the rollout cost
+    and both candidates of the transition against their plain versions:
+    NaN barrier costs on the infeasible lanes alone, in both."""
+    import torch
+
+    from ipoc_tpu_torch.ops import fused_iter as tf
+
+    ocp = model_ocp("unicycle")
+    stages = (0, 1, T // 2, T - 1, T, T + 3)
+    inside = torch.tensor([s < T for s in stages], device=dev)
+    u, x0 = disc_lanes(stages, dtype, dev)
+    bp = torch.full((len(stages),), 0.05, dtype=dtype, device=dev)
+    xs, xT = tf.rollout_plain(ocp, u, x0)
+    x, ub = tf.lanes_first(xs, xT), u.permute(2, 0, 1)
+    Kk = torch.zeros((T, (1 + 3) * 2, len(stages)), dtype=dtype, device=dev)
+    _, tx, _, nc, mc, _ = tf.fused_fwd_launch(ocp, xs, xT, u, bp, Kk)
+    mc_plain = ocp.constraints(x[:, :-1], ub).flatten(1).amax(1)
+    nc_plain = ocp.total_cost(x, ub, bp)
+    roll = tf.rollout_cost_packed(ocp, u, x0, bp)[2]
+    roll_plain = tf.rollout_cost_plain(ocp, u, x0, bp)[2]
+    tr = tf.transition_packed(ocp, u, u, x0, bp)
+    tr_plain = tf.transition_plain(ocp, u, u, x0, bp)
+    label = f"U1 disc {str(dtype)[6:]}"
+    check(torch.equal(tx, xs), f"{label}: the zero-gain trial moved")
+    for name, got in (("fused_fwd max_c", mc > 0),
+                      ("plain max_c", mc_plain > 0),
+                      ("fused_fwd cost", torch.isnan(nc)),
+                      ("plain cost", torch.isnan(nc_plain)),
+                      ("rollout_cost", torch.isnan(roll)),
+                      ("rollout_cost plain", torch.isnan(roll_plain)),
+                      ("transition a", torch.isnan(tr[4])),
+                      ("transition b", torch.isnan(tr[5])),
+                      ("transition plain", torch.isnan(tr_plain[4]))):
+        check(torch.equal(got, inside), f"{label} {name}: infeasible lanes "
+              f"{got.tolist()}, expected {inside.tolist()}")
+    err = float((mc - mc_plain).abs().max() / mc_plain.abs().max())
+    check(err <= (1e-12 if dtype == torch.float64 else F32_TOL),
+          f"{label}: max_c {err} of scale from the plain version's")
+    return {"entry_stages": list(stages), "max_c": mc.tolist(),
+            "max_c_plain": mc_plain.tolist(), "max_c_rel_err": err}
+
+
+def nudged(tensors):
+    """The floating tensors of ``tensors`` one ulp up (x * (1 + eps)),
+    the others as they are."""
+    import torch
+
+    return tuple(t * (1 + torch.finfo(t.dtype).eps)
+                 if t.is_floating_point() else t for t in tensors)
+
+
+def conditioned_compare(label, got, ref, near, tol, problems):
+    """``got`` (the kernel's output) against ``ref`` (its plain version's),
+    held as phases D and G hold them, to ``tol`` of the output's largest
+    finite |ref|, plus eight times ``|ref - near|``, what the plain
+    version itself moves when its inputs move by one ulp (``near()``,
+    evaluated only where ``got`` is not within ``tol`` already): at an
+    iterate that rides the disc the barrier's Hessian terms
+    (bp / c^2) outgrow the pivots that they sum to by many orders, and
+    every evaluation order rounds them apart by that much.  NaN and inf
+    entries must be the same as ``ref``'s on every lane where ``near``
+    has ``ref``'s; a lane where the one-ulp nudge itself changes them is
+    on a knife edge and counted apart.  Failures go to ``problems``;
+    returns the record."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    lead = ref.shape[-1]  # the lanes: batch-last
+    fin = torch.isfinite(ref) & torch.isfinite(got)
+    scale = float(ref[fin].abs().max()) + 1e-30 if bool(fin.any()) else 1.0
+    err = (got - ref).abs()
+    if torch.equal(torch.isnan(got), torch.isnan(ref)) and torch.equal(
+            got[torch.isinf(ref)], ref[torch.isinf(ref)]) and not bool(
+            torch.isinf(got).ne(torch.isinf(ref)).any()) and not bool(
+            (err[fin] > tol * scale).any()):
+        return {"max_rel_err": float(err[fin].max()) / scale
+                if bool(fin.any()) else 0.0}
+    near = near().double()
+
+    def by_lane(mask):
+        return mask.reshape(-1, lead).any(0) if mask.dim() > 1 else mask
+
+    pattern = lambda a: torch.isnan(a) | torch.isinf(a)  # noqa: E731
+    edge = by_lane((pattern(ref) != pattern(near))
+                   | (torch.isinf(ref) & (ref != near)))
+    same = torch.where(torch.isnan(ref), torch.isnan(got), got == ref)
+    bad_pattern = by_lane(pattern(ref) & ~same) | by_lane(
+        pattern(got) & ~pattern(ref))
+    if bool((bad_pattern & ~edge).any()):
+        problems.append(f"{label}: NaN/inf entries differ on "
+                        f"{int((bad_pattern & ~edge).sum())} lanes")
+    fin = fin & torch.isfinite(near)
+    keep = fin & ~(edge if ref.dim() == 1 else edge.expand_as(
+        ref.reshape(-1, lead)).reshape(ref.shape))
+    spread = (ref - near).abs()
+    bound = tol * scale + 8 * spread
+    over = keep & (err > bound)
+    if bool(over.any()):
+        problems.append(f"{label}: {int(over.sum())} entries past "
+                        f"{tol} of scale {scale} + 8 x the one-ulp spread "
+                        f"(worst {float((err - bound)[over].max())})")
+    plain = keep & (err > tol * scale)
+    return {"max_rel_err": float(err[keep].max()) / scale
+            if bool(keep.any()) else 0.0,
+            "max_spread_rel": float(spread[keep].max()) / scale
+            if bool(keep.any()) else 0.0,
+            "entries_past_tol_within_spread": int(plain.sum()),
+            "knife_edge_lanes": int(edge.sum())}
+
+
+def lazy(fn):
+    """``fn()``, computed at the first call and kept."""
+    box = []
+
+    def get():
+        if not box:
+            box.append(fn())
+        return box[0]
+
+    return get
+
+
+def trial_ok(outs):
+    """A trial's accept precondition per lane: a finite positive minimum
+    pivot and a finite predicted reduction."""
+    import torch
+
+    piv, pred = outs[7], outs[6]
+    return torch.isfinite(piv) & (piv > 0) & torch.isfinite(pred)
+
+
+def check_ok_flags(label, got, ref, near, problems):
+    """The kernel's and the plain version's ok flags equal but on the
+    lanes where a one-ulp nudge of the inputs (``near()``) flips the plain
+    version's."""
+    import torch
+
+    ok = [trial_ok(o) for o in (got, ref)]
+    if torch.equal(ok[0], ok[1]):
+        return {"ok_frac": float(ok[1].double().mean())}
+    ok.append(trial_ok(near()))
+    differ = (ok[0] != ok[1]) & (ok[1] == ok[2])
+    if bool(differ.any()):
+        problems.append(f"{label}: ok flags differ on {int(differ.sum())} "
+                        "lanes")
+    return {"ok_frac": float(ok[1].double().mean()),
+            "ok_knife_edge_lanes": int((ok[1] != ok[2]).sum())}
+
+
+def uni_kernel_checks(data, dev):
+    """Phase U1's checks: every generated kernel at the unicycle's (3, 2)
+    against its plain version at B in UNI_CHECK_B and bp in UNI_BPS,
+    float64 then float32, with phases D and G's tolerances plus the plain
+    version's own one-ulp spread (:func:`conditioned_compare`): the fused
+    five on the fine grid, the merged trial and a k=8 mega launch on each
+    level (Newton at T=100, DDP at T=25), and the disc batches."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import fused_iter as tf
+    from ipoc_tpu_torch.ops import mega
+
+    out, problems = {}, []
+    ocp = model_ocp("unicycle")
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        dtol = 1e-10 if dtype == torch.float64 else F32_TOL
+        out[f"disc_{tag}"] = uni_disc_checks(dtype, dev)
+        for B in UNI_CHECK_B:
+            for bp in UNI_BPS:
+                label = f"unicycle B={B} bp={bp} {tag}"
+                u, u_other, x0, bpt, rp = fused_inputs(
+                    tuple(a[:2 * B] for a in data[bp]["newton"]), dtype, dev,
+                    bp)
+                up = (u + 0.2 * (u - u_other)).contiguous()
+                xs, xT, _, cunsq = tf.rollout_cost_plain(ocp, u, x0, bpt)
+                reg = rp * torch.clamp(torch.sqrt(cunsq), min=1e-6)
+                fused = {
+                    "rollout_cost": (tf.rollout_cost_packed,
+                                     tf.rollout_cost_plain, (u, x0, bpt)),
+                    "two_launch_trial": (
+                        tf.fused_newton_iter_packed,
+                        tf.fused_newton_iter_plain, (xs, xT, u, bpt, reg)),
+                    "transition": (tf.transition_packed, tf.transition_plain,
+                                   (u, up, x0, bpt))}
+                rec = {"rollout": compare_rollout(ocp, u, x0, label)}
+                for name, (kernel, plain, args) in fused.items():
+                    got = kernel(ocp, *args)
+                    ref = plain(ocp, *args)
+                    near = lazy(lambda plain=plain, args=args: plain(
+                        ocp, *nudged(args)))
+                    rec[name] = [conditioned_compare(
+                        f"{label} {name}[{i}]", g, r,
+                        lambda i=i, near=near: near()[i], dtol, problems)
+                        for i, (g, r) in enumerate(zip(got, ref))]
+                    if name == "two_launch_trial":
+                        rec["two_launch_ok"] = check_ok_flags(
+                            f"{label} {name}", got, ref, near, problems)
+                for level, (coarsen, ddp) in LEVELS.items():
+                    ocp_l = model_ocp("unicycle", coarsen)
+                    ul, xl = (a[:B].to(dev, dtype) for a in data[bp][level])
+                    lab = f"{label} {level} T={ul.shape[1]}"
+                    lane = open_packed(ocp_l, ul, xl, BATCH_CONFIG, bp)
+                    reg = 100.0 * torch.clamp(lane.cun, min=1e-6)
+                    args = (lane.xs, lane.xT, lane.u, lane.bp, reg)
+                    got = tf.merged_trial_launch(ocp_l, *args, ddp=ddp)
+                    ref = tf.fused_newton_iter_plain(ocp_l, *args, ddp=ddp)
+                    near = lazy(lambda ocp_l=ocp_l, args=args, ddp=ddp:
+                                tf.fused_newton_iter_plain(
+                                    ocp_l, *nudged(args), ddp=ddp))
+                    merged = {n: conditioned_compare(
+                        f"{lab} merged[{n}]", g, r,
+                        lambda i=i, near=near: near()[i], dtol, problems)
+                        for i, (n, g, r) in enumerate(zip(TRIAL_OUTS, got,
+                                                          ref))}
+                    merged["ok"] = check_ok_flags(f"{lab} merged", got, ref,
+                                                  near, problems)
+                    cfg = BATCH_CONFIG.replace(
+                        newton_impl="ddp" if ddp else "fused",
+                        max_newton_iters=2)
+                    lane0 = open_packed(ocp_l, ul, xl, cfg, bp)
+                    active = torch.ones_like(lane0.done)
+                    got, steps = mega.mega_k_iterations(
+                        ocp_l, mega.clone_lane(lane0), active, cfg,
+                        QUAD_MEGA_K, ddp)
+                    n = min(B, PLAIN_LANES)
+                    ref, ref_steps = mega.mega_k_iterations_plain(
+                        ocp_l, first_lanes(lane0, n), active[:n], cfg,
+                        QUAD_MEGA_K, ddp)
+                    vs_plain = compare_lanes(first_lanes(got, n), ref, dtol)
+                    key = ("agree_frac" if dtype == torch.float64
+                           else "decisions_equal_frac")
+                    if vs_plain[key] < 0.99:
+                        problems.append(f"{lab} mega k={QUAD_MEGA_K} vs "
+                                        f"plain: {key} {vs_plain[key]}")
+                    rolled = float((got.bp < lane0.bp).double().mean())
+                    if rolled == 0:
+                        problems.append(f"{lab}: no lane rolled over")
+                    rec[f"{level}_T{ul.shape[1]}"] = {
+                        "merged_trial": merged,
+                        f"mega_k{QUAD_MEGA_K}": {
+                            "steps": int(steps), "plain_steps": int(ref_steps),
+                            "rolled_over_frac": rolled,
+                            "ended_bad_frac": float(ended_bad(
+                                ref, cfg).double().mean()),
+                            "vs_plain": vs_plain}}
+                out[label] = rec
+    out["problems"] = problems
+    return out
+
+
+def uni_levels(data, bp, dev):
+    """:func:`quad_levels`' layout for the unicycle from U1's rows at
+    ``bp``, float32, the first 4096."""
+    import torch
+
+    return {level: (model_ocp("unicycle", coarsen),
+                    *(a[:LANES].to(dev, torch.float32)
+                      for a in data[bp][level]), ddp)
+            for level, (coarsen, ddp) in LEVELS.items()}
+
+
+def uni_quality(ocp, controls, x0, completed=None):
+    """The non-finite raw-cost share, every lane's largest constraint value
+    over its stage points (the terminal state is not constrained) and the
+    least distance of a stage point to the disc's centre, over the
+    scenarios whose solve ran to bp_min (``completed``; all where None),
+    and the same over every scenario beside them: a solve that stopped on
+    a non-finite cost returns its last iterate, whose rollout may cross
+    the disc (a float32 Newton step accepted on its linearized states;
+    JAX's float32 stream returns the same, ROADMAP section 3)."""
+    import torch
+
+    from ipoc_tpu_torch.utils.integrators import rollout
+
+    uni = model_module("unicycle")
+    costs = raw_costs(ocp, controls, x0).double().cpu()
+    x = rollout(ocp.dynamics, controls, x0)[:, :-1]
+    c = ocp.constraints(x, controls).flatten(1).amax(1).double().cpu()
+    d = torch.sqrt((x[..., 0] - uni.CENTER[0])**2
+                   + (x[..., 1] - uni.CENTER[1])**2).amin(1).double().cpu()
+
+    def stats(mask):
+        return {"frac_nonfinite_cost": float((~torch.isfinite(costs[mask]))
+                                             .double().mean()),
+                "mean_raw_cost": float(costs[mask].mean()),
+                "max_constraint": float(c[mask].max()),
+                "lanes_infeasible": int((c[mask] > 0).sum()),
+                "min_distance_to_centre": float(d[mask].min()),
+                "frac_lanes_within_1e-2_of_radius": float(
+                    (d[mask] <= uni.RADIUS + 1e-2).double().mean())}
+
+    if completed is None:
+        return stats(torch.ones_like(c, dtype=torch.bool))
+    done = completed.cpu()
+    out = stats(done)
+    infeasible = (c > 0) | ~torch.isfinite(costs)
+    out.update({"lanes_incomplete": int((~done).sum()),
+                "frac_completed": float(done.double().mean()),
+                "every_lane": stats(torch.ones_like(done)),
+                "infeasible_lanes": infeasible.nonzero().squeeze(1)[
+                    :16].tolist(),
+                "infeasible_lanes_all_incomplete": bool(
+                    (~done[infeasible]).all())})
+    return out
+
+
+def check_uni_quality(rec, label):
+    """Every completed scenario's solution feasible, finite and off the
+    disc; at least 98% of them completed."""
+    uni = model_module("unicycle")
+    check(rec["frac_nonfinite_cost"] == 0.0,
+          f"{label}: non-finite raw cost share {rec['frac_nonfinite_cost']}")
+    check(rec["max_constraint"] <= 0.0 and rec["lanes_infeasible"] == 0,
+          f"{label}: {rec['lanes_infeasible']} infeasible lanes, max "
+          f"constraint {rec['max_constraint']}")
+    check(rec["min_distance_to_centre"] >= uni.RADIUS,
+          f"{label}: a stage point {rec['min_distance_to_centre']} from "
+          f"the centre, inside the disc of radius {uni.RADIUS}")
+    check(rec.get("frac_completed", 1.0) >= 0.98,
+          f"{label}: only {rec.get('frac_completed')} of the scenarios ran "
+          "to bp_min")
+
+
+def uni_single_solve(name, dev, dtype=None):
+    """Phase U4's single solves: ``par`` and ``seq`` are
+    tests/test_unicycle.py's (T=60, dt 2/60, straight ahead at v = 0.3,
+    FAST_CONFIG), ``box`` BASELINE.json config 3 (examples/p50_budget.py:
+    cartpole H=100, dt 0.01, cart_limit 0.3, the par solve under
+    FAST_CONFIG from 0.1 * a standard normal draw, tests/test_golden.py's
+    warm start).  Float64 unless ``dtype``.  Returns ``(controls on the
+    CPU, iterations)``."""
+    import torch
+
+    from ipoc_tpu_torch import (
+        FAST_CONFIG,
+        par_interior_point_optimal_control,
+        seq_interior_point_optimal_control,
+    )
+
+    dtype = dtype or torch.float64
+    if name == "box":
+        ocp = model_ocp("cartpole_box")
+        u0 = torch.tensor(GOLDEN_WARM_START, dtype=dtype,
+                          device=dev).reshape(T, 1)
+        x0 = model_module("cartpole").initial_state(dtype).to(dev)
+        u, it = par_interior_point_optimal_control(ocp, u0, x0, FAST_CONFIG)
+        return u.cpu(), int(it)
+    uni = model_module("unicycle")
+    Tn = UNI_SOLVE[1]
+    u0 = torch.zeros((Tn, 2), dtype=dtype, device=dev)
+    u0[:, 0] = 0.3
+    solve = (seq_interior_point_optimal_control if name == "seq"
+             else par_interior_point_optimal_control)
+    u, it = solve(model_ocp("unicycle", *UNI_SOLVE), u0,
+                  uni.initial_state(dtype, dev), FAST_CONFIG)
+    return u.cpu(), int(it)
+
+
+UNI_SOLVES = ("par", "seq", "box")
+
+
+def uni_multigrid(u, x0):
+    """Phase U5's solve, on either side: bench.py's unicycle multigrid (a
+    DDP coarse level at T=25) through 64 lanes, refill 32.  Returns
+    ``(controls, iterations, coarse iterations, steps, coarse steps,
+    fallback)``, all but the controls on the CPU."""
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_stream_multigrid
+
+    sol = solve_stream_multigrid(
+        model_ocp("unicycle"), model_ocp("unicycle", COARSEN), COARSEN, u,
+        x0, BATCH_CONFIG, lanes=64, refill_every=REFILL, coarse_impl="ddp")
+    return (sol.controls, sol.iterations.cpu(), sol.iterations_coarse.cpu(),
+            sol.steps, sol.steps_coarse, sol.fallback.cpu())
+
+
+def uni_cpu():
+    """Phase U's CPU child: U4's single solves and U5's multigrid on the
+    pool's first 128 scenarios in float64, with the plain versions."""
+    u, x0 = (a[:CARD_VS_CPU_SCENARIOS["U5"]].double() for a in uni_pool())
+    t0 = time.perf_counter()
+    mg = uni_multigrid(u, x0)
+    return {"U5": (mg, time.perf_counter() - t0),
+            "U4": {name: uni_single_solve(name, "cpu")
+                   for name in UNI_SOLVES}}
+
+
+def uni_path_checks(pool32, dev, single_grid_record=None):
+    """Phase U2: bench.py's unicycle configuration at the bench's width:
+    the single grid on the mega executor and on the two-launch arm, the
+    multigrid (a DDP coarse level at T=25) and its coarse level on the
+    two-launch arm.  Returns ``(record, launch counts, the multigrid's
+    solve)``."""
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import packed_stream as ps
+    from ipoc_tpu_torch.solvers.ip_newton import flat_total_cap
+
+    cfg, counts = BATCH_CONFIG, {}
+    sg, sol_sg = bench_stream(pool32, dev, cfg, model="unicycle", horizon=T,
+                              quality=uni_quality)
+    add_counts(counts, sg["launches"])
+    two, _ = bench_stream(pool32, dev, cfg, mega_path=False,
+                          model="unicycle", horizon=T, quality=uni_quality)
+    add_counts(counts, two["launches"])
+    mg, sol_mg, solve, _ = multigrid_at_width("U2", pool32, dev, sol_sg,
+                                              model="unicycle")
+    add_counts(counts, mg["launches"])
+    mg.pop("phase")
+    mg.update(uni_quality(model_ocp("unicycle"), sol_mg.controls,
+                          pool32[1].to(dev), sol_mg.completed))
+    mg["fine"].update(iteration_summary(sol_mg.iterations,
+                                        flat_total_cap(cfg)))
+    mg["coarse"].update(iteration_summary(sol_mg.iterations_coarse,
+                                          flat_total_cap(cfg)))
+
+    def two_launch_coarse(o, uc, xx, c, lanes, refill_every):
+        return ps.solve_stream_packed(o, uc, xx, c, lanes=lanes,
+                                      refill_every=refill_every, mega=False)
+
+    u, x0 = (a.to(dev) for a in pool32)
+    cuda.reset_launches()
+    sol2 = solve(u, x0, coarse_solver=two_launch_coarse)
+    sol2.iterations.cpu()
+    mg["coarse_two_launch"] = {
+        "launches": dict(cuda.launches), "steps_coarse": sol2.steps_coarse,
+        "steps": sol2.steps, "fallback_lanes": int(sol2.fallback.sum())}
+    add_counts(counts, cuda.launches)
+    rec = {"config": "BATCH_CONFIG", "dtype": "float32", "lanes": LANES,
+           "refill_every": REFILL, "scenarios": POOL, "single_grid": sg,
+           "single_grid_two_launch": two, "multigrid": mg}
+    return rec, counts, sol2
+
+
+def phase_state_constraints(dev, cpu_ref):
+    """Phase U: the unicycle's keep-out disc and the cartpole's cart box
+    through every path of the port.  Returns the launch counts of its
+    paths (U2's streams, U3's batch, U4's single solves) and the kernels'
+    record (U1's times at B=4096, T=100 in float32)."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG, solve_batch
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import ip_newton
+    from ipoc_tpu_torch.utils.integrators import rollout
+
+    t_start = time.perf_counter()
+    uni = model_module("unicycle")
+    pool32 = uni_pool()
+    out = {"phase": "U", "model": "unicycle", "nx": 3, "nu": 2,
+           "horizon": T, "dt": DT}
+    counts = {}
+    # U1: the generated kernels against their plain versions, then their
+    # times on the iterates at bp 0.004.
+    t0 = time.perf_counter()
+    data = uni_stage_data(pool32, dev)
+    checks = uni_kernel_checks(data, dev)
+    t1 = time.perf_counter()
+    record = codegen_kernel_times("unicycle", T, data[UNI_BPS[1]]["newton"],
+                                  uni_levels(data, UNI_BPS[1], dev), dev,
+                                  UNI_BPS[1])
+    out["U1"] = {"checks": checks, "timing": record,
+                 "checks_s": t1 - t0, "timing_s": time.perf_counter() - t1,
+                 "s": time.perf_counter() - t0}
+    # U2: bench.py's unicycle configuration.
+    t0 = time.perf_counter()
+    out["U2"], c2, _ = uni_path_checks(pool32, dev)
+    add_counts(counts, c2)
+    out["U2"]["s"] = time.perf_counter() - t0
+    # U3: bench.py's batch mode on 1024 scenarios, its launches held to
+    # their exact counts.
+    t0 = time.perf_counter()
+    ocp = model_ocp("unicycle")
+    u, x0 = (a[:UNI_SCENARIOS].to(dev) for a in pool32)
+    cfg = BATCH_CONFIG
+    with counting(ip_newton, "_trial_eval") as trials, rolling() as rolls:
+        cuda.reset_launches()
+        t1 = time.perf_counter()
+        sol = solve_batch(ocp, u, x0, cfg)
+        it = sol.iterations.cpu().double()
+        wall = time.perf_counter() - t1
+        launches = dict(cuda.launches)
+    lockstep, n_roll = len(trials.calls), rolls.count()
+    want = expected_batch_launches(cfg, lockstep, n_roll)
+    add_counts(counts, launches)
+    out["U3"] = {"config": "BATCH_CONFIG", "scenarios": UNI_SCENARIOS,
+                 "wall_s": wall, "solves_per_s": UNI_SCENARIOS / wall,
+                 "mean_iterations": float(it.mean()),
+                 "max_iterations": int(it.max()),
+                 "lockstep_iterations": lockstep,
+                 "iterations_with_a_rollover": n_roll,
+                 "launches": {k: v for k, v in launches.items() if v},
+                 **uni_quality(ocp, sol.controls, x0),
+                 "s": time.perf_counter() - t0}
+    # U4: the single solves in float64 (then config 3 in float32, timed),
+    # the card against the CPU child's.
+    t0 = time.perf_counter()
+    solves, card_u = {}, {}
+    for name in UNI_SOLVES:
+        cuda.reset_launches()
+        t1 = time.perf_counter()
+        card_u[name], it_card = uni_single_solve(name, dev)
+        wall = time.perf_counter() - t1
+        launches = {k: v for k, v in cuda.launches.items() if v}
+        add_counts(counts, launches)
+        solves[name] = {"iterations": it_card, "wall_s": wall,
+                        "launches": launches}
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        u32, it32 = uni_single_solve("box", dev, torch.float32)
+        walls.append(time.perf_counter() - t1)
+    box = model_ocp("cartpole_box").dynamics
+    x_box = model_module("cartpole").initial_state(torch.float64)
+    solves["box_float32"] = {
+        "iterations": it32, "wall_s_median_of_3": sorted(walls)[1],
+        "wall_s": walls, "max_abs_x_cart": float(rollout(
+            box, u32.double(), x_box)[:-1, 0].abs().max())}
+    solves["box"]["max_abs_x_cart"] = float(rollout(
+        box, card_u["box"], x_box)[:-1, 0].abs().max())
+    for name in ("par", "seq"):
+        xx = rollout(model_ocp("unicycle", *UNI_SOLVE).dynamics,
+                     card_u[name], uni.initial_state(torch.float64))[:-1]
+        solves[name]["min_distance_to_centre"] = float(torch.sqrt(
+            (xx[:, 0] - uni.CENTER[0])**2
+            + (xx[:, 1] - uni.CENTER[1])**2).min())
+    t1 = time.perf_counter()
+    for name, (u_cpu, it_cpu) in cpu_ref()["U4"].items():
+        solves[name].update({
+            "iterations_cpu": it_cpu,
+            "max_abs_du": float((card_u[name] - u_cpu).abs().max())})
+    out["U4"] = {"solves": solves, "dtype": "float64 (box_float32: "
+                 "float32)", "config": "FAST_CONFIG",
+                 "waited_for_cpu_child_s": time.perf_counter() - t1,
+                 "s": time.perf_counter() - t0}
+    out["s"] = time.perf_counter() - t_start
+    emit(out)
+    problems = list(checks["problems"])
+    u2 = out["U2"]
+    for label, rec in (("U2 single grid", u2["single_grid"]),
+                       ("U2 multigrid", u2["multigrid"]),
+                       ("U3 batch", out["U3"])):
+        check_uni_quality(rec, label)
+    sg, mg = u2["single_grid"], u2["multigrid"]
+    check_mega_path(sg["launches"], sg["refill_rounds"], sg["lane_openings"])
+    check_mega_path(mg["launches"], mg["refill_rounds"], mg["lane_openings"],
+                    gates=1)
+    two = u2["single_grid_two_launch"]
+    for k in ("fused_bwd", "fused_fwd", "transition"):
+        check(two["launches"][k] == two["steps"] > 0,
+              f"U2 two-launch arm: {k} launched {two['launches'][k]} times "
+              f"in {two['steps']} steps")
+    c2 = mg["coarse_two_launch"]
+    check(c2["launches"]["merged_trial"] == c2["steps_coarse"] > 0,
+          f"U2 coarse two-launch arm: {c2}")
+    check(out["U3"]["launches"] == {k: v for k, v in want.items() if v},
+          f"U3 launches {out['U3']['launches']}, expected "
+          f"{ {k: v for k, v in want.items() if v} }")
+    for name in ("par", "seq", "box"):
+        rec = solves[name]
+        check(rec["iterations"] == rec["iterations_cpu"]
+              and rec["max_abs_du"] <= 1e-8,
+              f"U4 {name}: card {rec['iterations']} iterations, CPU "
+              f"{rec['iterations_cpu']}, controls {rec['max_abs_du']} apart")
+    for name in ("par", "seq"):
+        d = solves[name]["min_distance_to_centre"]
+        check(abs(d - uni.RADIUS) <= 1e-3,
+              f"U4 {name}: least distance {d}, not on the disc")
+    for name in ("box", "box_float32"):
+        check(solves[name]["max_abs_x_cart"] < CART_LIMIT,
+              f"U4 {name}: |x_cart| reached {solves[name]['max_abs_x_cart']}")
+    kernels = {"par": ("affine_scan", "par_newton_trial"),
+               "seq": ("seq_costates",),
+               "box": ("affine_scan", "par_newton_trial")}
+    for name, ks in kernels.items():
+        for k in ks:
+            check(solves[name]["launches"].get(k, 0) > 0,
+                  f"U4 {name} launched no {k}")
+    check(not problems, "; ".join(problems))
+    return counts, record
+
+
+def phase_multigrid_card_vs_cpu(dev, cpu_ref):
+    """Phase U5: bench.py's unicycle multigrid on the pool's first 128
+    scenarios in float64, the card (kernels) against the CPU (plain
+    versions): equal steps and iterations on both levels, the same lanes
+    sent to the cold start by the usable gate, controls within 1e-8."""
+    n = CARD_VS_CPU_SCENARIOS["U5"]
+    u, x0 = (a[:n].double().to(dev) for a in uni_pool())
+    t0 = time.perf_counter()
+    card = uni_multigrid(u, x0)
+    t_card = time.perf_counter() - t0
+    (cpu, t_cpu) = cpu_ref
+    du = float((card[0].cpu() - cpu[0]).abs().max())
+    rec = {"phase": "U5", "config": U5_CONFIG, "scenarios": n,
+           "lanes": 64, "dtype": "float64",
+           "lanes_with_different_iterations": int((card[1] != cpu[1]).sum()),
+           "coarse_lanes_with_different_iterations": int(
+               (card[2] != cpu[2]).sum()),
+           "steps_card": card[3], "steps_cpu": cpu[3],
+           "steps_coarse_card": card[4], "steps_coarse_cpu": cpu[4],
+           "fallback_lanes_card": int(card[5].sum()),
+           "fallback_lanes_cpu": int(cpu[5].sum()),
+           "max_abs_du": du, "wall_s_card": t_card,
+           "wall_s_cpu_child": t_cpu}
+    emit(rec)
+    check(rec["lanes_with_different_iterations"] == 0
+          and rec["coarse_lanes_with_different_iterations"] == 0
+          and card[3] == cpu[3] and card[4] == cpu[4],
+          f"U5: iterations or steps differ: {rec}")
+    check(bool((card[5] == cpu[5]).all()), "U5: the fallback lanes differ")
+    check(du <= 1e-8, f"U5: controls {du} apart")
+
+
+def uni_kernel_record(timing, kernel):
+    """A kernel's phase U times in the kernels' line (the merged trial's at
+    the multigrid's coarse level, DDP at T=25; the mega kernel's Newton
+    k=8 launch at T=100); the fixed-shape kernels, which U times not, have
+    none."""
+    key = {"merged_trial": f"merged_trial_ddp_T{T // COARSEN}",
+           "mega": f"mega_newton_T{T}_k{QUAD_MEGA_K}"}.get(kernel, kernel)
+    rec = timing.get(key)
+    if rec is None:
+        return None
+    return {f: rec.get(f) for f in ("ms", "entry_ms", "plain_ms", "bound_ms",
+                                    "bound_by")}
+
+
 def make_pool(model, n, dtype, seed=SEED, horizon=T):
-    """The bench's pool recipe (bench.py make_batch call), on the CPU; for
-    the quadrotor (two inputs) the warm start shifted to hover thrust, as
-    bench.py shifts it."""
+    """The bench's pool recipe (bench.py make_batch call), on the CPU: two
+    inputs for the quadrotor and the unicycle, one for the others; for the
+    quadrotor the warm start shifted to hover thrust, as bench.py shifts
+    it."""
     import torch
 
     from ipoc_tpu_torch.solvers.batched import make_batch
 
     hover = getattr(model, "hover_controls", None)
+    nu = 2 if model.__name__.rsplit(".", 1)[-1] in ("quadrotor",
+                                                     "unicycle") else 1
     u, x0 = make_batch(torch.Generator().manual_seed(seed),
-                       model.initial_state(dtype), n, horizon,
-                       1 if hover is None else 2, state_scale=0.01,
-                       control_scale=0.1)
+                       model.initial_state(dtype), n, horizon, nu,
+                       state_scale=0.01, control_scale=0.1)
     return (u, x0) if hover is None else (u + hover(horizon, dtype), x0)
 
 
@@ -4847,16 +5673,16 @@ def make_pool(model, n, dtype, seed=SEED, horizon=T):
 # its configurations, Q's its goldens and its batch) and of L's goldens.
 # P's, Q's, R's and T's start when phase P does: they run beside Q's
 # host-bound solves instead of slowing A-O's.
-CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "T", "P", "Q", "R"]
-LATE_CHILDREN = ("P", "Q", "R", "T")
+CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "T", "U", "P", "Q", "R"]
+LATE_CHILDREN = ("P", "Q", "R", "T", "U")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRST",
-                        help="subset of phases A-T to run after phase 0, "
+    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRSTU",
+                        help="subset of phases A-U to run after phase 0, "
                              "which always runs (default: "
-                             "ABCDEFGHIJKLMNOPQRST); I needs H")
+                             "ABCDEFGHIJKLMNOPQRSTU); I needs H")
     parser.add_argument("--cpu-reference", choices=CPU_CHILDREN,
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
@@ -4889,7 +5715,7 @@ def main(argv=None):
                   f"the CPU reference process of phase {child} failed")
             references[child] = pickle.loads(out)
         ref = references[child]
-        return ref[phase] if child in ("N", "Q", "T") else ref
+        return ref[phase] if child in ("N", "Q", "T", "U") else ref
 
     failures, record, counts = [], {}, {}
 
@@ -4995,12 +5821,20 @@ def main(argv=None):
             or ({}, {})
         for k, v in counts_t.items():
             counts[k] = (counts.get(k) or 0) + v
+        # The state constraints (the unicycle's disc, the cart box) through
+        # every path: their launches too, their (3, 2) times beside.
+        counts_u, record["unicycle"] = run(
+            "U", lambda: phase_state_constraints(dev, lambda: {
+                "U4": reference("U4")})) or ({}, {})
+        for k, v in counts_u.items():
+            counts[k] = (counts.get(k) or 0) + v
         quad64 = (tuple(a.double() for a in quad_pool())
                   if "T" in args.phases else None)
         for ph in CARD_VS_CPU:
             run(ph, lambda ph=ph: phase_card_vs_cpu(
                 ph, quad64 if ph == "T3" else pool64, dev, reference(ph)))
         run("P64", lambda: phase_nmpc_card_vs_cpu(dev, reference("P64")))
+        run("U5", lambda: phase_multigrid_card_vs_cpu(dev, reference("U5")))
     finally:
         for child in children.values():
             if child.poll() is None:
@@ -5039,7 +5873,9 @@ def main(argv=None):
          # kernel's two rows); phase T's times at the quadrotor's (6, 2).
          **{f: record[k][f] for f in ("entry_ms",) if f in record.get(k, {})},
          **({"quadrotor_6_2": quad_kernel_record(record["quadrotor"], k)}
-            if record.get("quadrotor") else {})}
+            if record.get("quadrotor") else {}),
+         **({"unicycle_3_2": uni_kernel_record(record["unicycle"], k)}
+            if record.get("unicycle") else {})}
         for k, (src, rep) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -33,6 +33,18 @@ IPOC_HD scalar_t nan_min(scalar_t a, scalar_t b) {
   return a < b ? a : b;
 }
 
+// A DDP gain as the reference backward pass gives it
+// (solvers/ip_ddp.py _ddp_bwd): it factors the stage's regularized Quu by
+// Cholesky, which fails where a pivot of Quu is not positive (or is NaN)
+// and then gives NaN gains; those carry NaN into Vx, and so into every
+// earlier stage's Qu and pivots (max|Qu| is NaN and the lane's iteration
+// ends as non-finite).  The unpivoted elimination gives finite gains
+// there, so DDP mode puts NaN in their place.
+template <typename scalar_t>
+IPOC_HD scalar_t ddp_gain(scalar_t g, scalar_t piv) {
+  return piv > scalar_t(0) ? g : scalar_t(NAN);
+}
+
 // Unpivoted elimination on an (N x N) matrix `a` with an (N x MC) RHS `b`,
 // both row-major, in place; returns the minimum pivot (_solve_track).
 template <typename scalar_t, int N, int MC>
@@ -105,7 +117,8 @@ IPOC_HD scalar_t pivots_only(const scalar_t* A) {
 // were contracted with the value gradient Vx, not the costates, so the
 // Hamiltonian gradient is the Q-function's, Qu = ru and Qx = hx (the
 // stage's lam_new, passed as hx); Vx is only written (Qx + Qxu k); dv +=
-// 1/2 k'Qu (= -1/2 Qu' Quu^-1 Qu); the pivots are Quu's alone.  The caller
+// 1/2 k'Qu (= -1/2 Qu' Quu^-1 Qu); the pivots are Quu's alone; a Quu
+// that is not positive definite gives NaN gains (ddp_gain).  The caller
 // starts Vx at the terminal gradient.
 template <typename scalar_t, int NX, int NU, bool DDP = false>
 IPOC_HD void riccati_step(
@@ -208,6 +221,12 @@ IPOC_HD void riccati_step(
     k[i] = -sol[i * MC];
 #pragma unroll
     for (int j = 0; j < NX; ++j) K[i * NX + j] = -sol[i * MC + 1 + j];
+  }
+  if constexpr (DDP) {
+#pragma unroll
+    for (int i = 0; i < NU * NX; ++i) K[i] = ddp_gain(K[i], piv);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) k[i] = ddp_gain(k[i], piv);
   }
 
   // Vx <- Qx + Qxu k;  Vxx <- Qxx + Qxu K (upper triangle, mirrored).

@@ -41,8 +41,9 @@
 //
 // DDP = true is riccati_step<..., true>'s step (the merged trial's DDP
 // mode, merged_trial.h): Qu = ru, Qx_r = hx_r (the stage's lam_new, which
-// the caller hands to rows_pick), dV += 1/2 k'Qu, the pivots of Quu alone;
-// every other entry as in Newton mode.
+// the caller hands to rows_pick), dV += 1/2 k'Qu, the pivots of Quu alone,
+// NaN gains where Quu is not positive definite (ddp_gain); every other
+// entry as in Newton mode.
 
 #pragma once
 
@@ -274,6 +275,10 @@ struct RowStep {
     for (int i = 0; i < NU; ++i) {
       L.k[i] = -sol[i * 2];
       L.kc[i] = -sol[i * 2 + 1];
+      if constexpr (DDP) {
+        L.k[i] = ddp_gain(L.k[i], L.piv_t);
+        L.kc[i] = ddp_gain(L.kc[i], L.piv_t);
+      }
     }
     // Vx_r = Qx_r + Qxu[r][:] k.
     scalar_t acc = L.qxu[0] * L.k[0];

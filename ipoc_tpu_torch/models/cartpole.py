@@ -1,7 +1,8 @@
 """Constrained cartpole swing-up model (counterpart of
 ``ipoc_tpu/models/cartpole.py``): force box |u| <= 50, quadratic costs with
 pole-angle wrapping, underactuated.mit.edu cartpole ODE.  Batched over
-leading axes.  The slice ports the input-constrained model only."""
+leading axes.  ``make_ocp(dt, cart_limit)`` adds the cart-position state
+box ``|x_cart| <= cart_limit`` (BASELINE.json config 3)."""
 
 from __future__ import annotations
 
@@ -53,6 +54,21 @@ def constraints(state, control):
                         -control[..., 0] - CONTROL_BOUND], dim=-1)
 
 
+def make_constraints(cart_limit: float | None = None):
+    """The force box, and with ``cart_limit`` the cart-position state box
+    ``|x_cart| <= cart_limit`` after it, all as ``c <= 0``."""
+    if cart_limit is None:
+        return constraints
+
+    def cons(state, control):
+        return torch.cat([
+            constraints(state, control),
+            torch.stack([state[..., 0] - cart_limit,
+                         -state[..., 0] - cart_limit], dim=-1)], dim=-1)
+
+    return cons
+
+
 def _error(state):
     return torch.stack([state[..., 0] - GOAL[0],
                         wrap_angle(state[..., 1]) - GOAL[1],
@@ -77,9 +93,11 @@ def final_cost(state):
     return 0.5 * _weighted_sq(_error(state))
 
 
-def make_ocp(dt: float) -> OCP:
-    """Euler-discretized constrained cartpole OCP."""
-    return barrier_ocp(euler(ode, dt), constraints, stage_cost, final_cost)
+def make_ocp(dt: float, cart_limit: float | None = None) -> OCP:
+    """Euler-discretized constrained cartpole OCP; ``cart_limit`` adds the
+    state box ``|x_cart| <= cart_limit``."""
+    return barrier_ocp(euler(ode, dt), make_constraints(cart_limit),
+                       stage_cost, final_cost)
 
 
 def initial_state(dtype=torch.float32):

@@ -283,6 +283,7 @@ def solve_stream_packed(
     active = torch.ones((B,), dtype=torch.bool, device=device)
     out_u = torch.zeros((N, T, nu), dtype=dtype, device=device)
     out_it = torch.zeros((N,), dtype=torch.int32, device=device)
+    out_done = torch.zeros((N,), dtype=torch.bool, device=device)
     pool_next = B
     gens = (N + B - 1) // B
     K = max(1, refill_every)
@@ -315,6 +316,7 @@ def solve_stream_packed(
         rows = sid[fin]
         out_u.index_copy_(0, rows, lane.u[..., fin].permute(2, 0, 1))
         out_it.index_copy_(0, rows, lane.it[fin])
+        out_done.index_copy_(0, rows, lane.bp[fin] <= cfg.bp_min)
 
         # 2. Refill from the pool: the k-th finished lane (in lane order)
         #    takes scenario pool_next + k while the pool lasts; the rest
@@ -340,7 +342,7 @@ def solve_stream_packed(
             pool_next += n_take
         active = active.index_fill(0, fin[n_take:], False)
 
-    return StreamSolution(out_u, out_it, steps)
+    return StreamSolution(out_u, out_it, steps, out_done)
 
 
 def solve_batch_packed(

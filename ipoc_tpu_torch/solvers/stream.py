@@ -46,6 +46,10 @@ class StreamSolution(NamedTuple):
     controls: torch.Tensor    # (N, T, nu) per-scenario solutions
     iterations: torch.Tensor  # (N,) int32 Newton iterations per scenario
     steps: int                # lockstep loop steps taken
+    # (N,) bool: the scenario's barrier schedule ran to bp_min; False where
+    # its solve stopped on a non-finite cost or gradient (or its warm start
+    # was infeasible), and its controls are the last iterate.
+    completed: torch.Tensor
 
 
 def solve_stream(
@@ -99,6 +103,7 @@ def solve_stream(
     active = torch.ones((B,), dtype=torch.bool, device=device)
     out_u = torch.zeros((N, T, nu), dtype=dtype, device=device)
     out_it = torch.zeros((N,), dtype=torch.int32, device=device)
+    out_done = torch.zeros((N,), dtype=torch.bool, device=device)
     pool_next = B
     gens = (N + B - 1) // B
     K = max(1, refill_every)
@@ -126,6 +131,7 @@ def solve_stream(
         rows = sid[fin]
         out_u.index_copy_(0, rows, lane.u[fin])
         out_it.index_copy_(0, rows, lane.it[fin])
+        out_done.index_copy_(0, rows, lane.bp[fin] <= cfg.bp_min)
 
         # 2. Refill from the pool: the k-th finished lane (in lane order)
         #    takes scenario pool_next + k while the pool lasts; the rest
@@ -143,7 +149,7 @@ def solve_stream(
             pool_next += n_take
         active = active.index_fill(0, fin[n_take:], False)
 
-    return StreamSolution(out_u, out_it, steps)
+    return StreamSolution(out_u, out_it, steps, out_done)
 
 
 class MultigridSolution(NamedTuple):
@@ -152,6 +158,9 @@ class MultigridSolution(NamedTuple):
     iterations_coarse: torch.Tensor  # (N,) coarse-level Newton iterations
     steps: int                       # fine-level lockstep steps
     steps_coarse: int                # coarse-level lockstep steps
+    fallback: torch.Tensor           # (N,) bool: the gate's cold starts
+    completed: torch.Tensor          # (N,) bool: the fine level's, as
+    #                                  StreamSolution's
 
 
 def solve_stream_multigrid(
@@ -180,7 +189,8 @@ def solve_stream_multigrid(
     unusable on the fine grid (a non-finite barrier cost at
     ``fine_bp_init``, or non-finite controls; one rollout-cost launch on a
     card) falls back to its own ``controls`` and the full schedule through
-    the per-scenario ``bp_init``/``rp_init``.
+    the per-scenario ``bp_init``/``rp_init``; ``fallback`` marks those
+    scenarios.
 
     ``coarse_impl``/``fine_impl`` override the level's ``newton_impl``
     (the bench runs ``coarse_impl="ddp"``); ``coarse_solver`` replaces the
@@ -232,6 +242,8 @@ def solve_stream_multigrid(
         iterations_coarse=sol_c.iterations,
         steps=sol_f.steps,
         steps_coarse=sol_c.steps,
+        fallback=~ok,
+        completed=sol_f.completed,
     )
 
 
@@ -295,7 +307,8 @@ def solve_stream_sharded(
     sol = solve_stream(ocp, u, x0, cfg, lanes=lanes,
                        refill_every=refill_every, **stream_kwargs)
     return StreamSolution(gather(sol.controls), gather(sol.iterations),
-                          most(sol.steps))
+                          most(sol.steps),
+                          gather(sol.completed.to(torch.uint8)).bool())
 
 
 def solve_stream_multigrid_sharded(
@@ -329,4 +342,6 @@ def solve_stream_multigrid_sharded(
         iterations_coarse=gather(sol.iterations_coarse),
         steps=most(sol.steps),
         steps_coarse=most(sol.steps_coarse),
+        fallback=gather(sol.fallback.to(torch.uint8)).bool(),
+        completed=gather(sol.completed.to(torch.uint8)).bool(),
     )

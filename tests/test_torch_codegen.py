@@ -2,8 +2,12 @@
 and the JAX package.
 
 Every stage program of ``ops/fused_iter.py`` is traced and scalarized for
-cartpole, pendulum and the planar quadrotor (nx=6, nu=2: its sin, cos,
-stack and cat lowered to straight-line code); at the same float64 inputs (made with numpy, the
+cartpole, pendulum, the planar quadrotor (nx=6, nu=2: its sin, cos,
+stack and cat lowered to straight-line code), the unicycle (nx=3, nu=2:
+the sin and cos of its heading, the keep-out disc's state constraint
+among five barrier logs and the maximum over five rows) and cartpole with
+BASELINE.json config 3's cart box (the cat of the force box's and the
+cart box's stacks); at the same float64 inputs (made with numpy, the
 angle at and near 0 and 2*pi, where the angle wrap switches branch) its
 DAG's torch evaluator equals the port's ``torch.func`` program and the JAX
 package's stage program (``fused_iter_kernel.py``), and the emitted C
@@ -27,13 +31,16 @@ from torch.func import vmap
 from ipoc_tpu.models import cartpole as j_cartpole
 from ipoc_tpu.models import pendulum as j_pendulum
 from ipoc_tpu.models import quadrotor as j_quadrotor
+from ipoc_tpu.models import unicycle as j_unicycle
 from ipoc_tpu.ops.pallas import fused_iter_kernel as jf
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import scalarize
+from tests.test_torch_models import boxed
 
 torch.set_num_threads(1)
 
@@ -42,7 +49,13 @@ RTOL = 1e-12
 # controls' centre inside the box)
 MODELS = {"cartpole": (j_cartpole, t_cartpole, 4, 1, 1, 0.0),
           "pendulum": (j_pendulum, t_pendulum, 2, 1, 0, 0.0),
-          "quadrotor": (j_quadrotor, t_quadrotor, 6, 2, 2, t_quadrotor.HOVER)}
+          "quadrotor": (j_quadrotor, t_quadrotor, 6, 2, 2, t_quadrotor.HOVER),
+          "unicycle": (j_unicycle, t_unicycle, 3, 2, 2, 0.0),
+          "cartpole_box": (boxed(j_cartpole), boxed(t_cartpole), 4, 1, 1,
+                           0.0)}
+# The states' spread where a state constraint must hold at every input:
+# the cart inside its box, the unicycle (about the origin) off the disc.
+STATE_SCALE = {"unicycle": 0.2, "cartpole_box": 0.08}
 PROGRAMS = ("stage_bwd", "term", "stage_fwd", "term_fwd", "roll_cost",
             "transition", "final_cost", "dynamics")
 ANGLES = (0.0, 1e-13, -1e-13, 2 * np.pi, 2 * np.pi - 1e-12,
@@ -62,14 +75,17 @@ def _jax_program(name, jocp, nx, nu):
     }[name]
 
 
-def _inputs(shapes, nx, angle, seed, B=len(ANGLES), nu=1, u_centre=0.0):
-    """Float64 inputs, batch-first: states (nx,) carry the test angles,
-    controls-shaped (nu,) stay well inside the box (about ``u_centre``),
-    scalars are bp."""
+def _inputs(shapes, nx, angle, seed, B=len(ANGLES), nu=1, u_centre=0.0,
+            x_scale=0.3):
+    """Float64 inputs, batch-first: states (nx,) carry the test angles and
+    spread ``x_scale`` elsewhere, controls-shaped (nu,) stay well inside
+    the box (about ``u_centre``), scalars are bp."""
     rng = np.random.default_rng(seed)
     out = []
     for s in shapes:
         a = 0.3 * rng.normal(size=(B,) + tuple(s))
+        if tuple(s) == (nx,):
+            a *= x_scale / 0.3
         if tuple(s) == (nx,):
             a[:, angle] = ANGLES
         elif tuple(s) == (nu,):
@@ -81,10 +97,15 @@ def _inputs(shapes, nx, angle, seed, B=len(ANGLES), nu=1, u_centre=0.0):
 
 
 def _close(got, ref, name):
+    """Equal NaN patterns (the barrier's log at an infeasible point) and,
+    elsewhere, ``got`` within RTOL of the largest finite |ref|."""
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.shape == ref.shape, name
-    scale = np.abs(ref).max() + 1e-300
-    np.testing.assert_allclose(got, ref, rtol=0, atol=RTOL * scale,
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref),
+                                  err_msg=name)
+    fin = ~np.isnan(ref)
+    scale = (np.abs(ref[fin]).max() if fin.any() else 0.0) + 1e-300
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=0, atol=RTOL * scale,
                                err_msg=name)
 
 
@@ -100,7 +121,8 @@ def model(request):
 def test_program_matches_torch_func_and_jax(model, name):
     mname, jocp, tocp, nx, nu, angle, centre, progs = model
     fn, shapes = tf.stage_programs(tocp, nx, nu)[name]
-    args = _inputs(shapes, nx, angle, seed=len(name), nu=nu, u_centre=centre)
+    args = _inputs(shapes, nx, angle, seed=len(name), nu=nu, u_centre=centre,
+                   x_scale=STATE_SCALE.get(mname, 0.3))
     prog = progs[name]
     got = prog.evaluate(*(torch.as_tensor(a).movedim(0, -1) for a in args))
     ref = vmap(fn)(*(torch.as_tensor(a) for a in args))
@@ -171,7 +193,7 @@ def test_emitted_c_matches_torch_func(model, tmp_path):
         fn, shapes = fns[name]
         args = [torch.as_tensor(a) for a in
                 _inputs(shapes, nx, angle, seed=len(name), nu=nu,
-                        u_centre=centre)]
+                        u_centre=centre, x_scale=STATE_SCALE.get(mname, 0.3))]
         ref = vmap(fn)(*args)
         ref = ref if isinstance(ref, tuple) else (ref,)
         for b in range(args[0].shape[0]):

@@ -10,7 +10,7 @@ included, on scenario B - 1's data, writing nothing), with the shared
 memory filled with NaN first.  Here they are compiled with ``g++`` and held
 
 * in float64 at 1e-12 of scale, cartpole, pendulum and the planar
-  quadrotor (nx=6, nu=2) at dt = 1/40, B in
+  quadrotor (nx=6, nu=2) and the unicycle (nx=3, nu=2) at dt = 1/40, B in
   {1, 3, 37} and T in {1, 7, 40}: the forward sweep (on the gains of the
   host build of ``csrc/fused_bwd.h``) against the plain fused iteration's
   trial point, cost, maximum constraint value and sum ||cu||^2; the
@@ -25,7 +25,11 @@ memory filled with NaN first.  Here they are compiled with ``g++`` and held
 * in float32 against JAX's kernels in interpret mode (pendulum, T=6, 128
   lanes): ``fused_newton_iter_packed(..., merged=False, with_cu=True)``
   and ``transition_packed``, at ``tests/test_torch_fused_iter.py``'s
-  tolerance (rtol and atol 5e-5).
+  tolerance (rtol and atol 5e-5);
+* the unicycle's keep-out disc on the forward sweep and the rollout cost
+  (``csrc/rollout_cost.h``), both dtypes: a lane whose states enter the
+  disc at one constrained stage is infeasible, one whose only entry is
+  the terminal state is not, as the plain versions and JAX judge them.
 """
 
 import ctypes
@@ -40,12 +44,14 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from ipoc_tpu.models import pendulum as j_pendulum
+from ipoc_tpu.models import unicycle as j_unicycle
 from ipoc_tpu.ops.pallas import fused_iter_kernel as jf
 from ipoc_tpu.ops.pallas import set_pallas_scans
 from ipoc_tpu.ops.pallas.seq_newton_kernel import _pack_s, _unpack_s
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import ELEMENTARY_CALLS as CALLS
@@ -57,7 +63,8 @@ TOL = 1e-12
 DT = 1.0 / 40
 # model: (port module, nx, nu, the controls' centre inside the box)
 MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
-          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER),
+          "unicycle": (t_unicycle, 3, 2, 0.3)}
 
 SOURCE = r"""
 #include <math.h>
@@ -263,7 +270,8 @@ def test_launch_rule(host, B):
     _, _, nx, lib = host
     shared = {(1, 4): (11008, 22016), (1, 2): (6912, 13824),
               (1, 6): (20992, 41984), (2, 4): (2560, 5120),
-              (2, 2): (2048, 4096), (2, 6): (3584, 7168)}
+              (2, 2): (2048, 4096), (2, 6): (3584, 7168),
+              (1, 3): (13056, 26112), (2, 3): (2816, 5632)}
     for kernel in (1, 2):
         for code in (0, 1):
             out = (ctypes.c_int * 5)()
@@ -287,16 +295,18 @@ def test_forward_parts_are_the_stage_program(host):
     evaluators in float64.  The handoff holds the inputs the chain reads
     (x, u, gains) and the elementary-function calls that do not read the
     deviation: 12 values at cartpole (sin and cos), 7 at pendulum (cos), 24
-    at the quadrotor (sin and cos); the step computes the rest of the
-    chain, 85, 15 and 64 operations, the evaluation 36, 30 and 64; pre
-    makes no other call."""
+    at the quadrotor (sin and cos), 15 at the unicycle (sin and cos); the
+    step computes the rest of the chain, 85, 15, 64 and 33 operations, the
+    evaluation 36, 30, 64 and 66 (the unicycle's five barrier logs and the
+    disc's row among the five of its maximum); pre makes no other call."""
     _, ocp, nx, _ = host
-    nu = {4: 1, 2: 1, 6: 2}[nx]
+    nu = {4: 1, 2: 1, 6: 2, 3: 2}[nx]
     prog = tf.scalar_programs(ocp, nx, nu)["stage_fwd"]
     pre, step, ev = tf.forward_parts(ocp, nx, nu)
     assert {nd.op for nd in pre.order} <= CALLS | {"input"}
     assert {nd.op for nd in step.order} & CALLS == set()
-    counts = {4: (12, 2, 85, 36), 2: (7, 1, 15, 30), 6: (24, 2, 64, 64)}[nx]
+    counts = {4: (12, 2, 85, 36), 2: (7, 1, 15, 30), 6: (24, 2, 64, 64),
+              3: (15, 2, 33, 66)}[nx]
     assert (pre.out_shapes[0][0], pre.stats["ops"], step.stats["ops"],
             ev.stats["ops"]) == counts
     assert ev.out_shapes == [(2,), (), (2,)]
@@ -313,14 +323,15 @@ def test_transition_parts_are_the_stage_program(host):
     """Candidate a's cut, run on each candidate's data, gives transition's
     states, costs and sums ||cu||^2 to the bit (torch evaluators, float64);
     candidate b's own cut is the same program.  The step is the dynamics
-    (28 operations at cartpole, 9 at pendulum, 22 at the quadrotor), the
-    evaluation the stage cost and ||cu||^2 (35, 29 and 61)."""
+    (28 operations at cartpole, 9 at pendulum, 22 at the quadrotor, 10 at
+    the unicycle), the evaluation the stage cost and ||cu||^2 (35, 29, 61
+    and 62)."""
     _, ocp, nx, _ = host
-    nu = {4: 1, 2: 1, 6: 2}[nx]
+    nu = {4: 1, 2: 1, 6: 2, 3: 2}[nx]
     prog = tf.scalar_programs(ocp, nx, nu)["transition"]
     step, ev = tf.transition_parts(ocp, nx, nu)
     assert (step.stats["ops"], ev.stats["ops"]) == {
-        4: (28, 35), 2: (9, 29), 6: (22, 61)}[nx]
+        4: (28, 35), 2: (9, 29), 6: (22, 61), 3: (10, 62)}[nx]
     xa, xb, u, up, bp = _args(prog, nx + 1)
     ref = prog.evaluate(xa, xb, u, up, bp)
     for c, (x, uu) in enumerate(((xa, u), (xb, up))):
@@ -416,3 +427,86 @@ def test_host_transition_matches_jax_kernel_f32(pendulum_f32):
     for g, r in zip(got[4:], ref[4:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(r).reshape(-1)[:JB],
                                    **tol)
+
+
+# --- the keep-out disc: which stage points are constrained -------------------
+
+
+def disc_batch(T, stages, dtype=torch.float64):
+    """Unicycle lanes (dt = 1/40) that drive straight along +x at v = 1.6
+    on the chord 0.01 below the disc's top: one stage point every 0.04 of
+    x, so lane b's only point inside the disc is at stage ``stages[b]``
+    (T: the terminal state; past T: none).  Returns ``(u (T, 2, B), x0
+    (3, B))``."""
+    cx, cy = t_unicycle.CENTER
+    v, h = 1.6, 0.01
+    y = cy + float(np.sqrt(t_unicycle.RADIUS**2 - h**2))
+    B = len(stages)
+    u = torch.zeros((T, 2, B), dtype=dtype)
+    u[:, 0] = v
+    x0 = torch.zeros((3, B), dtype=dtype)
+    x0[0] = torch.tensor([cx - v * DT * s for s in stages], dtype=dtype)
+    x0[1] = y
+    return u, x0
+
+
+def test_disc_constrains_the_stage_points_alone(tmp_path_factory):
+    """The unicycle's disc on the fused forward sweep (zero gains: the trial
+    point is the iterate) and the rollout cost, float64 and float32, T=40:
+    a lane whose states enter the disc at one constrained stage (0, 1, 20
+    or 39) is infeasible (max_c > 0, a NaN barrier cost), one whose only
+    entry is the terminal state, or that never enters, is not (max_c <= 0,
+    finite costs): as the plain versions and JAX's ``_fused_reference``
+    (``max(constraints(temp_x[:-1], temp_u))``) and ``total_cost`` judge
+    them; the sweep's outputs within 1e-12 (float64) of the plain
+    version's, the NaN costs where it has them."""
+    ocp, lib = _library(tmp_path_factory, "unicycle")
+    nx = 3
+    from tests.test_torch_rollout_cost_value_host import (
+        _roll_lib,
+        _rollout_cost,
+    )
+
+    roll = _roll_lib(tmp_path_factory, "unicycle", ocp, nx, 2)
+    T, stages = 40, (0, 1, 20, 39, 40, 43)
+    inside = torch.tensor([s < T for s in stages])
+    jocp = j_unicycle.make_ocp(DT)
+    for dtype in (torch.float64, torch.float32):
+        u, x0 = disc_batch(T, stages, dtype)
+        bp = torch.full((len(stages),), 0.05, dtype=dtype)
+        xs, xT = tf.rollout_plain(ocp, u, x0)
+        x = tf.lanes_first(xs, xT)
+        ub = u.permute(2, 0, 1)
+        # JAX's verdict on the same trajectories.
+        j_mc = np.asarray(jax.vmap(lambda xx, uu: jnp.max(jax.vmap(
+            jocp.constraints)(xx[:-1], uu)))(x.double().numpy(),
+                                            ub.double().numpy()))
+        j_cost = np.asarray(jax.vmap(jocp.total_cost, (0, 0, None))(
+            x.double().numpy(), ub.double().numpy(), 0.05))
+        np.testing.assert_array_equal(j_mc > 0, inside.numpy())
+        np.testing.assert_array_equal(np.isnan(j_cost), inside.numpy())
+        # The forward sweep on zero gains, and its plain counterpart.
+        Kk = torch.zeros((T, (1 + nx) * 2, len(stages)), dtype=dtype)
+        tu, tx, txT, nc, mc, cun = _fwd(lib, xs, u, xT, bp, Kk)
+        ref_mc = ocp.constraints(x[:, :-1], ub).flatten(1).amax(1)
+        ref_nc = ocp.total_cost(x, ub, bp)
+        assert torch.equal(tu, u) and torch.equal(tx, xs) and \
+            torch.equal(txT, xT)
+        assert torch.equal(mc > 0, inside) and torch.equal(ref_mc > 0, inside)
+        assert torch.equal(torch.isnan(nc), inside)
+        assert torch.equal(torch.isnan(ref_nc), inside)
+        tol = TOL if dtype == torch.float64 else 1e-5
+        for g, r in ((mc, ref_mc), (nc[~inside], ref_nc[~inside]),
+                     (cun, tf._cu_sq(ocp, x, ub, bp))):
+            assert float((g - r).abs().max()) <= tol * float(r.abs().max())
+        # The rollout cost from the lanes' initial states.
+        got = _rollout_cost(roll, u, x0, bp)
+        ref = tf.rollout_cost_plain(ocp, u, x0, bp)
+        assert torch.equal(torch.isnan(got[2]), inside)
+        assert torch.equal(torch.isnan(ref[2]), inside)
+        for k in (0, 1, 3):
+            assert float((got[k] - ref[k]).abs().max()) <= tol * float(
+                ref[k].abs().max()), k
+        fin = ~inside
+        assert float((got[2][fin] - ref[2][fin]).abs().max()) <= tol * float(
+            ref[2][fin].abs().max())

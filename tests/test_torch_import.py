@@ -10,7 +10,10 @@ MODULES = [
     "ipoc_tpu_torch.interop",
     "ipoc_tpu_torch.problem",
     "ipoc_tpu_torch.models.cartpole",
+    "ipoc_tpu_torch.models.double_integrator",
     "ipoc_tpu_torch.models.pendulum",
+    "ipoc_tpu_torch.models.quadrotor",
+    "ipoc_tpu_torch.models.unicycle",
     "ipoc_tpu_torch.utils.integrators",
     "ipoc_tpu_torch.ops.linalg",
     "ipoc_tpu_torch.ops.derivatives",

@@ -26,7 +26,8 @@ stream's mega executor against the JAX package, on the CPU.
   transition, the ping-pong iterate and its copy-back), compiled with the
   host C++ compiler against the generated model source and run lane by
   lane with plain loads, against ``mega_k_iterations_plain`` in float64:
-  pendulum, cartpole and the planar quadrotor (nx=6, nu=2), B=8, T=12,
+  pendulum, cartpole, the planar quadrotor (nx=6, nu=2) and the unicycle
+  (nx=3, nu=2, the keep-out disc), B=8, T=12,
   two blocks of k=6 with the lane
   carried across them, ``max_newton_iters=2`` so that lanes roll over,
   Newton and DDP, predictor on and off.  Equal ``it``, ``stage_it``,
@@ -70,6 +71,7 @@ from ipoc_tpu_torch.interop import config_from_jax, pool_from_numpy, to_numpy
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import mega
@@ -300,7 +302,8 @@ def test_mega_stream_matches_two_launch_arm_and_jax(solved):
 # so the blocks end with the iterate in both buffers)
 HOST_MODELS = {"pendulum": (t_pendulum, 2, 1, 0.0, 0.1),
                "cartpole": (t_cartpole, 4, 1, 0.0, 0.1),
-               "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER, 1.0)}
+               "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER, 1.0),
+               "unicycle": (t_unicycle, 3, 2, 0.3, 0.8)}
 HB, HT, HK = 8, 12, 6
 INACTIVE = 3
 

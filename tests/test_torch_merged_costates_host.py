@@ -14,7 +14,8 @@ the shared memory filled with NaN first.  Here they are compiled with
 ``g++`` (no FMA contraction on the host's baseline instruction set) and
 held
 
-* in float64, cartpole, pendulum and the planar quadrotor (nx=6, nu=2) at
+* in float64, cartpole, pendulum, the planar quadrotor (nx=6, nu=2) and
+  the unicycle (nx=3, nu=2) at
   dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}: the merged trial, both modes, against ``lane.h``'s
   one-thread trial (the parent kernel's body) built by the same compiler,
   bit for bit on every output, and against ``fused_newton_iter_plain`` at
@@ -57,6 +58,7 @@ from ipoc_tpu.ops.pallas.seq_newton_kernel import (
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import ELEMENTARY_CALLS as CALLS
@@ -70,7 +72,8 @@ TOL = 1e-12
 DT = 1.0 / 40
 # model: (port module, nx, nu, the controls' centre inside the box)
 MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
-          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER),
+          "unicycle": (t_unicycle, 3, 2, 0.3)}
 NAMES = ("tu", "tx", "txT", "cost", "nc", "mc", "dv", "piv", "hu", "cun")
 
 MERGED_SOURCE = r"""
@@ -437,7 +440,8 @@ def test_host_merged_trial_matches_parent_and_plain(host, ddp, T):
 @pytest.mark.parametrize("B", [1, 3, 4096])
 def test_merged_launch_rule(host, B):
     """One warp per block in both modes: G = RowStep's lanes per scenario
-    (4 at cartpole, 2 at pendulum, 8 at the quadrotor), 32 / G
+    (4 at cartpole, 2 at pendulum, 8 at the quadrotor, 4 at the
+    unicycle), 32 / G
     scenarios, chunks of W = G
     stages, ceil(B / S) blocks, as ``row_geometry`` states them; the shared
     memory per block that the source notes state (DDP mode holds no
@@ -445,8 +449,9 @@ def test_merged_launch_rule(host, B):
     _, _, nx, lib = host
     shared = {(4, False): (15104, 30208), (4, True): (11776, 23552),
               (2, False): (9984, 19968), (2, True): (8192, 16384),
-              (6, False): (27136, 54272), (6, True): (20736, 41472)}
-    G = {4: 4, 2: 2, 6: 8}[nx]
+              (6, False): (27136, 54272), (6, True): (20736, 41472),
+              (3, False): (17920, 35840), (3, True): (14080, 28160)}
+    G = {4: 4, 2: 2, 6: 8, 3: 4}[nx]
     geo = sn.row_geometry(nx, B)
     for ddp in (False, True):
         for code in (0, 1):
@@ -471,15 +476,16 @@ def test_ddp_forward_parts_are_the_stage_program(host):
     ||cu||^2 (each summand the product of its pair), to the bit on the
     torch evaluators in float64; the evaluation is stage_fwd_eval's
     program, and the step holds the chain's calls (sin and cos at
-    cartpole, 41 operations; pendulum 16; the quadrotor 54) and reads no
+    cartpole, 41 operations; pendulum 16; the quadrotor 54; the unicycle
+    27) and reads no
     bp."""
     _, ocp, nx, _ = host
-    nu = {4: 1, 2: 1, 6: 2}[nx]
+    nu = {4: 1, 2: 1, 6: 2, 3: 2}[nx]
     prog = tf.scalar_programs(ocp, nx, nu)["stage_ddp_fwd"]
     step, ev = tf.ddp_forward_parts(ocp, nx, nu)
     assert same_program(ev, tf.forward_parts(ocp, nx, nu)[2])
     assert not same_program(step, ev)
-    assert step.stats["ops"] == {4: 41, 2: 16, 6: 54}[nx]
+    assert step.stats["ops"] == {4: 41, 2: 16, 6: 54, 3: 27}[nx]
     assert {nd.op for nd in step.order} & CALLS
     assert step.in_shapes == [(nx,), (nu,), (nx,), ((1 + nx) * nu,)]
     x, u, bp, tx, g = _args(prog, nx + 7)

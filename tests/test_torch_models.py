@@ -1,11 +1,15 @@
 """The port's models against the JAX package's, float64, atol 1e-12:
-pendulum, cartpole, the planar quadrotor (nx=6, nu=2) and the double
-integrator (``unconstrained_ocp``, RK4 through ``discretize_dynamics``);
+pendulum, cartpole, the planar quadrotor (nx=6, nu=2), the double
+integrator (``unconstrained_ocp``, RK4 through ``discretize_dynamics``),
+the unicycle (nx=3, nu=2, the keep-out disc) and cartpole with
+BASELINE.json config 3's cart box;
 ``runge_kutta`` and ``discretize_dynamics`` with sub-steps on the
 quadrotor's ODE; every model's constants (``interop.model_constants``).
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +21,7 @@ from ipoc_tpu.models import cartpole as j_cartpole
 from ipoc_tpu.models import double_integrator as j_double_integrator
 from ipoc_tpu.models import pendulum as j_pendulum
 from ipoc_tpu.models import quadrotor as j_quadrotor
+from ipoc_tpu.models import unicycle as j_unicycle
 from ipoc_tpu.utils.integrators import discretize_dynamics as j_discretize
 from ipoc_tpu.utils.integrators import rollout as j_rollout
 from ipoc_tpu.utils.integrators import runge_kutta as j_runge_kutta
@@ -26,6 +31,7 @@ from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import double_integrator as t_double_integrator
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.utils.integrators import discretize_dynamics as t_discretize
 from ipoc_tpu_torch.utils.integrators import rollout as t_rollout
 from ipoc_tpu_torch.utils.integrators import runge_kutta as t_runge_kutta
@@ -34,6 +40,16 @@ from ipoc_tpu_torch.utils.integrators import wrap_angle as t_wrap
 torch.set_num_threads(1)
 
 ATOL = 1e-12
+
+
+def boxed(module, limit=0.3):
+    """A cartpole module whose ``make_ocp(dt)`` adds the cart box
+    (``cart_limit`` 0.3: BASELINE.json config 3)."""
+    return types.SimpleNamespace(**{
+        **vars(module),
+        "make_ocp": lambda dt: module.make_ocp(dt, cart_limit=limit)})
+
+
 # model: (JAX module, port module, nx, nu, the controls' centre inside
 # the box)
 MODELS = {
@@ -42,6 +58,8 @@ MODELS = {
     "quadrotor": (j_quadrotor, t_quadrotor, 6, 2, t_quadrotor.HOVER),
     "double_integrator": (j_double_integrator, t_double_integrator, 2, 1,
                           0.0),
+    "unicycle": (j_unicycle, t_unicycle, 3, 2, 0.0),
+    "cartpole_box": (boxed(j_cartpole), boxed(t_cartpole), 4, 1, 0.0),
 }
 
 

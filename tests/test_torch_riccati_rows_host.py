@@ -16,7 +16,7 @@ and held
   start one scalar past an aligned address and on an indefinite R at one
   stage of one lane; the fused backward sweep (the codegen's split of the
   stage program included) against the plain fused iteration, cartpole,
-  pendulum and the quadrotor (nx=6, nu=2), its gains through the closed-loop rollout they give; the
+  pendulum, the quadrotor (nx=6, nu=2) and the unicycle (nx=3, nu=2), its gains through the closed-loop rollout they give; the
   split itself (post after pre is the stage program, to the bit);
 * the launch rule (lanes per scenario, scenarios per block) against the
   headers' constants at B in {1, 3, 4096};
@@ -47,6 +47,7 @@ from ipoc_tpu.ops.pallas.seq_newton_kernel import (
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops.codegen.scalarize import ELEMENTARY_CALLS as CALLS
@@ -270,7 +271,8 @@ def test_host_seq_trial_matches_jax_kernel_interpret(host_seq):
 
 # model: (port module, nx, nu, the controls' centre inside the box)
 MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
-          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER),
+          "unicycle": (t_unicycle, 3, 2, 0.3)}
 FT = 12  # the models' horizon (dt = 1 / FT)
 
 
@@ -371,17 +373,19 @@ def test_backward_halves_are_the_stage_program(host_fused):
     lam) equals stage_bwd(x, u, bp, lam) to the bit on every output (torch
     evaluators of the DAGs, float64); the handoff values are the inputs and
     the elementary-function calls that post reads (10 per stage at
-    cartpole, 8 at pendulum, 15 at the quadrotor; pre computes 10
-    operations at cartpole and pendulum, 14 at the quadrotor), and post computes every operation of the program but those calls
+    cartpole, 8 at pendulum, 15 at the quadrotor, 13 at the unicycle;
+    pre computes 10 operations at cartpole and pendulum, 14 at the
+    quadrotor, 24 at the unicycle: its five barrier logs among them), and
+    post computes every operation of the program but those calls
     and what only they read."""
     _, ocp, nx, _ = host_fused
-    nu = {4: 1, 2: 1, 6: 2}[nx]
+    nu = {4: 1, 2: 1, 6: 2, 3: 2}[nx]
     prog = tf.scalar_programs(ocp, nx, nu)["stage_bwd"]
     pre, post = tf.backward_halves(ocp, nx, nu)
-    assert pre.out_shapes == [({4: 10, 2: 8, 6: 15}[nx],)]
+    assert pre.out_shapes == [({4: 10, 2: 8, 6: 15, 3: 13}[nx],)]
     assert {h.op for h in pre.outs[0]} <= CALLS | {"input"}
     assert {nd.op for nd in post.order} & CALLS == set()
-    assert pre.stats["ops"] == {4: 10, 2: 10, 6: 14}[nx]
+    assert pre.stats["ops"] == {4: 10, 2: 10, 6: 14, 3: 24}[nx]
     assert post.stats["ops"] >= prog.stats["ops"] - pre.stats["ops"]
     gen = torch.Generator().manual_seed(nx)
     args = [0.1 + 0.4 * torch.rand(tuple(s) + (16,), generator=gen,

@@ -13,7 +13,7 @@ NaN first.  Here they are compiled with ``g++`` and held
 
 * the rollout cost in float64 at 1e-12 of scale to ``rollout_cost_plain``
   (xs, xT, the barrier total cost, sum ||cu||^2), cartpole, pendulum and
-  the planar quadrotor (nx=6, nu=2) at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the one-thread
+  the planar quadrotor (nx=6, nu=2) and the unicycle (nx=3, nu=2) at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the one-thread
   loop it replaces (the parent kernel's, ``roll_cost`` whole, built by the
   same compiler) bit for bit in float64 and float32, at the kernel's group
   and chunk and at those timed against it; on inputs that start one scalar
@@ -55,6 +55,7 @@ from ipoc_tpu.parallel import lqt as J
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import scan_kernels as sk
@@ -67,7 +68,8 @@ TOL = 1e-12
 DT = 1.0 / 40
 # model: (port module, nx, nu, the controls' centre inside the box)
 MODELS = {"cartpole": (t_cartpole, 4, 1, 0.0), "pendulum": (t_pendulum, 2, 1, 0.0),
-          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER)}
+          "quadrotor": (t_quadrotor, 6, 2, t_quadrotor.HOVER),
+          "unicycle": (t_unicycle, 3, 2, 0.3)}
 # (G lanes per scenario, W stages per chunk): the kernel's first, then
 # those timed against it.
 ROLL_SHAPES = ("kernel's", (8, 8), (4, 8), (1, 8))
@@ -388,7 +390,7 @@ def test_rollout_cost_parts_are_the_stage_program(roll):
     and ||cu||^2 (each the product of its pair) to the bit on the torch
     evaluators in float64."""
     _, ocp, nx, _ = roll
-    nu = {4: 1, 2: 1, 6: 2}[nx]
+    nu = {4: 1, 2: 1, 6: 2, 3: 2}[nx]
     prog = tf.scalar_programs(ocp, nx, nu)["roll_cost"]
     step, ev = tf.rollout_cost_parts(ocp, nx, nu)
     t_step, t_ev = tf.transition_parts(ocp, nx, nu)

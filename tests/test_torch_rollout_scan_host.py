@@ -9,7 +9,7 @@ reading the lanes' values as they stood before it, with the shared memory
 filled with NaN first.  Here they are compiled with ``g++`` and held
 
 * the rollout in float64 at 1e-12 of scale to ``rollout_plain``, cartpole,
-  pendulum and the planar quadrotor (nx=6, nu=2) at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the
+  pendulum, the planar quadrotor (nx=6, nu=2) and the unicycle (nx=3, nu=2) at dt = 1/40, B in {1, 3, 37} and T in {1, 7, 40}; to the
   one-thread loop it replaces (the parent kernel's, built by the same
   compiler) bit for bit in float64 and float32, at the kernel's chunk
   length and at those measured against it; on inputs that start one scalar
@@ -42,11 +42,13 @@ import torch
 from ipoc_tpu.models import cartpole as j_cartpole
 from ipoc_tpu.models import pendulum as j_pendulum
 from ipoc_tpu.models import quadrotor as j_quadrotor
+from ipoc_tpu.models import unicycle as j_unicycle
 from ipoc_tpu.ops.pallas import fused_iter_kernel as jf
 from ipoc_tpu.ops.pallas.scan_kernels import pallas_affine_scan
 from ipoc_tpu_torch.models import cartpole as t_cartpole
 from ipoc_tpu_torch.models import pendulum as t_pendulum
 from ipoc_tpu_torch.models import quadrotor as t_quadrotor
+from ipoc_tpu_torch.models import unicycle as t_unicycle
 from ipoc_tpu_torch.ops import cuda
 from ipoc_tpu_torch.ops import fused_iter as tf
 from ipoc_tpu_torch.ops import scan_kernels as sk
@@ -59,7 +61,8 @@ DT = 1.0 / 40
 # box)
 MODELS = {"cartpole": (t_cartpole, j_cartpole, 4, 1, 0.0),
           "pendulum": (t_pendulum, j_pendulum, 2, 1, 0.0),
-          "quadrotor": (t_quadrotor, j_quadrotor, 6, 2, t_quadrotor.HOVER)}
+          "quadrotor": (t_quadrotor, j_quadrotor, 6, 2, t_quadrotor.HOVER),
+          "unicycle": (t_unicycle, j_unicycle, 3, 2, 0.3)}
 # Stages per chunk: the kernel's (8 in float32, 1 in float64) first, then
 # those timed against it.
 ROLLOUT_CHUNKS = ("kernel's", 2, 4, 16)
