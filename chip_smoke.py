@@ -238,15 +238,40 @@ tracing) and then runs its phases, each printing one JSON line:
      (U5, last) the multigrid on 128 of U2's scenarios in float64, the
      card against the CPU: equal steps and iterations on both levels, the
      same fallback lanes, controls within 1e-8.
+  V. the auxiliaries (``utils.timing``, ``utils.profiling``,
+     ``solvers/checkpoint.py``) and the examples ``examples/torch_*.py``:
+     (V2) ``time_fn`` on one 4096-lane multigrid call (reps 3), its median
+     within 25% of the same call's CUDA-event time, and a ``trace`` of
+     one call with an ``annotate("ipoc_mg")`` span, its Chrome trace
+     holding the mega kernel's and the rollout-cost kernel's device
+     events and the span; (V1) a checkpointed campaign at BASELINE config
+     5's size: phase I's pool tiled to 65,536 scenarios in chunks of
+     16,384, each chunk bench.py's multigrid, run whole (solves/s, its
+     launches), then stopped in its third chunk and resumed by a fresh
+     runner, which must solve chunks 2 and 3 alone and return the whole
+     run's controls and iterations to the bit, on the card; (V1b) the
+     runner's default solve (``solve_batch``, par, DEFAULT_CONFIG) on 64
+     pendulum H=20 scenarios in float64 in chunks of 32, the card against
+     the CPU child (equal iterations, controls within 1e-8), the card's
+     directory resumed on the CPU with no chunk solved; (V3, meanwhile)
+     the examples as child processes on the card: the linear demo (its
+     final state within 1e-2 of the origin), the runtime sweep (pendulum
+     H=20, par and seq) and the sweep agreement on its controls (every
+     gate, float64 on the CPU), the NMPC loop with 4096 controllers (10
+     steps, at phase 0's pendulum time step) and with one (3 steps), each
+     run on the card holding its path's kernels among the launches it
+     prints (par: #17 and #15; seq: #3; one NMPC controller: #5 and #6;
+     the packed NMPC: #13 and #11), and ``torch_linear_mpc.py``'s ``build_lqt`` held to phase P's
+     LQT.
 
 Phases B, E, J, the second halves of M and N, R's float64 check, T3, P64
 and U5 run last: their CPU halves (and L's and Q's CPU golden solves) run
 meanwhile, in one child process each, started at the beginning (P's, Q's,
-R's, T's and U's when phase P starts).  A failed
+R's, T's and U's when phase P starts, V1b's when V does).  A failed
 check fails its phase; the other phases still run, and any failure exits
 non-zero.  The line before the last holds the kernels' record; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset of
-A-U (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
+A-V (default: all; phase 0, the device and the build, always runs).  The line before the kernels' record gives the
 script's total seconds.  Without a card, or outside a checkout of the
 repository, the script exits non-zero and prints no result.
 """
@@ -1182,6 +1207,8 @@ def cpu_reference_solve(phase):
         return uni_cpu()
     if phase == "P":
         return nmpc_cpu()
+    if phase == "V":
+        return aux_default_cpu()
     pool = make_pool(cartpole, POOL, torch.float32)
     if phase == "Q":
         from ipoc_tpu_torch import FAST_CONFIG, solve_batch
@@ -5637,6 +5664,459 @@ def phase_multigrid_card_vs_cpu(dev, cpu_ref):
     check(du <= 1e-8, f"U5: controls {du} apart")
 
 
+# ---------------------------------------------------------------------------
+# The auxiliaries: phase V
+# ---------------------------------------------------------------------------
+
+AUX_POOL = 16 * LANES    # BASELINE.json config 5's 65,536 scenarios
+AUX_CHUNK = 4 * LANES    # 16,384 scenarios a chunk: four chunks
+AUX_STOP = 2             # V1's run 1 stops in its third chunk's solve
+# V1b: pendulum scenarios, chunk size and horizon of the default solve.
+AUX_DEFAULT = (64, 32, 20)
+AUX_TIMING_RTOL = 0.25   # V2: time_fn's median against the CUDA events
+AUX_EXAMPLE_TIMEOUT_S = 150
+
+
+class CampaignInterrupted(Exception):
+    """V1's first run, stopped inside a chunk's solve."""
+
+
+def aux_dir(name):
+    """An empty directory ``build/aux/<name>`` beside this script."""
+    import shutil
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "aux", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def aux_multigrid(ocp, ocp_c, u, x0):
+    """bench.py's multigrid (BATCH_CONFIG, coarsen 4, a DDP coarse level,
+    4096 lanes, refill every 32) as a campaign's ``solve_fn``: its
+    solution as a ``BatchSolution`` (the fine level's iterations)."""
+    from ipoc_tpu_torch import (
+        BATCH_CONFIG,
+        BatchSolution,
+        solve_stream_multigrid,
+    )
+
+    sol = solve_stream_multigrid(ocp, ocp_c, COARSEN, u, x0, BATCH_CONFIG,
+                                 lanes=LANES, refill_every=REFILL,
+                                 coarse_impl="ddp")
+    return BatchSolution(sol.controls, sol.iterations)
+
+
+def aux_campaign(pool32, dev):
+    """V1: a checkpointed campaign at BASELINE config 5's size, phase I's
+    pool tiled to 65,536 scenarios in chunks of 16,384, each chunk
+    bench.py's multigrid: an uninterrupted run (timed, its launches
+    counted), then a run stopped in its third chunk and a fresh runner
+    resuming it, which must solve chunks 2 and 3 alone and return the
+    uninterrupted run's controls and iterations to the bit."""
+    import torch
+
+    from ipoc_tpu_torch import BATCH_CONFIG
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers.checkpoint import CheckpointedBatchRunner
+
+    ocp, ocp_c = model_ocp("cartpole"), model_ocp("cartpole", COARSEN)
+    tiles = AUX_POOL // pool32[0].shape[0]
+    u = pool32[0].to(dev).repeat(tiles, 1, 1)
+    x0 = pool32[1].to(dev).repeat(tiles, 1)
+    solved, stop = [], [None]
+
+    def solve_fn(uu, xx):
+        if len(solved) == stop[0]:
+            raise CampaignInterrupted(f"stopped before chunk {len(solved)}")
+        solved.append(int(uu.shape[0]))
+        return aux_multigrid(ocp, ocp_c, uu, xx)
+
+    def campaign(directory):
+        return CheckpointedBatchRunner(directory, AUX_CHUNK).run(
+            ocp, u, x0, BATCH_CONFIG, solve_fn=solve_fn)
+
+    aux_multigrid(ocp, ocp_c, u[:256], x0[:256]).iterations.cpu()  # warm-up
+    whole, split = aux_dir("campaign_whole"), aux_dir("campaign_resumed")
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    ref = campaign(whole)
+    ref.iterations.cpu()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.launches.items() if v}
+    whole_chunks, solved[:] = list(solved), []
+
+    stop[0] = AUX_STOP
+    try:
+        campaign(split)
+        interrupted = False
+    except CampaignInterrupted:
+        interrupted = True
+    run1, solved[:], stop[0] = list(solved), [], None
+    t0 = time.perf_counter()
+    got = campaign(split)
+    got.iterations.cpu()
+    resume_wall = time.perf_counter() - t0
+    run2 = list(solved)
+    bit_equal = (torch.equal(got.controls, ref.controls)
+                 and torch.equal(got.iterations, ref.iterations))
+    devices = sorted({str(t.device) for t in (*ref, *got)})
+    it = ref.iterations.double()
+    rec = {"phase": "V1", "model": "cartpole", "horizon": T,
+           "dtype": "float32", "scenarios": AUX_POOL, "chunk_size": AUX_CHUNK,
+           "solve_fn": "bench.py's multigrid: BATCH_CONFIG, coarsen "
+                       f"{COARSEN}, coarse_impl ddp, {LANES} lanes, refill "
+                       f"every {REFILL}",
+           "wall_s": wall, "solves_per_s": AUX_POOL / wall,
+           "chunks_solved_uninterrupted": whole_chunks,
+           "launches": launches,
+           "run1_interrupted": interrupted, "run1_chunks_solved": run1,
+           "run2_chunks_solved": run2, "resume_wall_s": resume_wall,
+           "bit_equal_to_uninterrupted": bit_equal, "devices": devices,
+           "bytes_written": dir_bytes(split),
+           "mean_iterations": float(it.mean()),
+           "max_iterations": int(it.max()),
+           "finite_controls": bool(torch.isfinite(ref.controls).all())}
+    emit(rec)
+    check(whole_chunks == [AUX_CHUNK] * (AUX_POOL // AUX_CHUNK),
+          f"V1: the uninterrupted run solved {whole_chunks}")
+    check(interrupted and run1 == [AUX_CHUNK] * AUX_STOP,
+          f"V1: run 1 solved {run1} before its stop")
+    check(run2 == [AUX_CHUNK] * 2, f"V1: the resumed run solved {run2}, "
+          "not chunks 2 and 3 alone")
+    check(bit_equal, "V1: the resumed campaign differs from the "
+          "uninterrupted one")
+    check(devices == ["cuda:0"], f"V1: solutions on {devices}")
+    check(rec["finite_controls"], "V1: non-finite controls")
+    check(launches.get("mega", 0) > 0 and launches.get("rollout_cost", 0) > 0,
+          f"V1: the multigrid launched {launches}")
+
+
+def aux_default_run(directory, device):
+    """V1b's campaign: the pendulum pool's first AUX_DEFAULT scenarios in
+    float64 on ``device``, the runner's default solve (``solve_batch``,
+    ``method="par"``, DEFAULT_CONFIG).  Returns ``(solution, wall_s)``."""
+    import torch
+
+    from ipoc_tpu_torch import DEFAULT_CONFIG
+    from ipoc_tpu_torch.models import pendulum
+    from ipoc_tpu_torch.solvers.checkpoint import CheckpointedBatchRunner
+
+    n, chunk, horizon = AUX_DEFAULT
+    u, x0 = (a.to(device, torch.float64)
+             for a in make_pool(pendulum, n, torch.float32, horizon=horizon))
+    t0 = time.perf_counter()
+    sol = CheckpointedBatchRunner(directory, chunk).run(
+        model_ocp("pendulum", 1, horizon), u, x0, DEFAULT_CONFIG, "par")
+    sol.iterations.cpu()
+    return sol, time.perf_counter() - t0
+
+
+def aux_default_cpu():
+    """The CPU half of V1b: its campaign with the plain versions, in a
+    directory of its own; ``(controls, iterations, wall_s)``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        sol, wall = aux_default_run(d, "cpu")
+    return sol.controls, sol.iterations, wall
+
+
+def aux_default_campaign(dev, cpu_ref):
+    """V1b: the runner's default ``solve_fn`` on the card against the CPU
+    (equal iterations, controls within 1e-8), and the card's directory
+    resumed on the CPU with no chunk solved."""
+    import torch
+
+    from ipoc_tpu_torch.ops import cuda
+    from ipoc_tpu_torch.solvers import checkpoint
+
+    directory = aux_dir("campaign_default")
+    cuda.reset_launches()
+    card, t_card = aux_default_run(directory, dev)
+    launches = {k: v for k, v in cuda.launches.items() if v}
+    cpu_u, cpu_it, t_cpu = cpu_ref
+    du = float((card.controls.cpu() - cpu_u).abs().max())
+    with counting(checkpoint, "solve_batch") as solves:
+        resumed, _ = aux_default_run(directory, "cpu")
+    n, chunk, horizon = AUX_DEFAULT
+    rec = {"phase": "V1b", "model": "pendulum", "horizon": horizon,
+           "dtype": "float64", "scenarios": n, "chunk_size": chunk,
+           "method": "par", "config": "DEFAULT_CONFIG",
+           "wall_s_card": t_card, "wall_s_cpu_child": t_cpu,
+           "launches": launches,
+           "lanes_with_different_iterations": int(
+               (card.iterations.cpu() != cpu_it).sum()),
+           "max_abs_du": du, "devices": sorted({str(t.device)
+                                                for t in card}),
+           "cpu_resume_chunks_solved": len(solves.calls),
+           "cpu_resume_bit_equal": bool(
+               torch.equal(resumed.controls, card.controls.cpu())
+               and torch.equal(resumed.iterations, card.iterations.cpu())),
+           "cpu_resume_devices": sorted({str(t.device) for t in resumed})}
+    emit(rec)
+    check(rec["lanes_with_different_iterations"] == 0,
+          f"V1b: iterations differ on "
+          f"{rec['lanes_with_different_iterations']} lanes")
+    check(du <= 1e-8, f"V1b: controls {du} apart")
+    check(rec["devices"] == ["cuda:0"], f"V1b: solution on {rec['devices']}")
+    check(rec["cpu_resume_chunks_solved"] == 0
+          and rec["cpu_resume_bit_equal"]
+          and rec["cpu_resume_devices"] == ["cpu"],
+          "V1b: the CPU did not resume the card's directory as it stood")
+    check(launches.get("par_newton_trial", 0) > 0
+          and launches.get("affine_scan", 0) > 0,
+          f"V1b: solve_batch launched {launches}")
+
+
+def aux_timing_and_trace(pool32, dev):
+    """V2: ``utils.timing.time_fn`` on one 4096-lane multigrid call (reps
+    3) against the same call's CUDA-event wall; ``utils.profiling.trace``
+    around one call with an ``annotate("ipoc_mg")`` span, its Chrome trace
+    parsed for the mega kernel's and the rollout-cost kernel's device
+    events and the span."""
+    import torch
+
+    from ipoc_tpu_torch.utils import profiling, timing
+
+    ocp, ocp_c = model_ocp("cartpole"), model_ocp("cartpole", COARSEN)
+    u, x0 = (a[:LANES].to(dev) for a in pool32)
+
+    def call(*_):
+        return aux_multigrid(ocp, ocp_c, u, x0).iterations
+
+    mean_s, median_s, times = timing.time_fn(call, reps=3)
+    ev_ms = event_ms(call, 3)
+    logdir = aux_dir("trace")
+    with profiling.trace(logdir) as d:
+        with profiling.annotate("ipoc_mg"):
+            timing.sync(call())
+    (name,) = os.listdir(d)
+    with open(os.path.join(d, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+
+    def named(part):
+        return sum(v for k, v in kernels.items() if part in k)
+
+    spans = sorted({e.get("cat") for e in events
+                    if e.get("name") == "ipoc_mg"})
+    rel = abs(median_s * 1e3 - ev_ms) / ev_ms
+    rec = {"phase": "V2", "scenarios": LANES,
+           "time_fn_mean_s": mean_s, "time_fn_median_s": median_s,
+           "time_fn_times_s": times, "cuda_event_ms_mean_of_3": ev_ms,
+           "rel_diff": rel, "trace_file": name,
+           "trace_bytes": os.path.getsize(os.path.join(d, name)),
+           "trace_events": len(events),
+           "mega_kernel_events": named("mega_kernel"),
+           "rollout_cost_kernel_events": named("rollout_cost_kernel"),
+           "kernel_events": sum(kernels.values()),
+           "ipoc_mg_span_categories": spans}
+    emit(rec)
+    check(rel <= AUX_TIMING_RTOL, f"V2: time_fn's median {median_s} s "
+          f"against the events' {ev_ms} ms")
+    check(rec["mega_kernel_events"] > 0
+          and rec["rollout_cost_kernel_events"] > 0,
+          f"V2: the trace's kernels are {sorted(kernels)}")
+    check("user_annotation" in spans, f"V2: the ipoc_mg span: {spans}")
+
+
+def example_module(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def start_example(label, name, args, log_dir):
+    """``python3 examples/<name>.py args`` in a child process, its standard
+    output and error in ``log_dir/<label>.out`` and ``.err``; returns
+    ``(process, stdout path, start time)``.  Each child gets one CPU
+    thread: V3's five processes share the host's cores with this one and
+    V1b's CPU child."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(log_dir, f"{label}.out")
+    with open(out, "w") as fo, open(os.path.join(log_dir, f"{label}.err"),
+                                     "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(root, "examples", f"{name}.py"),
+             *args], stdout=fo, stderr=fe, cwd=root,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+    return proc, out, time.perf_counter()
+
+
+def json_lines(path):
+    """The JSON objects among a file's lines."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.startswith("{")]
+
+
+def aux_examples_start():
+    """V3's example runs on the card, each a child process started now
+    (the sweep agreement when the sweep has ended): ``(runs, log_dir)``
+    with ``runs[label] = (process, stdout path, start time)``."""
+    log_dir = aux_dir("examples")
+    sweep = os.path.join(log_dir, "sweep")
+    runs = {
+        "linear_demo": ("torch_linear_demo", []),
+        "runtime_benchmark": ("torch_runtime_benchmark", [
+            "--model", "pendulum", "--horizons", "20", "--solvers",
+            "par,seq", "--reps", "1", "--save-controls", "--outdir",
+            sweep]),
+        # The pendulum at phase 0's time step, whose kernels are built:
+        # another step would build a fused library of its own here.
+        "nonlinear_mpc_batch": ("torch_nonlinear_mpc", [
+            "--batch", str(LANES), "--steps", "10", "--dt", str(DT)]),
+        "nonlinear_mpc_single": ("torch_nonlinear_mpc", ["--steps", "3"]),
+    }
+    return {label: start_example(label, name, args, log_dir)
+            for label, (name, args) in runs.items()}, log_dir
+
+
+# The kernels each example's path must launch on the card (cuda.launches'
+# names): the par solve #17 and #15; the single seq solve #3 (its Riccati
+# sweep is plain in both packages; #1 is the lockstep seq trial's); one
+# NMPC controller under BATCH_CONFIG, whose Newton step is the fused one,
+# #5 and #6; the packed NMPC resolver #13 and #11.
+EXAMPLE_KERNELS = {"par": ("par_newton_trial", "affine_scan"),
+                   "seq": ("seq_costates",),
+                   "fused": ("fused_bwd", "fused_fwd"),
+                   "packed": ("mega", "rollout_cost")}
+
+
+def aux_examples_finish(runs, log_dir, dev):
+    """V3: wait for the examples (starting the sweep agreement, on the
+    CPU in float64, once the sweep has written its controls), hold each to
+    its gate and its card runs to ``EXAMPLE_KERNELS``, and hold
+    ``examples/torch_linear_mpc.py``'s ``build_lqt`` to phase P's LQT."""
+    import torch
+
+    deadline = time.perf_counter() + AUX_EXAMPLE_TIMEOUT_S
+    walls, pending = {}, set(runs)
+    while pending and time.perf_counter() < deadline:
+        for label in sorted(pending):
+            proc, _, t0 = runs[label]
+            if proc.poll() is None:
+                continue
+            walls[label] = time.perf_counter() - t0
+            pending.discard(label)
+            if label == "runtime_benchmark" and proc.returncode == 0:
+                runs["sweep_agreement"] = start_example(
+                    "sweep_agreement", "torch_sweep_agreement",
+                    ["--model", "pendulum", "--outdir",
+                     os.path.join(log_dir, "sweep"), "--device", "cpu"],
+                    log_dir)
+                pending.add("sweep_agreement")
+        time.sleep(0.2)
+    results = {}
+    for label, (proc, out, _) in runs.items():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        results[label] = {"rc": proc.returncode, "wall_s": walls.get(label),
+                          "json": json_lines(out)}
+    mine = example_module("torch_linear_mpc").build_lqt(5, 1e-3,
+                                                        torch.float64, dev)
+    ref = double_integrator_lqt(5, 1e-3, torch.float64, dev)
+    lqt_err = max(float((a - b).abs().max()) for a, b in zip(mine, ref))
+
+    def last(label):
+        lines = results[label]["json"]
+        return lines[-1] if lines else {}
+
+    demo, batch = last("linear_demo"), last("nonlinear_mpc_batch")
+    single = last("nonlinear_mpc_single")
+    sweep = results["runtime_benchmark"]["json"]
+    agree = results.get("sweep_agreement", {"json": []})["json"]
+    rec = {"phase": "V3",
+           "exit_codes": {k: v["rc"] for k, v in results.items()},
+           "wall_s": {k: v["wall_s"] for k, v in results.items()},
+           "linear_demo": demo,
+           "runtime_benchmark": [{k: r.get(k) for k in (
+               "solver", "horizon", "iterations", "median_s",
+               "max_abs_u", "launches")} for r in sweep],
+           "sweep_agreement": [{k: r.get(k) for k in (
+               "solver", "rel_cost_delta", "max_abs_dx", "bound_active_du",
+               "pass")} for r in agree],
+           "nonlinear_mpc_batch": batch, "nonlinear_mpc_single": single,
+           "linear_mpc_build_lqt_vs_phase_p": lqt_err}
+    emit(rec)
+    problems = [f"{k} exited {v['rc']}" for k, v in results.items()
+                if v["rc"] != 0]
+    if "sweep_agreement" not in results:
+        problems.append("the sweep agreement did not run")
+    if not demo or max(abs(v) for v in demo["final_state"]) > 1e-2 \
+            or not demo["device"].startswith("cuda"):
+        problems.append(f"linear_demo: {demo}")
+    if sorted(r.get("solver") for r in sweep) != ["par", "seq"]:
+        problems.append(f"runtime_benchmark: {sweep}")
+    if not agree or not all(r["pass"] for r in agree):
+        problems.append(f"sweep_agreement: {agree}")
+    if not batch or not batch["finite"] or batch["max_abs_u"] > 5.0 \
+            or not batch["device"].startswith("cuda"):
+        problems.append(f"nonlinear_mpc --batch {LANES}: {batch}")
+    if not single or not single["finite"] \
+            or not single["device"].startswith("cuda"):
+        problems.append(f"nonlinear_mpc (one controller): {single}")
+    if lqt_err > 1e-15:
+        problems.append(f"build_lqt {lqt_err} from phase P's LQT")
+    # Each example ran its path's kernels (the counts it prints on a card).
+    ran = [("linear_demo", demo, EXAMPLE_KERNELS["par"]),
+           (f"nonlinear_mpc --batch {LANES}", batch,
+            EXAMPLE_KERNELS["packed"]),
+           ("nonlinear_mpc (one controller)", single,
+            EXAMPLE_KERNELS["fused"])]
+    ran += [(f"runtime_benchmark {r.get('solver')}", r,
+             EXAMPLE_KERNELS.get(r.get("solver"), ())) for r in sweep]
+    for label, line, kernels in ran:
+        launched = line.get("launches", {})
+        if not kernels or not all(launched.get(k, 0) > 0 for k in kernels):
+            problems.append(f"{label} launched {launched}, not each of "
+                            f"{kernels}")
+    check(not problems, "V3: " + "; ".join(problems))
+
+
+def phase_aux(pool32, dev, cpu_ref):
+    """Phase V: the auxiliaries on the card.  V2 and V1 on an idle card
+    (their times are kept), then V3's examples in child processes while
+    V1b runs here; every part runs, and the phase fails if any part did."""
+    problems, runs = [], {}
+
+    def part(fn, *a):
+        try:
+            fn(*a)
+        except Exception as exc:  # report, go on with the other parts
+            problems.append(repr(exc))
+            traceback.print_exc()
+
+    try:
+        part(aux_timing_and_trace, pool32, dev)
+        part(aux_campaign, pool32, dev)
+        runs, log_dir = aux_examples_start()
+        part(lambda: aux_default_campaign(dev, cpu_ref()))
+        part(aux_examples_finish, runs, log_dir, dev)
+    finally:
+        for proc, _, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not problems, "; ".join(problems))
+
+
 def uni_kernel_record(timing, kernel):
     """A kernel's phase U times in the kernels' line (the merged trial's at
     the multigrid's coarse level, DDP at T=25; the mega kernel's Newton
@@ -5673,16 +6153,18 @@ def make_pool(model, n, dtype, seed=SEED, horizon=T):
 # its configurations, Q's its goldens and its batch) and of L's goldens.
 # P's, Q's, R's and T's start when phase P does: they run beside Q's
 # host-bound solves instead of slowing A-O's.
-CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "T", "U", "P", "Q", "R"]
+CPU_CHILDREN = ["B", "E", "J", "M", "N", "L", "T", "U", "P", "Q", "R", "V"]
 LATE_CHILDREN = ("P", "Q", "R", "T", "U")
+# V's starts with phase V: it is short, and V holds the card's time.
+AUX_CHILDREN = ("V",)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRSTU",
-                        help="subset of phases A-U to run after phase 0, "
+    parser.add_argument("--phases", default="ABCDEFGHIJKLMNOPQRSTUV",
+                        help="subset of phases A-V to run after phase 0, "
                              "which always runs (default: "
-                             "ABCDEFGHIJKLMNOPQRSTU); I needs H")
+                             "ABCDEFGHIJKLMNOPQRSTUV); I needs H")
     parser.add_argument("--cpu-reference", choices=CPU_CHILDREN,
                         help=argparse.SUPPRESS)  # a child process
     args = parser.parse_args(argv)
@@ -5745,7 +6227,8 @@ def main(argv=None):
                      "--cpu-reference", ph], stdout=subprocess.PIPE)
                 for ph in phases if ph in args.phases})
 
-        start(ph for ph in CPU_CHILDREN if ph not in LATE_CHILDREN)
+        start(ph for ph in CPU_CHILDREN
+              if ph not in LATE_CHILDREN + AUX_CHILDREN)
         # The bench's pool recipe (bench.py make_batch call), on the CPU;
         # the float64 runs take the float32 pool's exact values.
         pool32 = make_pool(cartpole, POOL, torch.float32)
@@ -5828,6 +6311,10 @@ def main(argv=None):
                 "U4": reference("U4")})) or ({}, {})
         for k, v in counts_u.items():
             counts[k] = (counts.get(k) or 0) + v
+        # The auxiliaries (the checkpointed campaign, timing, tracing and
+        # the examples): their launches are V's own record, checked there.
+        start(AUX_CHILDREN)
+        run("V", phase_aux, pool32, dev, lambda: reference("V"))
         quad64 = (tuple(a.double() for a in quad_pool())
                   if "T" in args.phases else None)
         for ph in CARD_VS_CPU:

@@ -24,7 +24,12 @@ warm transfer in the packed stream; the distribution layer on
 ``parallel.distributed``, ``parallel.time_sharded``: the horizon-sharded
 solve ``ip_newton_time_sharded`` and its batch x time form, and the
 batch-sharded solves and streams, exported from
-``ipoc_tpu_torch.solvers``); their models and derivatives.  ROADMAP.md
+``ipoc_tpu_torch.solvers``); their models and derivatives; the
+auxiliaries: restartable solve campaigns in chunks
+(``ipoc_tpu_torch.solvers.checkpoint.CheckpointedBatchRunner``, whose
+directories the JAX package's runner resumes, and the reverse), the timing
+protocol (``utils.timing``), Chrome traces of the host and the card
+(``utils.profiling``) and JSONL records (``utils.logging``).  ROADMAP.md
 lists what is still to port.
 """
 

@@ -52,11 +52,25 @@ def model_constants(module) -> dict:
 
 
 def to_numpy(value):
-    """Tensors, and tuples or NamedTuples of them, as numpy (on the host);
-    other values pass through."""
+    """Tensors, and tuples, NamedTuples, lists and dicts of them, as numpy
+    (on the host); other values pass through."""
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     if isinstance(value, tuple):
         out = [to_numpy(v) for v in value]
         return type(value)(*out) if hasattr(value, "_fields") else tuple(out)
+    if isinstance(value, list):
+        return [to_numpy(v) for v in value]
+    if isinstance(value, dict):
+        return {k: to_numpy(v) for k, v in value.items()}
     return value
+
+
+def pick_device(name: str) -> torch.device:
+    """A script's ``--device``: the device named, and no fallback to the
+    CPU where that is a CUDA device and there is no card."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on "
+                           "the CPU")
+    return device

@@ -1,8 +1,17 @@
 """The PyTorch port never imports jax."""
 
+import ast
+import glob
+import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
+
+EXAMPLES = sorted(glob.glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "examples", "torch_*.py")))
 
 MODULES = [
     "ipoc_tpu_torch",
@@ -14,7 +23,11 @@ MODULES = [
     "ipoc_tpu_torch.models.pendulum",
     "ipoc_tpu_torch.models.quadrotor",
     "ipoc_tpu_torch.models.unicycle",
+    "ipoc_tpu_torch.utils",
     "ipoc_tpu_torch.utils.integrators",
+    "ipoc_tpu_torch.utils.logging",
+    "ipoc_tpu_torch.utils.profiling",
+    "ipoc_tpu_torch.utils.timing",
     "ipoc_tpu_torch.ops.linalg",
     "ipoc_tpu_torch.ops.derivatives",
     "ipoc_tpu_torch.ops.cuda",
@@ -32,6 +45,7 @@ MODULES = [
     "ipoc_tpu_torch.parallel.time_sharded",
     "ipoc_tpu_torch.solvers.barrier",
     "ipoc_tpu_torch.solvers.batched",
+    "ipoc_tpu_torch.solvers.checkpoint",
     "ipoc_tpu_torch.solvers.globalization",
     "ipoc_tpu_torch.solvers.ip_ddp",
     "ipoc_tpu_torch.solvers.ip_newton",
@@ -69,3 +83,27 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
+def imported_packages(path):
+    """The top-level packages a Python file imports (every ``import`` and
+    ``from ... import`` statement, wherever it stands)."""
+    tree = ast.parse(open(path).read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_torch_examples_found():
+    assert len(EXAMPLES) == 6, EXAMPLES
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
+def test_torch_example_imports_no_jax(path):
+    """The port's examples import neither jax nor the JAX package."""
+    assert not imported_packages(path) & {"jax", "jaxlib", "ipoc_tpu"}
+    assert "ipoc_tpu_torch" in imported_packages(path)
